@@ -1,0 +1,414 @@
+"""Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path (spark_rapids_jni_tpu_torch) once on the card
+at TPC-H SF10 scale and checks it, in phases; any failure raises and the
+run exits non-zero:
+
+  1. the card: its name and power limit (nvidia-smi);
+  2. builds the CUDA kernels from the checkout (one nvcc per source, all
+     at once) and prints each kernel's registers and spills;
+  3. generates the q3 tables at 60M lineitem rows on the card and holds
+     every kernel (B1 murmur3, B2 xxhash64, B3 JCUDF rows) bit-exact
+     against its plain PyTorch version at the main path's shapes;
+  4. the main path with the launch counts set to 0: shuffle write
+     (partition route for 200 partitions + JCUDF rows), shuffle read (must
+     equal the input bit for bit), then q3's eager stage on the read-back
+     tables; the top 10 must equal an independent numpy q3 over the same
+     arrays, and every kernel must have launched; at 1M rows the card and
+     the CPU must give identical q3 tables;
+  5. timings by CUDA events (kernel, plain version, bound) and wall times.
+
+Prints JSON lines (timings, then the {"kernels": [...]} line) and, last,
+{"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
+no result.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+ALU_OPS_PER_S = 67e12       # H100 SXM non-tensor-core fp32 rate, used as
+#                             the rate of the kernels' 32-bit integer ops
+SF10_ROWS = 60_000_000      # lineitem rows; orders 15M, customer 1.5M
+PARTITIONS = 200            # spark.sql.shuffle.partitions default
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def jline(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, reps=10, warm=2):
+    """Mean device time of fn() in ms, by CUDA events over ``reps`` calls
+    after ``warm`` warm-up calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes, nops):
+    """Least time for the work: the larger of its bytes over the memory
+    rate and its operations over the ALU rate, and which one bounds it."""
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    o = nops / ALU_OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def wall(fn, dev):
+    """(fn(), host milliseconds) with the device drained on both sides."""
+    _sync(dev)
+    t = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    # ---- phase 1: the card ----------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    name = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
+    card = {"card": smi}
+
+    # ---- phase 2: build -------------------------------------------------
+    t = time.perf_counter()
+    reports = K.build_all()
+    log(f"built {sorted(reports) or 'nothing (up to date)'} in "
+        f"{time.perf_counter() - t:.1f} s")
+    for src, rep in reports.items():
+        for line in rep.splitlines():
+            if "Compiling entry function" in line or "registers" in line \
+                    or "spill" in line:
+                log(f"  {src}.cu: {line.strip()}")
+
+    # ---- phases 3 and 4 ---------------------------------------------------
+    state = check_kernels(dev, SF10_ROWS)
+    launches, summary = main_path(dev, state)
+    for wrapper, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"the SF10 main path never launched "
+                                 f"{wrapper}")
+    jline({"phase": "main_path_sf10", **card, **summary})
+
+    # ---- phase 5: timings -------------------------------------------------
+    entries = timings(state, launches, card)
+    breakdown(state, card)
+    jline({"kernels": entries})
+    jline({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                  "count": torch.cuda.device_count()}})
+    return 0
+
+
+def _schema(cols, for_xx):
+    from spark_rapids_jni_tpu_torch.ops import hashing as H
+    return [(*H._fixed_element_words(c.dtype, c.data, for_xx), c.validity)
+            for c in cols]
+
+
+def _rowconv_args(table):
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+    info = R.compute_column_information([c.dtype for c in table])
+    cols, valids, plan = R._word_plan(table, info)
+    nwords = R._round_up(info.size_per_row, 8) // 4
+    return cols, valids, plan, nwords, table.num_rows
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_kernels(dev, rows):
+    """Phase 3: the q3 tables at ``rows`` lineitem rows on ``dev``, and every
+    kernel against its plain version at the main path's shapes."""
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+
+    t = time.perf_counter()
+    arrays = tpch.q3_arrays(rows, 0)
+    cust, orders, lineitem = tpch.generate_q3_tables(rows, 0, dev)
+    _sync(dev)
+    log(f"generated q3 tables ({lineitem.num_rows} lineitem, "
+        f"{orders.num_rows} orders, {cust.num_rows} customer rows; "
+        f"lineitem {lineitem.device_nbytes() / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    def check_hash(label, fn, plain, sch, n, seed=42):
+        got = fn(sch, seed, n)
+        _sync(dev)
+        want = plain(sch, seed, n)
+        _sync(dev)
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"{label}: {bad} of {n} rows differ")
+        log(f"check {label}: bit-exact over {n} rows")
+
+    rng = np.random.default_rng(0)
+    n4 = min(1 << 22, rows)  # the JAX package's bench.py headline: 4M rows
+    head = [Column.from_numpy(rng.integers(-2**31, 2**31, n4)
+                              .astype(np.int32), device=dev),
+            Column.from_numpy(rng.integers(-2**62, 2**62, n4), device=dev),
+            Column.from_numpy(rng.random(n4, dtype=np.float32), device=dev),
+            Column.from_numpy(rng.random(n4), device=dev)]
+    head_nulls = [c.with_validity(torch.from_numpy(rng.random(n4) > 0.1)
+                                  .to(dev)) for c in head]
+    for label, cols in (("B1 headline 4M x4", head),
+                        ("B1 headline 4M x4 nullable", head_nulls)):
+        check_hash(label, K.murmur3_fixed_rows, K.murmur3_fixed_rows_plain,
+                   _schema(cols, False), n4)
+    check_hash("B1 SF10 l_orderkey", K.murmur3_fixed_rows,
+               K.murmur3_fixed_rows_plain, _schema([lineitem[0]], False),
+               rows)
+    for label, col in (("B2 SF10 l_orderkey", lineitem[0]),
+                       ("B2 SF10 o_orderkey", orders[0])):
+        check_hash(label, K.xxhash64_fixed_rows, K.xxhash64_fixed_rows_plain,
+                   _schema([col], True), col.size)
+
+    mixed_gen = [(np.int8, dt.INT8), (np.int64, dt.INT64),
+                 (np.int16, dt.INT16), (np.float32, dt.FLOAT32),
+                 (np.uint8, dt.BOOL8), (np.float64, dt.FLOAT64),
+                 (np.int32, dt.INT32), (np.uint16, dt.UINT16),
+                 (np.int8, dt.INT8), (np.int64, dt.INT64),
+                 (np.int32, dt.INT32)]
+    n1 = min(1 << 20, rows)
+    mixed = Table(tuple(
+        Column.from_numpy(rng.integers(0, 2**62, n1).astype(npt), d,
+                          validity=(rng.random(n1) > 0.2) if i % 3 else None,
+                          device=dev)
+        for i, (npt, d) in enumerate(mixed_gen)))
+    for label, table in (("B3 SF10 lineitem", lineitem),
+                         ("B3 1M mixed 11 columns", mixed)):
+        args = _rowconv_args(table)
+        got = K.rowconv_fixed_words(*args)
+        _sync(dev)
+        want = K.rowconv_fixed_words_plain(*args)
+        _sync(dev)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: words differ")
+        log(f"check {label}: bit-exact, {args[3]} words x {args[4]} rows")
+        del got, want
+    return {"arrays": arrays, "cust": cust, "orders": orders,
+            "lineitem": lineitem, "head": head, "rows": rows}
+
+
+def main_path(dev, state):
+    """Phase 4: the main path with the launch counts set to 0 just before
+    and read just after; then its checks. Returns (launches, summary)."""
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+    from spark_rapids_jni_tpu_torch.parallel.exchange import partition_ids
+
+    rows = state["rows"]
+    tables = {"customer": state["cust"], "orders": state["orders"],
+              "lineitem": state["lineitem"]}
+    K.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    def shuffle_write():
+        return {tn: (partition_ids(tab, [0], PARTITIONS),
+                     R.convert_to_rows(tab)) for tn, tab in tables.items()}
+
+    def shuffle_read():
+        return {tn: R.convert_from_rows(written[tn][1][0],
+                                        [c.dtype for c in tab])
+                for tn, tab in tables.items()}
+
+    written, write_ms = wall(shuffle_write, dev)
+    read, read_ms = wall(shuffle_read, dev)
+    top, q3_ms = wall(lambda: tpch.run_q3(read["customer"], read["orders"],
+                                          read["lineitem"]), dev)
+    launches = {"murmur3_fixed_rows": K.murmur3_fixed_rows.launches,
+                "xxhash64_fixed_rows": K.xxhash64_fixed_rows.launches,
+                "rowconv_fixed_words": K.rowconv_fixed_words.launches}
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if dev.type == "cuda" else None)
+    log(f"main path launches: {launches}")
+
+    li_rows = written["lineitem"][1]
+    if len(li_rows) != 1 or li_rows[0].children[0].size != 32 * rows:
+        raise AssertionError("lineitem rows: expected one batch of 32-byte "
+                             "rows")
+    for tn, tab in tables.items():
+        pids = written[tn][0]
+        if int(pids.min()) < 0 or int(pids.max()) >= PARTITIONS:
+            raise AssertionError(f"{tn}: partition id out of range")
+        for a, b in zip(tab, read[tn]):
+            if b.validity is not None or not torch.equal(
+                    a.data.view(torch.uint8), b.data.view(torch.uint8)):
+                raise AssertionError(f"{tn}: shuffle read differs")
+    log("check shuffle round trip: bit-identical for customer, orders, "
+        "lineitem")
+    got = [c.to_numpy() for c in top.columns]
+    want = numpy_q3(state["arrays"])
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"q3 top-10 column {i}: {g} != {w}")
+    if top.num_rows != 10 or not bool(top.columns[3].valid_mask().all()):
+        raise AssertionError("q3: expected 10 rows of non-null revenue")
+    log(f"check q3 top-10 == numpy q3: orderkeys {got[0].tolist()}")
+
+    small_rows = min(1_000_000, rows)
+    small = [tpch.run_q3(*tpch.generate_q3_tables(small_rows, 1, d))
+             for d in (dev, "cpu")]
+    for a, b in zip(*(t.columns for t in small)):
+        if not (torch.equal(a.data.cpu(), b.data)
+                and torch.equal(a.valid_mask().cpu(), b.valid_mask())):
+            raise AssertionError(f"q3 at {small_rows} rows: card != CPU")
+    log(f"check q3 at {small_rows} rows: {dev.type} == cpu")
+    return launches, {"rows": rows, "shuffle_write_ms": write_ms,
+                      "shuffle_read_ms": read_ms, "q3_eager_ms": q3_ms,
+                      "max_memory_allocated_gb": peak_gb,
+                      "launches": launches}
+
+
+def timings(state, launches, card):
+    """Phase 5: each kernel's device time at the main path's SF10 shape,
+    its plain version's, and its bound. Returns the kernel entries."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+
+    n = state["rows"]
+    lineitem = state["lineitem"]
+    li_mm = _schema([lineitem[0]], False)
+    li_xx = _schema([lineitem[0]], True)
+    li_args = _rowconv_args(lineitem)
+    # bytes: each input read once, each output written once; operations:
+    # the integer ops per row of the mixing (murmur3: 2 blocks + fmix of an
+    # 8-byte key; xxhash64: one 8-byte round + final, a 64-bit multiply as
+    # 4 32-bit ops; rowconv: a load, shift and OR per piece)
+    work = {
+        "murmur3_fixed_rows": (
+            lambda: K.murmur3_fixed_rows(li_mm, 42, n),
+            lambda: K.murmur3_fixed_rows_plain(li_mm, 42, n),
+            n * (8 + 4), n * 30),
+        "xxhash64_fixed_rows": (
+            lambda: K.xxhash64_fixed_rows(li_xx, 42, n),
+            lambda: K.xxhash64_fixed_rows_plain(li_xx, 42, n),
+            n * (8 + 8), n * 40),
+        "rowconv_fixed_words": (
+            lambda: K.rowconv_fixed_words(*li_args),
+            lambda: K.rowconv_fixed_words_plain(*li_args),
+            n * (8 + 4 + 8 + 4 + 32), n * 3 * len(li_args[2])),
+    }
+    entries = []
+    for kname, wrapper, source, replaces in K.KERNELS:
+        run, plain, nbytes, nops = work[wrapper]
+        b_ms, b_by = bound_ms(nbytes, nops)
+        entry = {"name": kname, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[wrapper],
+                 "bit_exact": True, "max_abs_err": 0, "ms": cuda_ms(run),
+                 "plain_ms": cuda_ms(plain, reps=3, warm=1),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        jline({"phase": "kernel_time", "rows": n, **card, **entry})
+        entries.append(entry)
+    head = _schema(state["head"], False)
+    n4 = state["head"][0].size
+    hb, hby = bound_ms(n4 * (4 + 8 + 4 + 8 + 4), n4 * 4 * 30)
+    jline({"phase": "headline_murmur3_4M_x4", **card, "rows": n4,
+           "ms": cuda_ms(lambda: K.murmur3_fixed_rows(head, 42, n4)),
+           "plain_ms": cuda_ms(lambda: K.murmur3_fixed_rows_plain(
+               head, 42, n4), reps=3, warm=1),
+           "bound_ms": hb, "bound_by": hby})
+    return entries
+
+
+def breakdown(state, card):
+    """Phase 5, warm: the main path's steps on lineitem, and q3, timed on
+    the device timeline (CUDA events around warm repeats; host gaps
+    included), then one warm q3 under torch.profiler: the device's busy
+    share and the aten ops that hold it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+    from spark_rapids_jni_tpu_torch.parallel.exchange import partition_ids
+
+    li, cust, orders = state["lineitem"], state["cust"], state["orders"]
+    rows = R.convert_to_rows(li)[0]
+    dtypes = [c.dtype for c in li]
+    q3 = lambda: tpch.run_q3(cust, orders, li)  # noqa: E731
+    jline({"phase": "warm_breakdown_sf10", **card, "rows": li.num_rows,
+           "partition_ids_lineitem_ms": cuda_ms(
+               lambda: partition_ids(li, [0], PARTITIONS), reps=5),
+           "convert_to_rows_lineitem_ms": cuda_ms(
+               lambda: R.convert_to_rows(li), reps=5),
+           "convert_from_rows_lineitem_ms": cuda_ms(
+               lambda: R.convert_from_rows(rows, dtypes), reps=5),
+           "q3_eager_ms": cuda_ms(q3, reps=3, warm=1)})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        q3()
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t) * 1e3
+    ev = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in ev
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    ops = sorted((e for e in ev if e.key.startswith("aten::")
+                  and e.device_time_total > 0),
+                 key=lambda e: -e.device_time_total)[:10]
+    jline({"phase": "q3_profile_sf10", **card, "wall_ms": span_ms,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / span_ms,
+           "top_aten_ops_inclusive_device_ms": {
+               e.key: e.device_time_total / 1e3 for e in ops}})
+
+
+def numpy_q3(a, cutoff=1200, segment=1, k=10):
+    """q3 over the generator's numpy arrays, independent of the port:
+    c_custkey and o_orderkey are arange, so both joins are index lookups.
+    Returns (orderkey, orderdate, shippriority, revenue) of the top k, by
+    revenue descending, orderdate ascending, then orderkey."""
+    cust_ok = a["c_mktsegment"] == segment
+    ord_ok = (a["o_orderdate"] < cutoff) & cust_ok[a["o_custkey"]]
+    lk = a["l_orderkey"]
+    li_ok = (a["l_shipdate"] > cutoff) & ord_ok[lk]
+    keys = lk[li_ok]
+    rev = a["l_extendedprice"][li_ok] * (
+        100 - a["l_discount"][li_ok].astype(np.int64))
+    order = np.argsort(keys, kind="stable")
+    ks, rs = keys[order], rev[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    sums = np.add.reduceat(rs, starts)
+    uk = ks[starts]
+    odate = a["o_orderdate"][uk]
+    prio = a["o_shippriority"][uk]
+    top = np.lexsort((uk, odate, -sums))[:k]
+    return uk[top], odate[top], prio[top], sums[top]
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,126 @@
+"""The port's CUDA kernels on the card: each kernel against its plain
+PyTorch version, and the slice on the card against the slice on the CPU.
+
+Marked ``gpu``: every test skips where no card is present. The file imports
+no JAX (the card's machine has none), so it runs there on its own:
+
+    python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spark_rapids_jni_tpu_torch import tpch
+from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+from spark_rapids_jni_tpu_torch.ops import hashing as H
+from spark_rapids_jni_tpu_torch.ops import kernels as K
+from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+from spark_rapids_jni_tpu_torch.parallel.exchange import partition_ids
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    """The card; skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run with -m gpu on the card)")
+    return torch.device("cuda")
+
+
+_MIXED = [(np.int8, dt.INT8), (np.int64, dt.INT64), (np.int16, dt.INT16),
+          (np.float32, dt.FLOAT32), (np.uint8, dt.BOOL8),
+          (np.float64, dt.FLOAT64), (np.int32, dt.INT32),
+          (np.uint16, dt.UINT16), (np.int8, dt.INT8), (np.uint64, dt.UINT64),
+          (np.int32, dt.INT32)]
+
+
+def _mixed(n, device, nulls=True, seed=0):
+    """11 columns, sub-word to 64-bit, floats with -0.0 and NaN."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for i, (npt, d) in enumerate(_MIXED):
+        vals = rng.integers(0, 2**63, n).astype(npt)
+        if d.is_floating:
+            vals = rng.standard_normal(n).astype(npt)
+            specials = np.array([0.0, -0.0, np.nan, -np.inf], npt)[:n]
+            vals[:len(specials)] = specials
+        v = rng.random(n) > 0.2 if nulls and i % 3 else None
+        cols.append(Column.from_numpy(vals, d, validity=v, device=device))
+    return Table(tuple(cols))
+
+
+@pytest.mark.parametrize("algo", ["murmur3", "xxhash64"])
+@pytest.mark.parametrize("nulls", [True, False])
+def test_hash_kernels_match_plain(cuda, algo, nulls):
+    t = _mixed(100_003, cuda, nulls)
+    xx = algo == "xxhash64"
+    schema = [(*H._fixed_element_words(c.dtype, c.data, xx), c.validity)
+              for c in t.columns]
+    fn = K.xxhash64_fixed_rows if xx else K.murmur3_fixed_rows
+    plain = K.xxhash64_fixed_rows_plain if xx else K.murmur3_fixed_rows_plain
+    for seed in (0, 42, -1):
+        before = fn.launches
+        got = fn(schema, seed, t.num_rows)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.device.type == "cuda"
+        assert torch.equal(got, plain(schema, seed, t.num_rows))
+
+
+def test_hash_wrapper_checks_its_inputs(cuda):
+    words = torch.zeros(8, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="u32 words"):
+        K.murmur3_fixed_rows([("u32", words, None)], 42, 8)
+    with pytest.raises(ValueError, match="span devices"):
+        K.murmur3_fixed_rows([("u64", words, None),
+                              ("u64", words.cpu(), None)], 42, 8)
+
+
+def test_rowconv_wrapper_checks_its_plan(cuda):
+    col = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):  # 8-byte read
+        K.rowconv_fixed_words([col], [None], [(0, 0, K.PART_LO, 0)], 2, 8)
+
+
+@pytest.mark.parametrize("n", [1, 777, 65_536])
+def test_rowconv_kernel_matches_plain(cuda, n):
+    for table in (_mixed(n, cuda), Table(_mixed(n, cuda).columns[:4])):
+        info = R.compute_column_information([c.dtype for c in table])
+        cols, valids, plan = R._word_plan(table, info)
+        nwords = R._round_up(info.size_per_row, 8) // 4
+        before = K.rowconv_fixed_words.launches
+        got = K.rowconv_fixed_words(cols, valids, plan, nwords, n)
+        torch.cuda.synchronize()
+        assert K.rowconv_fixed_words.launches == before + 1
+        assert torch.equal(got, K.rowconv_fixed_words_plain(
+            cols, valids, plan, nwords, n))
+        back = R.convert_from_rows(R.convert_to_rows(table)[0],
+                                   [c.dtype for c in table])
+        for a, b in zip(table, back):
+            assert torch.equal(a.data.view(torch.uint8),
+                               b.data.view(torch.uint8))
+            assert torch.equal(a.valid_mask(), b.valid_mask())
+
+
+def test_q3_on_card_equals_cpu(cuda):
+    """Shuffle write/read and q3 on the card give the CPU's q3 table bit for
+    bit, and the card's run launches B1, B2 and B3."""
+    K.reset_launches()
+    cust, orders, lineitem = tpch.generate_q3_tables(1 << 16, 3, cuda)
+    assert partition_ids(lineitem, [0], 200).device.type == "cuda"
+    rows = R.convert_to_rows(lineitem)
+    back = R.convert_from_rows(rows[0], [c.dtype for c in lineitem])
+    top_card = tpch.run_q3(cust, orders, back)
+    torch.cuda.synchronize()
+    assert K.murmur3_fixed_rows.launches == 1
+    assert K.xxhash64_fixed_rows.launches == 4
+    assert K.rowconv_fixed_words.launches == 1
+    top_cpu = tpch.run_q3(*tpch.generate_q3_tables(1 << 16, 3, "cpu"))
+    assert top_card.num_rows == top_cpu.num_rows == 10
+    for a, b in zip(top_card.columns, top_cpu.columns):
+        assert a.data.device.type == "cuda"
+        assert torch.equal(a.data.cpu(), b.data)
+        assert torch.equal(a.valid_mask().cpu(), b.valid_mask())
