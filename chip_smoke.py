@@ -11,14 +11,22 @@ run exits non-zero:
      at once) and prints each kernel's registers and spills;
   3. generates the q3 tables at 60M lineitem rows on the card and holds
      every kernel (B1 murmur3, B2 xxhash64, B3 JCUDF rows) bit-exact
-     against its plain PyTorch version at the main path's shapes;
+     against its plain PyTorch version at the main path's shapes; B3 also
+     at a 1M-row mixed nullable schema, at a 600-column schema whose rows
+     are split into several word windows, and at column views whose data
+     does not start on 16 bytes;
   4. the main path with the launch counts set to 0: shuffle write
      (partition route for 200 partitions + JCUDF rows), shuffle read (must
      equal the input bit for bit), then q3's eager stage on the read-back
      tables; the top 10 must equal an independent numpy q3 over the same
      arrays, and every kernel must have launched; at 1M rows the card and
      the CPU must give identical q3 tables;
-  5. timings by CUDA events (kernel, plain version, bound) and wall times.
+  5. timings by CUDA events around repeated wrapper calls (kernel, plain
+     version, bound), each kernel's own device time by torch.profiler
+     (``kernel_ms``), and wall times;
+     B3 at each of its schemas, with the byte bound of that schema, beside
+     a device-to-device copy_ that moves as many bytes (the rate this card
+     reaches).
 
 Prints JSON lines (timings, then the {"kernels": [...]} line) and, last,
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
@@ -62,6 +70,43 @@ def cuda_ms(fn, reps=10, warm=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(calls, reps=5):
+    """Mean device time per call of each (fn, kernel) in ``calls``: the
+    CUDA kernel whose name holds ``kernel``, which fn() launches once, timed
+    by torch.profiler — the kernel alone, without the host gaps that cuda_ms
+    counts when the wrapper's host work is the longer. One profiler session
+    for all calls; the kernels are attributed in launch order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for fn, _ in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn, _ in calls:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    names = {k for _, k in calls}
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and any(k in e.name for k in names)),
+                    key=lambda e: e.time_range.start)
+    out = []
+    for _, kernel in calls:
+        mine, events = events[:reps], events[reps:]
+        if len(mine) < reps or any(kernel not in e.name for e in mine):
+            raise AssertionError(f"the profiler did not see {reps} "
+                                 f"launches of {kernel}")
+        out.append(sum(e.time_range.elapsed_us() for e in mine) / 1e3 / reps)
+    return out
+
+
+# the CUDA kernel of each wrapper, by the name the profiler shows
+DEVICE_KERNEL = {"murmur3_fixed_rows": "murmur3_rows_kernel",
+                 "xxhash64_fixed_rows": "xxhash64_rows_kernel",
+                 "rowconv_fixed_words": "rowconv_tiles_kernel"}
 
 
 def bound_ms(nbytes, nops):
@@ -142,6 +187,48 @@ def _rowconv_args(table):
     return cols, valids, plan, nwords, table.num_rows
 
 
+def _rowconv_bytes(args):
+    """B3's device bytes: each element and validity byte read once, each
+    row's words written once."""
+    cols, valids, _, nwords, n = args
+    return (sum(c.element_size() * n for c in cols)
+            + sum(n for v in valids if v is not None) + 4 * nwords * n)
+
+
+def _wide_table(n, dev, rng):
+    """600 columns cycling through 11 fixed-width types, every third
+    nullable: rows of about 2.5 KB, split into several word windows."""
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+    types = [(np.int8, dt.INT8), (np.int64, dt.INT64), (np.int16, dt.INT16),
+             (np.float32, dt.FLOAT32), (np.uint8, dt.BOOL8),
+             (np.float64, dt.FLOAT64), (np.int32, dt.INT32),
+             (np.uint16, dt.UINT16), (np.int8, dt.INT8),
+             (np.uint64, dt.UINT64), (np.int32, dt.INT32)]
+    cols = []
+    for i in range(600):
+        npt, d = types[i % len(types)]
+        vals = torch.randint(0, 256, (n * np.dtype(npt).itemsize,),
+                             dtype=torch.uint8, device=dev)
+        data = vals.view(d.torch_dtype)
+        v = (torch.rand(n, device=dev) > 0.3) if i % 3 == 0 else None
+        cols.append(Column(d, n, data=data, validity=v))
+    return Table(tuple(cols))
+
+
+def _views_from(table, starts=(1, 3)):
+    """Column views starting at element 1 or 3 (alternately) of each column:
+    their data pointers are not 16-byte aligned."""
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+    n = table.num_rows - max(starts)
+    cols = []
+    for i, c in enumerate(table):
+        s = starts[i % len(starts)]
+        v = None if c.validity is None else c.validity[s:s + n]
+        cols.append(Column(c.dtype, n, data=c.data[s:s + n], validity=v))
+    return Table(tuple(cols))
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -207,19 +294,31 @@ def check_kernels(dev, rows):
                           validity=(rng.random(n1) > 0.2) if i % 3 else None,
                           device=dev)
         for i, (npt, d) in enumerate(mixed_gen)))
+    torch.manual_seed(0)
+    wide = _wide_table(min(250_000, rows), dev, rng)
+    views = _views_from(mixed)
+    if not any(c.data.data_ptr() % 16 for c in views):
+        raise AssertionError("the misaligned views are aligned")
     for label, table in (("B3 SF10 lineitem", lineitem),
-                         ("B3 1M mixed 11 columns", mixed)):
+                         ("B3 1M mixed 11 columns", mixed),
+                         ("B3 600-column wide", wide),
+                         ("B3 1M mixed, misaligned views", views)):
         args = _rowconv_args(table)
+        tiles = K.rowconv_tile_plan(
+            args[2], [c.element_size() for c in args[0]],
+            [v is not None for v in args[1]], args[3])
         got = K.rowconv_fixed_words(*args)
         _sync(dev)
         want = K.rowconv_fixed_words_plain(*args)
         _sync(dev)
         if not torch.equal(got, want):
             raise AssertionError(f"{label}: words differ")
-        log(f"check {label}: bit-exact, {args[3]} words x {args[4]} rows")
+        log(f"check {label}: bit-exact, {args[3]} words x {args[4]} rows, "
+            f"R {tiles.rows}, {len(tiles.windows)} word window(s)")
         del got, want
     return {"arrays": arrays, "cust": cust, "orders": orders,
-            "lineitem": lineitem, "head": head, "rows": rows}
+            "lineitem": lineitem, "head": head, "rows": rows,
+            "mixed": mixed, "wide": wide}
 
 
 def main_path(dev, state):
@@ -320,19 +419,37 @@ def timings(state, launches, card):
         "rowconv_fixed_words": (
             lambda: K.rowconv_fixed_words(*li_args),
             lambda: K.rowconv_fixed_words_plain(*li_args),
-            n * (8 + 4 + 8 + 4 + 32), n * 3 * len(li_args[2])),
+            _rowconv_bytes(li_args), n * 3 * len(li_args[2])),
     }
+    b3 = {label: _rowconv_args(state[label]) for label in ("mixed", "wide")}
+    k_ms = kernel_ms(
+        [(work[w][0], DEVICE_KERNEL[w]) for _, w, _, _ in K.KERNELS]
+        + [((lambda a=a: K.rowconv_fixed_words(*a)),
+            DEVICE_KERNEL["rowconv_fixed_words"]) for a in b3.values()])
     entries = []
-    for kname, wrapper, source, replaces in K.KERNELS:
+    for i, (kname, wrapper, source, replaces) in enumerate(K.KERNELS):
         run, plain, nbytes, nops = work[wrapper]
         b_ms, b_by = bound_ms(nbytes, nops)
         entry = {"name": kname, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[wrapper],
                  "bit_exact": True, "max_abs_err": 0, "ms": cuda_ms(run),
+                 "kernel_ms": k_ms[i],
                  "plain_ms": cuda_ms(plain, reps=3, warm=1),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         jline({"phase": "kernel_time", "rows": n, **card, **entry})
         entries.append(entry)
+    for i, (label, args) in enumerate(b3.items(), len(K.KERNELS)):
+        nbytes = _rowconv_bytes(args)
+        b_ms, b_by = bound_ms(nbytes, args[4] * 3 * len(args[2]))
+        jline({"phase": f"rowconv_time_{label}", **card, "rows": args[4],
+               "columns": len(args[0]), "row_bytes": 4 * args[3],
+               "bytes": nbytes,
+               "ms": cuda_ms(lambda: K.rowconv_fixed_words(*args)),
+               "kernel_ms": k_ms[i],
+               "plain_ms": cuda_ms(lambda: K.rowconv_fixed_words_plain(
+                   *args), reps=3, warm=1),
+               "bound_ms": b_ms, "bound_by": b_by})
+    copy_yardstick(_rowconv_bytes(li_args), card)
     head = _schema(state["head"], False)
     n4 = state["head"][0].size
     hb, hby = bound_ms(n4 * (4 + 8 + 4 + 8 + 4), n4 * 4 * 30)
@@ -342,6 +459,18 @@ def timings(state, launches, card):
                head, 42, n4), reps=3, warm=1),
            "bound_ms": hb, "bound_by": hby})
     return entries
+
+
+def copy_yardstick(nbytes, card):
+    """A device-to-device copy_ that moves ``nbytes`` (reads and writes
+    half each): the memory rate this card reaches, beside B3's times."""
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda: dst.copy_(src))
+    jline({"phase": "copy_yardstick", **card, "bytes_moved": 2 * src.numel(),
+           "ms": ms, "tb_per_s": 2 * src.numel() / ms / 1e9,
+           "bound_ms": 2 * src.numel() / HBM_BYTES_PER_S * 1e3})
+    del src, dst
 
 
 def breakdown(state, card):

@@ -23,11 +23,13 @@ source at once, one nvcc process each.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,9 +51,12 @@ _SIGNATURES = {
                           ctypes.c_uint, _VP, _VP],
     "srjt_xxhash64_rows": [_VP, _VP, _VP, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_ulonglong, _VP, _VP],
-    # (device metadata, ncols, nwords, n, out, stream)
-    "srjt_rowconv_rows": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                          _VP, _VP],
+    # (device metadata, nslots, nwin, npairs, npieces, rows per tile,
+    #  stage bytes, sub-tile rows, sub-tile bytes, n, out, stream)
+    "srjt_rowconv_rows": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _VP,
+                          _VP],
 }
 
 
@@ -306,21 +311,225 @@ def rowconv_fixed_words_plain(cols: Sequence[torch.Tensor],
     return (words & 0xFFFFFFFF).to(torch.int32)
 
 
-def _rowconv_meta(cols, valids, plan, nwords: int, dev):
-    """Kernel metadata in one int64 device tensor:
-    [data pointers (ncols) | validity pointers (ncols) |
-     word_first (nwords + 1) | pieces (column | part << 16 | shift << 20)]."""
-    ncols = len(cols)
-    first = [0] * (nwords + 1)
-    for word, _, _, _ in plan:
-        first[word + 1] += 1
-    for w in range(nwords):
-        first[w + 1] += first[w]
-    pieces = [c | (part << 16) | (shift << 20) for _, c, part, shift in plan]
-    meta = ([t.data_ptr() for t in cols]
-            + [0 if v is None else v.data_ptr() for v in valids]
-            + first + pieces)
-    return torch.tensor(meta, dtype=torch.int64).to(dev)
+# The kernel (csrc/rowconv.cu) works on tiles of R rows. For each tile it
+# stages, in shared memory, the R-element slice of every column that has a
+# piece in the current window of words (and of every validity array with a
+# piece there), then assembles the window's 8-byte word pairs from shared
+# memory into an output sub-tile of ``out_rows`` rows, which it stores. The
+# tile plan below chooses R, the windows and the sub-tile; it is plain
+# Python so the CPU tests reach it. Its sizes mirror the source's.
+
+SMEM_PER_BLOCK = 232_448     # shared memory one H100 block may use (227 KB)
+STAGES = 2                   # staged tiles a block holds (csrc kStages)
+# the budgets were chosen with chip_rowconv_sweep.py on an H100 (PERF.md)
+STAGE_BUDGET = 32 * 1024     # staged bytes of one tile
+OUT_BUDGET = 32 * 1024       # the output sub-tile of a block
+TILE_ROWS_MAX = 1024
+TILE_ROWS_WIDE = 256         # R once the row is split into windows
+SLOT_PAD = 16                # a staged slice starts at its source's % 16
+PART_U64 = 6                 # kernel-only part: an 8-byte element whole
+
+
+@dataclass(frozen=True)
+class RowWindow:
+    """Words [word0, word1) of every row (both even), and the slices staged
+    for them: (column, True for its validity) in stage order."""
+
+    word0: int
+    word1: int
+    slots: Tuple[Tuple[int, bool], ...]
+    stage_bytes: int
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    rows: int                        # R, a multiple of 32
+    windows: Tuple[RowWindow, ...]   # cover [0, nwords) in order
+    stage_budget: int                # each window's stage_bytes fits it
+    out_rows: int                    # sub-tile rows, a multiple of 32
+
+    @property
+    def out_bytes(self) -> int:
+        """The sub-tile's shared memory: out_rows rows of the widest
+        window's pairs, padded to an odd count."""
+        return self.out_rows * 8 * max(((w.word1 - w.word0) // 2) | 1
+                                       for w in self.windows)
+
+
+def _table_bytes(npairs: int, nwin: int, npieces: int) -> int:
+    """Shared memory of the kernel's tables (csrc/rowconv.cu table_bytes):
+    windows int4, pair constants u64, pair starts and pieces u32."""
+    return _round16(16 * nwin + 8 * npairs + 4 * (npairs + 1) + 4 * npieces)
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _stage_bytes(rows: int, slots, elem_sizes: Sequence[int]) -> int:
+    return sum(rows * (1 if v else elem_sizes[c]) + SLOT_PAD
+               for c, v in slots)
+
+
+def rowconv_tile_plan(plan: Sequence[Tuple[int, int, int, int]],
+                      elem_sizes: Sequence[int], has_valid: Sequence[bool],
+                      nwords: int,
+                      stage_budget: Optional[int] = None) -> TilePlan:
+    """R and the word windows of B3 for a plan of (word, column, part,
+    shift) pieces over columns of ``elem_sizes`` bytes, ``has_valid[c]``
+    saying whether column c has a validity array (a piece of a column
+    without one is a constant bit, and stages nothing). The stage budget is
+    STAGE_BUDGET unless given.
+
+    R is the largest multiple of 32 up to TILE_ROWS_MAX at which the whole
+    row's slices fit the stage budget; a row that does not fit at
+    TILE_ROWS_WIDE rows is split into windows of even words, greedily, each
+    within the budget and narrow enough that 32 rows of it fit OUT_BUDGET.
+    The output sub-tiles split R into equal parts (multiples of 32) that
+    fit OUT_BUDGET; a sub-tile row holds its window's pairs padded to an
+    odd count."""
+    if nwords <= 0 or nwords % 2:
+        raise ValueError("JCUDF rows are 8-byte aligned: nwords must be even")
+    npairs = nwords // 2
+    need: List[Dict[Tuple[int, bool], None]] = [{} for _ in range(npairs)]
+    for word, c, part, _ in plan:
+        valid = part == PART_VALID
+        if not valid or has_valid[c]:
+            need[word // 2][(c, valid)] = None
+    tables = _table_bytes(npairs, npairs, len(plan))
+    budget = min(STAGE_BUDGET if stage_budget is None else stage_budget,
+                 (SMEM_PER_BLOCK - tables - OUT_BUDGET) // STAGES // 16 * 16)
+    whole = dict.fromkeys(s for pair in need for s in pair)
+    rows = next((r for r in range(TILE_ROWS_MAX, TILE_ROWS_WIDE - 1, -32)
+                 if _stage_bytes(r, whole, elem_sizes) <= budget),
+                TILE_ROWS_WIDE)
+    while rows > 32 and any(_stage_bytes(rows, pair, elem_sizes) > budget
+                            for pair in need):
+        rows -= 32
+    if rows * npairs >= 1 << 31:
+        raise ValueError(f"rows of {nwords} words are too wide for B3")
+    max_pairs = OUT_BUDGET // (32 * 8) - 1
+    windows: List[RowWindow] = []
+    p0, cur = 0, {}
+    for p, pair in enumerate(need):
+        grown = {**cur, **pair}
+        if p > p0 and (p - p0 == max_pairs or _stage_bytes(
+                rows, grown, elem_sizes) > budget):
+            windows.append(RowWindow(2 * p0, 2 * p, tuple(cur),
+                                     _stage_bytes(rows, cur, elem_sizes)))
+            p0, grown = p, dict(pair)
+        cur = grown
+    windows.append(RowWindow(2 * p0, nwords, tuple(cur),
+                             _stage_bytes(rows, cur, elem_sizes)))
+    for w in windows:
+        if w.stage_bytes > budget:
+            raise ValueError(f"B3: words [{w.word0}, {w.word1}) stage "
+                             f"{w.stage_bytes} bytes, over the "
+                             f"{budget}-byte budget")
+    widest = max(((w.word1 - w.word0) // 2) | 1 for w in windows)
+    most = min(rows, OUT_BUDGET // (8 * widest) // 32 * 32)
+    subtiles = -(-rows // most)  # equal sub-tiles, not a short last one
+    out_rows = -(-rows // subtiles // 32) * 32
+    return TilePlan(rows, tuple(windows), budget, out_rows)
+
+
+def _u64_as_i64(x: int) -> int:
+    return x - (1 << 64) if x >> 63 else x
+
+
+@dataclass(frozen=True)
+class RowconvLayout:
+    """The kernel's metadata but for the slot pointers, for one schema."""
+
+    tiles: TilePlan
+    slots: Tuple[Tuple[int, bool], ...]  # (column, validity?) per slot
+    tail: Tuple[int, ...]                # the sections after the pointers
+    nwin: int
+    npairs: int
+    npieces: int
+    stage_bytes: int
+
+
+@functools.lru_cache(maxsize=64)
+def rowconv_layout(plan: Tuple[Tuple[int, int, int, int], ...],
+                   elem_sizes: Tuple[int, ...], has_valid: Tuple[bool, ...],
+                   residues: Tuple[Tuple[int, int], ...], nwords: int,
+                   stage_budget: Optional[int] = None) -> RowconvLayout:
+    """B3's metadata for a plan over columns of ``elem_sizes`` bytes whose
+    data and validity pointers are ``residues`` (each % 16), but for the
+    pointers themselves. The whole metadata, one int64 list, is
+
+      slot pointers (nslots) | slot info: stage offset | bytes << 32 |
+      windows: pair0 | pair1 << 32, slot0 | slot1 << 32 (2 each) |
+      pair constants, u64 bits (npairs) | pair starts (npairs + 1) |
+      pieces: offset | part << 18 | shift << 21 (npieces)
+
+    Pieces work on 8-byte word pairs: a piece is the element (or validity
+    byte) at stage offset + row * bytes, shifted left 0-63 bits. The low and
+    high words of one 8-byte element make one U64 piece; a validity bit of a
+    column without validity is a constant bit of its pair. Raises
+    ValueError for a piece that does not fit the columns."""
+    for word, c, part, shift in plan:  # the kernel reads what the plan says
+        if not (0 <= word < nwords and 0 <= c < len(elem_sizes)
+                and 0 <= shift < 32
+                and (part == PART_VALID
+                     or elem_sizes[c] == _PART_BYTES.get(part))):
+            raise ValueError(f"rowconv piece {(word, c, part, shift)} does "
+                             f"not fit the columns")
+    tiles = rowconv_tile_plan(plan, elem_sizes, has_valid, nwords,
+                              stage_budget)
+    npairs = nwords // 2
+    by_pair: List[List[Tuple[int, int, int]]] = [[] for _ in range(npairs)]
+    for word, c, part, shift in plan:
+        by_pair[word // 2].append((c, part, shift + 32 * (word & 1)))
+    slots: List[Tuple[int, bool]] = []
+    info: List[int] = []
+    win: List[int] = []
+    consts = [0] * npairs
+    first = [0] * (npairs + 1)
+    pieces: List[int] = []
+    for w in tiles.windows:
+        s0, off, where = len(slots), 0, {}
+        for c, valid in w.slots:
+            nbytes = 1 if valid else elem_sizes[c]
+            slots.append((c, valid))
+            info.append(off | nbytes << 32)
+            where[(c, valid)] = off + residues[c][valid]
+            off += tiles.rows * nbytes + SLOT_PAD
+        win += [w.word0 // 2 | (w.word1 // 2) << 32, s0 | len(slots) << 32]
+        for p in range(w.word0 // 2, w.word1 // 2):
+            whole = ({c for c, part, sh in by_pair[p]
+                      if part == PART_LO and sh == 0}
+                     & {c for c, part, sh in by_pair[p]
+                        if part == PART_HI and sh == 32})
+            for c, part, sh in by_pair[p]:
+                valid = part == PART_VALID
+                if valid and not has_valid[c]:
+                    consts[p] |= 1 << sh
+                    continue
+                if c in whole and part in (PART_LO, PART_HI):
+                    if part == PART_HI:
+                        continue
+                    part = PART_U64
+                pieces.append(where[(c, valid)] | part << 18 | sh << 21)
+            first[p + 1] = len(pieces)
+    tail = (info + win + [_u64_as_i64(x) for x in consts] + first + pieces)
+    return RowconvLayout(tiles, tuple(slots), tuple(tail), len(tiles.windows),
+                         npairs, len(pieces),
+                         max(w.stage_bytes for w in tiles.windows))
+
+
+def rowconv_meta(cols, valids, plan, nwords: int,
+                 stage_budget: Optional[int] = None):
+    """(metadata as one int64 list, its layout) for these columns."""
+    lay = rowconv_layout(
+        tuple(map(tuple, plan)), tuple(t.element_size() for t in cols),
+        tuple(v is not None for v in valids),
+        tuple((t.data_ptr() % 16, 0 if v is None else v.data_ptr() % 16)
+              for t, v in zip(cols, valids)), nwords, stage_budget)
+    ptrs = [(valids[c] if valid else cols[c]).data_ptr()
+            for c, valid in lay.slots]
+    return ptrs + list(lay.tail), lay
 
 
 def rowconv_fixed_words(cols: Sequence[torch.Tensor],
@@ -346,17 +555,20 @@ def rowconv_fixed_words(cols: Sequence[torch.Tensor],
                                                   or v.shape != (n,))):
             raise ValueError(f"rowconv column {c}: expected {n} rows and a "
                              f"bool validity")
-    for word, c, part, shift in plan:  # the kernel reads what the plan says
-        if not (0 <= word < nwords and 0 <= c < len(cols) and 0 <= shift < 32
-                and (part == PART_VALID
-                     or cols[c].element_size() == _PART_BYTES[part])):
-            raise ValueError(f"rowconv piece {(word, c, part, shift)} does "
-                             f"not fit the columns")
+        if t.data_ptr() % t.element_size():
+            raise ValueError(f"rowconv column {c}: data not aligned to its "
+                             f"element size")
     lib = _lib("rowconv")
-    meta = _rowconv_meta(cols, valids, plan, nwords, dev)
+    meta, lay = rowconv_meta(cols, valids, plan, nwords)
+    # pinned host buffer, copied in stream order: the host does not wait
+    host = torch.tensor(meta, dtype=torch.int64).pin_memory()
+    dmeta = host.to(dev, non_blocking=True)
     out = torch.empty((n, nwords), dtype=torch.int32, device=dev)
-    err = lib.srjt_rowconv_rows(meta.data_ptr(), len(cols), nwords, n,
-                                out.data_ptr(), _stream(dev))
+    err = lib.srjt_rowconv_rows(dmeta.data_ptr(), len(lay.slots), lay.nwin,
+                                lay.npairs, lay.npieces, lay.tiles.rows,
+                                lay.stage_bytes, lay.tiles.out_rows,
+                                lay.tiles.out_bytes, n, out.data_ptr(),
+                                _stream(dev))
     _check(lib, err, "rowconv")
     rowconv_fixed_words.launches += 1
     return out

@@ -105,6 +105,80 @@ def test_rowconv_kernel_matches_plain(cuda, n):
             assert torch.equal(a.valid_mask(), b.valid_mask())
 
 
+def _rowconv_matches_plain(table):
+    info = R.compute_column_information([c.dtype for c in table])
+    cols, valids, plan = R._word_plan(table, info)
+    nwords = R._round_up(info.size_per_row, 8) // 4
+    before = K.rowconv_fixed_words.launches
+    got = K.rowconv_fixed_words(cols, valids, plan, nwords, table.num_rows)
+    torch.cuda.synchronize()
+    assert K.rowconv_fixed_words.launches == before + 1
+    assert torch.equal(got, K.rowconv_fixed_words_plain(
+        cols, valids, plan, nwords, table.num_rows))
+    return nwords
+
+
+_ROW_SIZES = {  # bytes per row -> schema (indices into _MIXED)
+    8: [6],              # int32 + validity byte
+    24: [1, 9],          # int64, uint64 + validity
+    32: [1, 6, 5, 10],   # lineitem's widths
+    40: [1, 5, 9, 1],    # 4 x 8 bytes + validity
+}
+
+
+@pytest.mark.parametrize("row_size", sorted(_ROW_SIZES))
+@pytest.mark.parametrize("n", [1, 3001])
+@pytest.mark.parametrize("validity", ["mixed", "all_null", "no_null"])
+def test_rowconv_tiles_match_plain(cuda, row_size, n, validity):
+    """B3 at R-ragged row counts and rows of 8-40 bytes (nwords % 4 != 0
+    for 8, 24 and 40), with every validity a mix, all false, or all true."""
+    t = Table(tuple(_mixed(n, cuda, nulls=True).columns[i]
+                    for i in _ROW_SIZES[row_size]))
+    if validity != "mixed":
+        fill = torch.zeros if validity == "all_null" else torch.ones
+        t = Table(tuple(c.with_validity(fill(n, dtype=torch.bool,
+                                             device=cuda)) for c in t))
+    assert 4 * _rowconv_matches_plain(t) == row_size
+
+
+@pytest.mark.parametrize("start", [1, 3])
+def test_rowconv_misaligned_views(cuda, start):
+    """Column views that start at element 1 or 3 of int8, int16 and int32
+    columns (data pointers not 16-byte aligned), nullable and not."""
+    base = _mixed(70_007, cuda)
+    n = base.num_rows - 3
+    cols = []
+    for i in (0, 2, 6, 7, 1, 10):
+        c = base.columns[i]
+        v = None if c.validity is None else c.validity[start:start + n]
+        cols.append(Column(c.dtype, n, data=c.data[start:start + n],
+                           validity=v))
+    assert any(c.data.data_ptr() % 16 for c in cols)
+    _rowconv_matches_plain(Table(tuple(cols)))
+
+
+def test_rowconv_wide_schema_windows(cuda):
+    """600 mixed columns, a third of them nullable: the row is split into
+    several word windows."""
+    rng = np.random.default_rng(5)
+    n = 5_003
+    cols = []
+    for i in range(600):
+        npt, d = _MIXED[i % len(_MIXED)]
+        vals = rng.integers(0, 256, n * np.dtype(npt).itemsize,
+                            dtype=np.uint8).view(npt)
+        v = rng.random(n) > 0.3 if i % 3 == 0 else None
+        cols.append(Column.from_numpy(vals, d, validity=v, device=cuda))
+    t = Table(tuple(cols))
+    info = R.compute_column_information([c.dtype for c in t])
+    _, valids, plan = R._word_plan(t, info)
+    nwords = R._round_up(info.size_per_row, 8) // 4
+    tiles = K.rowconv_tile_plan(plan, [c.data.element_size() for c in t],
+                                [v is not None for v in valids], nwords)
+    assert len(tiles.windows) > 1
+    _rowconv_matches_plain(t)
+
+
 def test_q3_on_card_equals_cpu(cuda):
     """Shuffle write/read and q3 on the card give the CPU's q3 table bit for
     bit, and the card's run launches B1, B2 and B3."""
