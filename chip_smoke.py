@@ -26,9 +26,21 @@ run exits non-zero:
      (``kernel_ms``), and wall times;
      B3 at each of its schemas, with the byte bound of that schema, beside
      a device-to-device copy_ that moves as many bytes (the rate this card
-     reaches).
+     reaches);
+  6. the plan engine: TPC-H q1, q6, q3 and q5 at SF10 through their entry
+     points on both engines ("auto", fused at this size, and "eager"):
+     first pass and warm median of 5 each, bit for bit fused == eager ==
+     an independent numpy version of the query, no fallback, every fused
+     program run with host syncs made errors, the planner's decisions,
+     kernel launches per engine (the fused programs launch none; the
+     eager joins launch B2), peak memory, and one warm run of each engine
+     under torch.profiler (``plan_profile_sf10``); q3 once with the default
+     knobs (its groupby overflows at SF10 and replays eagerly); and a
+     GroupBy plan at 1M rows forced to overflow its slot budget, which
+     must replay eagerly and equal the eager engine.
 
-Prints JSON lines (timings, then the {"kernels": [...]} line) and, last,
+Prints JSON lines (timings, then the {"kernels": [...]} line, whose
+entries give each kernel's launches by path) and, last,
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
 """
@@ -167,6 +179,11 @@ def main():
     # ---- phase 5: timings -------------------------------------------------
     entries = timings(state, launches, card)
     breakdown(state, card)
+
+    # ---- phase 6: the plan engine -----------------------------------------
+    paths = {"main_path_sf10": launches, **plan_engine(dev, state, card)}
+    for entry, (_, wrapper, _, _) in zip(entries, K.KERNELS):
+        entry["launches_by_path"] = {p: c[wrapper] for p, c in paths.items()}
     jline({"kernels": entries})
     jline({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})
@@ -348,7 +365,8 @@ def main_path(dev, state):
     written, write_ms = wall(shuffle_write, dev)
     read, read_ms = wall(shuffle_read, dev)
     top, q3_ms = wall(lambda: tpch.run_q3(read["customer"], read["orders"],
-                                          read["lineitem"]), dev)
+                                          read["lineitem"], engine="eager"),
+                      dev)
     launches = {"murmur3_fixed_rows": K.murmur3_fixed_rows.launches,
                 "xxhash64_fixed_rows": K.xxhash64_fixed_rows.launches,
                 "rowconv_fixed_words": K.rowconv_fixed_words.launches}
@@ -380,8 +398,8 @@ def main_path(dev, state):
     log(f"check q3 top-10 == numpy q3: orderkeys {got[0].tolist()}")
 
     small_rows = min(1_000_000, rows)
-    small = [tpch.run_q3(*tpch.generate_q3_tables(small_rows, 1, d))
-             for d in (dev, "cpu")]
+    small = [tpch.run_q3(*tpch.generate_q3_tables(small_rows, 1, d),
+                         engine="eager") for d in (dev, "cpu")]
     for a, b in zip(*(t.columns for t in small)):
         if not (torch.equal(a.data.cpu(), b.data)
                 and torch.equal(a.valid_mask().cpu(), b.valid_mask())):
@@ -478,9 +496,6 @@ def breakdown(state, card):
     the device timeline (CUDA events around warm repeats; host gaps
     included), then one warm q3 under torch.profiler: the device's busy
     share and the aten ops that hold it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from spark_rapids_jni_tpu_torch import tpch
     from spark_rapids_jni_tpu_torch.ops import row_conversion as R
     from spark_rapids_jni_tpu_torch.parallel.exchange import partition_ids
@@ -488,7 +503,7 @@ def breakdown(state, card):
     li, cust, orders = state["lineitem"], state["cust"], state["orders"]
     rows = R.convert_to_rows(li)[0]
     dtypes = [c.dtype for c in li]
-    q3 = lambda: tpch.run_q3(cust, orders, li)  # noqa: E731
+    q3 = lambda: tpch.run_q3(cust, orders, li, engine="eager")  # noqa: E731
     jline({"phase": "warm_breakdown_sf10", **card, "rows": li.num_rows,
            "partition_ids_lineitem_ms": cuda_ms(
                lambda: partition_ids(li, [0], PARTITIONS), reps=5),
@@ -497,10 +512,20 @@ def breakdown(state, card):
            "convert_from_rows_lineitem_ms": cuda_ms(
                lambda: R.convert_from_rows(rows, dtypes), reps=5),
            "q3_eager_ms": cuda_ms(q3, reps=3, warm=1)})
+    jline({"phase": "q3_profile_sf10", **card, **profile_once(q3)})
+
+
+def profile_once(fn):
+    """One warm call of fn() under torch.profiler: its wall time, the
+    device's busy time and idle share, and the aten ops that hold the
+    device (inclusive device ms, top 10)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        q3()
+        fn()
         torch.cuda.synchronize()
         span_ms = (time.perf_counter() - t) * 1e3
     ev = prof.key_averages()
@@ -509,11 +534,292 @@ def breakdown(state, card):
     ops = sorted((e for e in ev if e.key.startswith("aten::")
                   and e.device_time_total > 0),
                  key=lambda e: -e.device_time_total)[:10]
-    jline({"phase": "q3_profile_sf10", **card, "wall_ms": span_ms,
-           "device_busy_ms": busy_ms,
-           "device_idle_share": 1 - busy_ms / span_ms,
-           "top_aten_ops_inclusive_device_ms": {
-               e.key: e.device_time_total / 1e3 for e in ops}})
+    return {"wall_ms": span_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / span_ms,
+            "top_aten_ops_inclusive_device_ms": {
+                e.key: e.device_time_total / 1e3 for e in ops}}
+
+
+# q3's groupby key (l_orderkey) spans the 15M orders at SF10, above the
+# default plan.groupby_wide_span (2^21, the JAX package's value): with it
+# the planner keeps the generic sorted groupby, whose 4096-slot budget the
+# ~1.4M live groups overflow, and the query replays eagerly. Phase 6 runs
+# q3 once with the defaults (to record that) and otherwise with this span.
+Q3_WIDE_SPAN = 1 << 24
+
+
+def plan_engine(dev, state, card):
+    """Phase 6: TPC-H q1, q6, q3 and q5 at SF10 through their entry points
+    on both engines ("auto" = fused at this size, and "eager"), each held
+    bit for bit against the other and against a numpy version of the query
+    over the same arrays. Returns the kernel launches of each run, by
+    path."""
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    for key in ("mixed", "wide", "head"):
+        state.pop(key, None)
+    rows = state["rows"]
+    paths = {}
+    q3_tabs = [state.pop(k) for k in ("cust", "orders", "lineitem")]
+    q3_want = numpy_q3(state.pop("arrays"))
+    q3_plan = tpch._q3_plan(tpch.CUTOFF_DAYS, 1, 10)
+    default = default_knobs_q3(dev, q3_tabs, q3_want, q3_plan)
+    with config.override("plan.groupby_wide_span", Q3_WIDE_SPAN):
+        paths.update(query_line(
+            dev, card, "q3", lambda e: tpch.run_q3(*q3_tabs, engine=e),
+            q3_want, q3_plan, q3_tabs,
+            {"knobs": {"plan.groupby_wide_span": Q3_WIDE_SPAN},
+             "default_knobs_fused": default}))
+    del q3_tabs
+
+    a1 = tpch.q1_arrays(rows, 0)
+    li = tpch.generate_q1_lineitem(rows, 0, dev)
+    paths.update(query_line(
+        dev, card, "q1", lambda e: tpch.run_q1(li, engine=e), numpy_q1(a1),
+        tpch._q1_plan(2400), li))
+    paths.update(query_line(
+        dev, card, "q6", lambda e: tpch.run_q6(li, engine=e), numpy_q6(a1),
+        tpch._q6_plan(365, 730, 5, 7, 24), li))
+    del li, a1
+
+    q5_tabs = list(tpch.generate_q5_tables(rows, 0, dev))
+    paths.update(query_line(
+        dev, card, "q5", lambda e: tpch.run_q5(*q5_tabs, engine=e),
+        numpy_q5(tpch.q5_arrays(rows, 0)), tpch._q5_plan(2, 700, 1065),
+        q5_tabs))
+    del q5_tabs
+    forced_fallback(dev, card)
+    return paths
+
+
+def _kernel_counts():
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    return {w: getattr(K, w).launches for _, w, _, _ in K.KERNELS}
+
+
+def _tables_equal(a, b) -> bool:
+    """Same rows, dtypes, value bytes and validity bits (validity presence
+    may differ: the engines agree on the bits)."""
+    if isinstance(a, int) or isinstance(b, int):
+        return a == b
+    return a.num_rows == b.num_rows and all(
+        x.dtype == y.dtype
+        and x.data.cpu().numpy().tobytes() == y.data.cpu().numpy().tobytes()
+        and torch.equal(x.valid_mask().cpu(), y.valid_mask().cpu())
+        for x, y in zip(a.columns, b.columns))
+
+
+def _equals_numpy(got, want) -> bool:
+    if isinstance(want, int):
+        return got == want
+    return (got.num_rows == len(want[0]) and all(
+        np.array_equal(c.to_numpy(), w) and bool(c.valid_mask().all())
+        for c, w in zip(got.columns, want)))
+
+
+def _decisions(plan, tables):
+    """The planner's choice for each node of the optimized DAG plan."""
+    from spark_rapids_jni_tpu_torch.plan import (optimize, plan_decisions,
+                                                 walk)
+    opt = optimize(plan, tables)
+    dec = plan_decisions(opt, tables)
+    out = []
+    for n in walk(opt):
+        d = dec.of(n)
+        if d is not None:
+            f = dict(vars(d))
+            if "fd_drop" in f:
+                f["fd_drop"] = len(f["fd_drop"])
+            out.append({"node": type(n).__name__, **f})
+    return out
+
+
+def sync_free(plan, tables) -> str:
+    """Run the fused program of (plan, tables) with every host sync an
+    error, up to (not including) the executor's read of its head."""
+    from spark_rapids_jni_tpu_torch.plan.executor import fused_program
+    prog, args, reason = fused_program(plan, tables)
+    if prog is None:
+        return f"not fused ({reason})"
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prog(*args)
+    except RuntimeError as err:
+        return f"raised: {err}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return "passed"
+
+
+def query_line(dev, card, name, run, want, plan, tables, extra=None):
+    """One query on both engines: first pass and warm median of 5 each,
+    plan metrics, kernel launches, peak memory, the planner's decisions
+    (DAG plans), the sync check; prints its line and raises on any failed
+    check. Returns {f"{name}_{engine}": launches}."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.plan import plan_metrics
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    line = {"phase": "plan_engine_sf10", **card, "query": name,
+            "lineitem_rows": (tables.num_rows if hasattr(tables, "num_rows")
+                              else tables[2].num_rows), **(extra or {})}
+    outs, launches = {}, {}
+    for engine in ("auto", "eager"):
+        K.reset_launches()
+        plan_metrics.reset()
+        outs[engine], first = wall(lambda: run(engine), dev)
+        launches[f"{name}_{'fused' if engine == 'auto' else 'eager'}"] = \
+            _kernel_counts()
+        warm = sorted(wall(lambda: run(engine), dev)[1] for _ in range(5))
+        snap = plan_metrics.snapshot()
+        tag = "fused" if engine == "auto" else "eager"
+        if cuda:
+            jline({"phase": "plan_profile_sf10", **card, "query": name,
+                   "engine": tag, **profile_once(lambda: run(engine))})
+        line[f"{tag}_first_ms"] = first
+        line[f"{tag}_warm_median_ms"] = warm[2]
+        line[f"{tag}_warm_ms"] = warm
+        if engine == "auto":
+            line["plan_metrics"] = {k: snap[k] for k in (
+                "plan_executes", "plan_fallbacks", "plan_join_fallbacks",
+                "plan_overflows", "plan_fallback_reasons")}
+    line["max_memory_allocated_gb"] = (
+        torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+    line["launches"] = launches
+    if isinstance(tables, list):
+        line["decisions"] = _decisions(plan, tables)
+    line["sync_check"] = (sync_free(plan, tables) if cuda
+                          else "not checked on the cpu")
+    line["fused_equals_eager"] = _tables_equal(outs["auto"], outs["eager"])
+    line["fused_equals_numpy"] = _equals_numpy(outs["auto"], want)
+    line["eager_equals_numpy"] = _equals_numpy(outs["eager"], want)
+    jline(line)
+    m = line["plan_metrics"]
+    failed = [k for k in ("fused_equals_eager", "fused_equals_numpy",
+                          "eager_equals_numpy") if not line[k]]
+    if m["plan_executes"] != 6 or m["plan_fallbacks"] or \
+            m["plan_join_fallbacks"]:
+        failed.append(f"plan metrics {m}")
+    if cuda and line["sync_check"] != "passed":
+        failed.append(f"sync check: {line['sync_check']}")
+    if cuda and name in ("q3", "q5") and \
+            launches[f"{name}_eager"]["xxhash64_fixed_rows"] < 1:
+        failed.append("the eager joins never launched B2")
+    if failed:
+        raise AssertionError(f"plan engine {name}: {failed}")
+    log(f"check plan engine {name}: fused == eager == numpy, 0 fallbacks, "
+        f"no sync inside the fused program")
+    return launches
+
+
+def default_knobs_q3(dev, tables, want, plan):
+    """q3 fused once with the default knobs: the generic groupby overflows
+    at SF10 and the query replays eagerly (one overflow fallback); the
+    answer must still be right."""
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.plan import plan_metrics
+    plan_metrics.reset()
+    out, ms = wall(lambda: tpch.run_q3(*tables), dev)
+    snap = plan_metrics.snapshot()
+    res = {"first_ms": ms, "decisions": _decisions(plan, tables),
+           "plan_fallbacks": snap["plan_fallbacks"],
+           "plan_fallback_reasons": snap["plan_fallback_reasons"],
+           "equals_numpy": _equals_numpy(out, want)}
+    if not res["equals_numpy"]:
+        raise AssertionError(f"q3 with the default knobs: {res}")
+    return res
+
+
+def forced_fallback(dev, card):
+    """A GroupBy plan whose groups (2,500 ship dates) outnumber the slot
+    budget (max_groups 16 gives the 1,024-slot floor) at 1M rows: the fused
+    program must flag the overflow, the executor replay the query eagerly
+    (one overflow fallback), and the answer equal the eager engine's."""
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.plan import (GroupBy, Scan, Sort,
+                                                 execute_plan, plan_metrics,
+                                                 run_eager)
+    from spark_rapids_jni_tpu_torch.utils import config
+    li = tpch.generate_q1_lineitem(1_000_000, 2, dev)
+    plan = Sort(GroupBy(Scan(7), (6,), ((0, "sum"), (0, "count"))), (0,))
+    plan_metrics.reset()
+    with config.override("plan.max_groups", 16):
+        got = execute_plan(plan, li)
+    snap = plan_metrics.snapshot()
+    want = run_eager(plan, li)
+    line = {"phase": "forced_fallback_1m", **card, "rows": li.num_rows,
+            "groups": got.num_rows, "plan_overflows": snap["plan_overflows"],
+            "plan_fallback_reasons": snap["plan_fallback_reasons"],
+            "equals_eager": _tables_equal(got, want)}
+    jline(line)
+    if (snap["plan_overflows"], snap["plan_fallback_reasons"]) != (
+            1, {"overflow": 1}) or not line["equals_eager"]:
+        raise AssertionError(f"forced fallback: {line}")
+    log("check forced overflow at 1M rows: one overflow fallback, "
+        "== eager")
+
+
+def numpy_q1(a, cutoff=2400):
+    """q1 over the generator's arrays, independent of the port: per
+    (returnflag, linestatus) in ascending order, the four int64 sums, the
+    three means (float64 sum / count) and the count."""
+    keep = a["l_shipdate"] <= cutoff
+    rf, ls = a["l_returnflag"][keep], a["l_linestatus"][keep]
+    qty = a["l_quantity"][keep]
+    price = a["l_extendedprice"][keep]
+    disc = a["l_discount"][keep].astype(np.int64)
+    tax = a["l_tax"][keep].astype(np.int64)
+    disc_price = price * (100 - disc)
+    charge = disc_price * (100 + tax)
+    cols = [[] for _ in range(10)]
+    for f in np.unique(rf):
+        for s in np.unique(ls):
+            g = (rf == f) & (ls == s)
+            n = int(g.sum())
+            if n == 0:
+                continue
+            sums = [v[g].sum() for v in (qty, price, disc_price, charge)]
+            means = [np.float64(v[g].sum()) / np.float64(n)
+                     for v in (qty, price, disc)]
+            for i, v in enumerate([f, s] + sums + means + [n]):
+                cols[i].append(v)
+    types = [np.int32, np.int32] + [np.int64] * 4 + [np.float64] * 3 \
+        + [np.int64]
+    return [np.array(c, dtype=t) for c, t in zip(cols, types)]
+
+
+def numpy_q6(a, date_lo=365, date_hi=730, disc_lo=5, disc_hi=7, qty=24):
+    """q6 over the generator's arrays: one filtered int64 sum."""
+    sd, disc = a["l_shipdate"], a["l_discount"]
+    keep = ((sd >= date_lo) & (sd < date_hi) & (disc >= disc_lo)
+            & (disc <= disc_hi) & (a["l_quantity"] < qty))
+    return int((a["l_extendedprice"][keep]
+                * disc[keep].astype(np.int64)).sum())
+
+
+def numpy_q5(a, region=2, date_lo=700, date_hi=1065):
+    """q5 over the generator's arrays: every key is an arange, so the
+    joins are index lookups. Revenue per supplier nation, by revenue
+    descending, then nation ascending."""
+    od = a["o_orderdate"]
+    ord_ok = (od >= date_lo) & (od < date_hi)
+    lk, sk = a["l_orderkey"], a["l_suppkey"]
+    snat = a["s_nationkey"][sk]
+    cnat = a["c_nationkey"][a["o_custkey"][lk]]
+    keep = (ord_ok[lk] & (a["n_regionkey"][snat] == region)
+            & (cnat == snat))
+    rev = a["l_extendedprice"][keep] * (
+        100 - a["l_discount"][keep].astype(np.int64))
+    nat = snat[keep]
+    nations = np.unique(nat)
+    sums = np.array([rev[nat == n].sum() for n in nations], np.int64)
+    order = np.lexsort((nations, -sums))
+    return [nations[order].astype(np.int32), sums[order]]
 
 
 def numpy_q3(a, cutoff=1200, segment=1, k=10):

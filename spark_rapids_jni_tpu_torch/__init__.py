@@ -7,11 +7,15 @@ the kernels the JAX package wrote in Pallas:
   * columnar/  - dtypes, Column/Table over torch tensors, the wire-format
                  interop with the JAX package, gather/slice/filter.
   * ops/       - Spark row hashes (murmur3_32, xxhash64), JCUDF row
-                 conversion, sort, sort-probe inner join, sorted groupby,
-                 and ops/kernels.py: the CUDA kernel wrappers, their plain
-                 PyTorch versions and launch counters.
+                 conversion, sort, sort-probe joins, sorted groupby, the
+                 plan cores the fused engine composes, and ops/kernels.py:
+                 the CUDA kernel wrappers, their plain PyTorch versions and
+                 launch counters.
   * parallel/  - the shuffle partition route (murmur3 mod partitions).
-  * tpch.py    - TPC-H q3 tables and its eager join-aggregate stage.
+  * plan/      - the plan engine: plan IR, eager interpreter, cost-shaped
+                 planner, and the fused executor (one program of torch ops
+                 per query, one host sync); its knobs are utils/config.py.
+  * tpch.py    - TPC-H q1, q3, q5 and q6: tables and both engines.
   * csrc/      - CUDA sources, built with nvcc for sm_90a at first use
                  into build/torch_kernels/.
 

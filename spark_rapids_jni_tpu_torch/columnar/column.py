@@ -16,6 +16,10 @@ Fields of a Column:
 
 The only LIST column in this slice is the LIST<INT8> column of JCUDF rows
 that ops/row_conversion.convert_to_rows returns.
+
+A column may carry advisory ``ColumnStats`` (``with_stats``/``stats``),
+which the plan engine's planner reads. They are not a field: every derived
+column (gather, slice, filter, ``dataclasses.replace``) starts without.
 """
 
 from __future__ import annotations
@@ -28,6 +32,41 @@ import torch
 
 from . import dtype as dt
 from .dtype import DType, TypeId
+
+
+@dataclass(frozen=True)
+class ColumnStats:
+    """Advisory value statistics of an integer column (the JAX package's
+    ColumnStats). The planner (plan/planner.py) picks direct-addressed
+    joins and direct-slot groupbys off them; every strategy re-checks its
+    claim on the device and turns a violation into the plan's overflow
+    flag, so lying stats cost an eager replay, never a wrong answer.
+
+      lo / hi:          inclusive bounds over ALL rows of the data buffer,
+                        null rows included.
+      unique:           values are pairwise distinct.
+      ascending_dense:  data == arange(n) + lo exactly.
+    """
+
+    lo: Optional[int] = None
+    hi: Optional[int] = None
+    unique: bool = False
+    ascending_dense: bool = False
+
+    @staticmethod
+    def from_numpy(arr: np.ndarray) -> "ColumnStats":
+        """Honest stats of a host integer array (the JAX package's values;
+        a range narrower than the row count proves a repeat without the
+        sort that ``np.unique`` costs)."""
+        if arr.size == 0 or not np.issubdtype(arr.dtype, np.integer):
+            return ColumnStats()
+        lo = int(arr.min())
+        hi = int(arr.max())
+        dense = bool(hi - lo == arr.size - 1) and bool(
+            np.array_equal(arr, np.arange(arr.size, dtype=arr.dtype) + lo))
+        unique = dense or (hi - lo + 1 >= arr.size
+                           and len(np.unique(arr)) == arr.size)
+        return ColumnStats(lo=lo, hi=hi, unique=unique, ascending_dense=dense)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -75,6 +114,15 @@ class Column:
 
     def with_validity(self, validity: Optional[torch.Tensor]) -> "Column":
         return replace(self, validity=validity)
+
+    def with_stats(self, stats: Optional[ColumnStats]) -> "Column":
+        """Attach advisory stats; returns self (chainable)."""
+        if stats is not None:
+            self._stats = stats
+        return self
+
+    def stats(self) -> Optional[ColumnStats]:
+        return getattr(self, "_stats", None)
 
     def device_nbytes(self) -> int:
         """Device footprint in bytes (data + validity + offsets +

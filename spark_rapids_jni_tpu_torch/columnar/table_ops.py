@@ -42,8 +42,13 @@ def slice_table(table: Table, start: int, end: int) -> Table:
 
 def mask_indices_core(mask: torch.Tensor, size: int) -> torch.Tensor:
     """int32 indices of the True rows of ``mask`` in row order, given their
-    count ``size``."""
-    return torch.nonzero(mask).reshape(-1)[:size].to(torch.int32)
+    count ``size``. No host sync: each True row scatters its index to its
+    rank among the True rows; the False rows all land in one spare slot."""
+    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    slot = torch.where(mask, rank, size)
+    out = torch.zeros(size + 1, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, slot, torch.arange(mask.shape[0], device=mask.device))
+    return out[:size].to(torch.int32)
 
 
 def filter_table(table: Table, mask) -> Table:

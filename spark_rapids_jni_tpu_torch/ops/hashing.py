@@ -144,10 +144,7 @@ def _xx_u64(seed, v_u64):
 def _f32_bits(x: torch.Tensor, normalize_zero: bool) -> torch.Tensor:
     """int32 bits of float32 values: NaNs canonical (0x7FC00000), and
     -0.0 folded into 0.0 when ``normalize_zero``."""
-    bits = torch.where(torch.isnan(x),
-                       torch.tensor(0x7FC00000, dtype=torch.int32,
-                                    device=x.device),
-                       x.view(torch.int32))
+    bits = torch.where(torch.isnan(x), 0x7FC00000, x.view(torch.int32))
     if normalize_zero:
         bits = torch.where(x == 0.0, torch.zeros_like(bits), bits)
     return bits
@@ -157,9 +154,7 @@ def _f64_bits(x: torch.Tensor, normalize_zero: bool) -> torch.Tensor:
     """int64 bits of float64 values: NaNs canonical
     (0x7FF8000000000000), and -0.0 folded into 0.0 when
     ``normalize_zero``."""
-    bits = torch.where(torch.isnan(x),
-                       torch.tensor(0x7FF8000000000000, dtype=torch.int64,
-                                    device=x.device),
+    bits = torch.where(torch.isnan(x), 0x7FF8000000000000,
                        x.view(torch.int64))
     if normalize_zero:
         bits = torch.where(x == 0.0, torch.zeros_like(bits), bits)

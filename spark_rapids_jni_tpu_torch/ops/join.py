@@ -1,4 +1,4 @@
-"""Equi inner join producing gather maps (the JAX package's ops/join.py).
+"""Equi joins producing gather maps (the JAX package's ops/join.py).
 
 A sort-probe join, as in the JAX package:
 
@@ -12,10 +12,18 @@ The u64 hashes are held as int64 bits; XOR-ing the sign bit makes signed
 order the unsigned order, so torch's stable sort and searchsorted give the
 JAX package's order, ties in row order. Null keys never match (Spark's
 default; ``nulls_equal`` gives the null-safe ``<=>``). Masks push a filter
-into the join without compacting either side.
+into the inner join without compacting either side. The left outer, semi
+and anti joins are built on the inner join's maps, as in the JAX package.
 
 The JAX package sizes its expansion speculatively to save a host sync on
 the TPU; here the candidate total is read once and the expansion is exact.
+
+The fused plan engine's cores (plan/registry.py) do not hash:
+``join_build_sorted_core`` + ``join_probe_sorted_core`` (a sorted unique
+build and a binary-search probe) and ``join_probe_direct_core`` (a dense
+build key is its own address). They keep the probe side's lane count and
+flag a build they cannot serve (duplicate live keys, a key that is not
+dense after all) in the plan's overflow bit.
 """
 
 from __future__ import annotations
@@ -26,7 +34,9 @@ import torch
 
 from ..columnar import dtype as dt
 from ..columnar.column import Column, Table
+from ..plan.registry import plan_core
 from .hashing import _s64, spark_key_values, xxhash64
+from .sort import lexsort
 
 _SIGN64 = -(1 << 63)
 
@@ -154,3 +164,112 @@ def inner_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
                                        left_mask, right_mask)
     return _expand_and_verify(left_keys, right_keys, nulls_equal, order, lo,
                               cnt, left_mask, right_mask)
+
+
+def _matched(l_idx: torch.Tensor, n_left: int) -> torch.Tensor:
+    """bool[n_left]: the left rows present in an inner-join gather map."""
+    m = torch.zeros(n_left, dtype=torch.bool, device=l_idx.device)
+    m[l_idx] = True
+    return m
+
+
+def left_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
+              nulls_equal: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Left outer join: the inner join's maps, then every unmatched left
+    row (ascending) with right index -1."""
+    l_idx, r_idx = inner_join(left_keys, right_keys, nulls_equal)
+    miss = torch.nonzero(~_matched(l_idx, left_keys[0].size)).reshape(-1)
+    return (torch.cat([l_idx, miss]),
+            torch.cat([r_idx, torch.full_like(miss, -1)]))
+
+
+def left_semi_join(left_keys: Sequence[Column],
+                   right_keys: Sequence[Column],
+                   nulls_equal: bool = False) -> torch.Tensor:
+    """Ascending indices of the left rows with at least one match."""
+    l_idx, _ = inner_join(left_keys, right_keys, nulls_equal)
+    return torch.nonzero(_matched(l_idx, left_keys[0].size)).reshape(-1)
+
+
+def left_anti_join(left_keys: Sequence[Column],
+                   right_keys: Sequence[Column],
+                   nulls_equal: bool = False) -> torch.Tensor:
+    """Ascending indices of the left rows with no match (a null key never
+    matches, so its row is kept)."""
+    l_idx, _ = inner_join(left_keys, right_keys, nulls_equal)
+    return torch.nonzero(~_matched(l_idx, left_keys[0].size)).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# fused-plan join cores: single int64 key lanes, unique builds, no hashing
+# ---------------------------------------------------------------------------
+
+@plan_core("join_build_sorted")
+def join_build_sorted_core(build_keys: torch.Tensor,
+                           build_live: Optional[torch.Tensor]):
+    """Sorted build over int64 key values.
+
+    ``build_live``: optional bool[n] — the rows that may match (validity,
+    carried filter mask). Dead rows sort after live rows within each key
+    run, so the probe's leftmost hit lands on a live row where one exists.
+
+    Returns ``(order, sorted_keys, sorted_live, dup)``; ``dup`` (bool
+    0-dim) is set when a key occurs on more than one LIVE row (the fused
+    join would have to expand rows: overflow)."""
+    rn = build_keys.shape[0]
+    if build_live is None:
+        build_live = torch.ones(rn, dtype=torch.bool,
+                                device=build_keys.device)
+    dead = (~build_live).to(torch.int64)
+    order = lexsort([dead, build_keys], rn, build_keys.device)
+    sk = build_keys.index_select(0, order)
+    sl = build_live.index_select(0, order)
+    dup = ((sk[1:] == sk[:-1]) & sl[1:] & sl[:-1]).any()
+    return order, sk, sl, dup
+
+
+@plan_core("join_probe_sorted")
+def join_probe_sorted_core(order: torch.Tensor, sorted_keys: torch.Tensor,
+                           sorted_live: torch.Tensor,
+                           probe_keys: torch.Tensor):
+    """Binary-search probe of a sorted unique build.
+
+    Returns ``(r_idx i64[n], found bool[n])``: the build row each probe
+    lane matched (an in-range garbage row where not found) and the match
+    mask. Callers AND in the probe keys' validity."""
+    rn = sorted_keys.shape[0]
+    if rn == 0:  # nothing to match, nothing to gather from
+        z = torch.zeros_like(probe_keys)
+        return z, z.to(torch.bool)
+    pos = torch.searchsorted(sorted_keys, probe_keys)
+    posc = pos.clamp(max=rn - 1)
+    found = ((pos < rn) & (sorted_keys.index_select(0, posc) == probe_keys)
+             & sorted_live.index_select(0, posc))
+    return order.index_select(0, posc), found
+
+
+@plan_core("join_probe_direct")
+def join_probe_direct_core(build_keys: torch.Tensor,
+                           build_live: Optional[torch.Tensor], lo: int,
+                           probe_keys: torch.Tensor):
+    """Direct-addressed probe of a build key the planner believes is
+    ``arange(n) + lo``: the build table is the hash table, the probe one
+    subtract and gather. ``bad`` re-checks the density claim on the device
+    (overflow semantics: lying stats cost an eager replay, never a wrong
+    row); a dense key is unique, so no duplicate check is needed.
+
+    Returns ``(r_idx i64[n], found bool[n], bad bool 0-dim)``."""
+    rn = build_keys.shape[0]
+    if rn == 0:
+        z = torch.zeros_like(probe_keys)
+        return z, z.to(torch.bool), torch.zeros((), dtype=torch.bool,
+                                                device=z.device)
+    bad = ~(build_keys == torch.arange(rn, dtype=build_keys.dtype,
+                                       device=build_keys.device) + lo).all()
+    idx = probe_keys - lo
+    found = (idx >= 0) & (idx < rn)
+    r_idx = idx.clamp(0, rn - 1)
+    if build_live is not None:
+        found = found & build_live.index_select(0, r_idx)
+    return r_idx, found, bad

@@ -6,6 +6,10 @@ sorted from the least significant to the most significant with stable
 sorts. That is the permutation the JAX package's stable lexsort gives:
 rows ordered by their keys, ties in row order. Descending flips a lane
 with ``~``; a null lane above a column's value lanes places its nulls.
+
+``sort_lanes`` and ``select_topk_core`` are plan cores (plan/registry.py):
+the fused plan engine composes them, so the eager and fused paths order
+rows through the same lanes.
 """
 
 from __future__ import annotations
@@ -16,9 +20,11 @@ import torch
 
 from ..columnar.column import Column, Table
 from ..columnar.dtype import TypeId
+from ..plan.registry import plan_core
 from .hashing import _f32_bits, _f64_bits
 
 _SIGN64 = -(1 << 63)
+_I64_MAX = (1 << 63) - 1
 
 
 def _monotone_unsigned(col: Column) -> List[torch.Tensor]:
@@ -49,6 +55,7 @@ def _monotone_unsigned(col: Column) -> List[torch.Tensor]:
     return [data.to(torch.int64)]
 
 
+@plan_core("sort_lanes")
 def sort_lanes(keys: Sequence[Column],
                ascending: Optional[Sequence[bool]] = None,
                nulls_first: Optional[Sequence[bool]] = None
@@ -77,19 +84,57 @@ def sort_order(keys: Sequence[Column],
                ) -> torch.Tensor:
     """Stable int64 order indices sorting by ``keys[0]`` then the rest.
     Defaults follow Spark SQL: ascending, NULLS FIRST."""
-    n = keys[0].size
-    order = torch.arange(n, dtype=torch.int64, device=keys[0].device)
-    for lane in sort_lanes(keys, ascending, nulls_first):
-        order = order[torch.sort(lane[order], stable=True).indices]
+    return lexsort(sort_lanes(keys, ascending, nulls_first), keys[0].size,
+                   keys[0].device)
+
+
+def lexsort(lanes: Sequence[torch.Tensor], n: int,
+            device: torch.device) -> torch.Tensor:
+    """int64 permutation ordering rows by ``lanes`` (least significant
+    first, as ``sort_lanes`` returns them): one stable sort per lane, ties
+    in row order."""
+    order = torch.arange(n, dtype=torch.int64, device=device)
+    for lane in lanes:
+        order = order.index_select(
+            0, torch.sort(lane.index_select(0, order), stable=True).indices)
     return order
 
 
 def gather(col: Column, idx: torch.Tensor) -> Column:
-    """Rows ``idx`` of a fixed-width column."""
+    """Rows ``idx`` (int64, in range) of a fixed-width column."""
     col.dtype.require_stored()
-    validity = None if col.validity is None else col.validity[idx]
-    return Column(col.dtype, int(idx.shape[0]), data=col.data[idx],
-                  validity=validity)
+    validity = (None if col.validity is None
+                else col.validity.index_select(0, idx))
+    return Column(col.dtype, int(idx.shape[0]),
+                  data=col.data.index_select(0, idx), validity=validity)
+
+
+@plan_core("select_topk")
+def select_topk_core(lanes: Sequence[torch.Tensor], live: torch.Tensor,
+                     k: int) -> torch.Tensor:
+    """int64 indices of the first ``k`` live rows in ``lanes`` order: k
+    rounds, each a minimum down the lanes from the most significant, then
+    the lowest row index among the rows that tie on every lane — the order
+    of a stable sort, so the top k equal a sort followed by a slice.
+
+    ``live``: bool[n]. Rounds past the live count return index 0, which
+    the caller masks off with its own live count."""
+    n = live.shape[0]
+    if k == 0:
+        return torch.zeros(0, dtype=torch.int64, device=live.device)
+    rowids = torch.arange(n, dtype=torch.int64, device=live.device)
+    alive = live
+    picks = []
+    for _ in range(k):
+        cand = alive
+        for lane in reversed(lanes):
+            m = torch.where(cand, lane, _I64_MAX).min()
+            cand = cand & (lane == m)
+        # argmax takes no bool; on ties it returns the first index
+        w = torch.argmax(cand.to(torch.uint8))
+        picks.append(w)
+        alive = alive & (rowids != w)
+    return torch.stack(picks)
 
 
 def sort_table(table: Table, key_indices: Sequence[int],

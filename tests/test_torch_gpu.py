@@ -198,3 +198,43 @@ def test_q3_on_card_equals_cpu(cuda):
         assert a.data.device.type == "cuda"
         assert torch.equal(a.data.cpu(), b.data)
         assert torch.equal(a.valid_mask().cpu(), b.valid_mask())
+
+
+_PLAN_ROWS = 1_000_000
+_QUERIES = {
+    "q1": (lambda d: (tpch.generate_q1_lineitem(_PLAN_ROWS, 5, d),),
+           tpch.run_q1),
+    "q6": (lambda d: (tpch.generate_q1_lineitem(_PLAN_ROWS, 5, d),),
+           tpch.run_q6),
+    "q3": (lambda d: tpch.generate_q3_tables(_PLAN_ROWS, 6, d), tpch.run_q3),
+    "q5": (lambda d: tpch.generate_q5_tables(_PLAN_ROWS, 7, d), tpch.run_q5),
+}
+
+
+def _same_answer(a, b):
+    """Same values and validity bits (validity presence may differ
+    between the engines)."""
+    if isinstance(a, int):
+        return a == b
+    return a.num_rows == b.num_rows and all(
+        x.dtype == y.dtype
+        and torch.equal(x.data.cpu().view(torch.uint8),
+                        y.data.cpu().view(torch.uint8))
+        and torch.equal(x.valid_mask().cpu(), y.valid_mask().cpu())
+        for x, y in zip(a.columns, b.columns))
+
+
+@pytest.mark.parametrize("q", sorted(_QUERIES))
+def test_plan_engine_on_card_equals_eager_and_cpu(cuda, q):
+    """At 1M rows the fused plan engine on the card runs with no
+    fallback, equals the eager engine on the card bit for bit, and
+    equals the fused engine on the CPU."""
+    from spark_rapids_jni_tpu_torch.plan import plan_metrics
+    gen, run = _QUERIES[q]
+    card = gen(cuda)
+    plan_metrics.reset()
+    fused = run(*card)                       # engine="auto": fused here
+    snap = plan_metrics.snapshot()
+    assert (snap["plan_executes"], snap["plan_fallbacks"]) == (1, 0), snap
+    assert _same_answer(fused, run(*card, engine="eager"))
+    assert _same_answer(fused, run(*gen("cpu"), engine="plan"))

@@ -140,7 +140,11 @@ def test_groupby_all_masked_and_unported_aggs():
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         G.groupby_aggregate(pt, [0], [(1, "sum")])
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        G.groupby_aggregate(pt, [0], [(2, "mean")])
+        G.groupby_aggregate(pt, [0], [(1, "mean")])
+    # an integer mean is the exact int64 sum over the count, in float64
+    assert_table_equal(
+        JG.groupby_aggregate(jt, [0], [(2, "mean"), (3, "mean")]),
+        G.groupby_aggregate(pt, [0], [(2, "mean"), (3, "mean")]))
 
 
 @pytest.mark.parametrize("ascending", [[True, True], [False, True],
