@@ -14,7 +14,10 @@ run exits non-zero:
      against its plain PyTorch version at the main path's shapes; B3 also
      at a 1M-row mixed nullable schema, at a 600-column schema whose rows
      are split into several word windows, and at column views whose data
-     does not start on 16 bytes;
+     does not start on 16 bytes; B1 and B2 over a 1M-row STRING column of
+     random bytes 0-255 and lengths 0-100 (1% null) alone and first,
+     middle and last among fixed-width columns, seeds 42 and 0; B3 with
+     1-3 string slots;
   4. the main path with the launch counts set to 0: shuffle write
      (partition route for 200 partitions + JCUDF rows), shuffle read (must
      equal the input bit for bit), then q3's eager stage on the read-back
@@ -26,7 +29,15 @@ run exits non-zero:
      (``kernel_ms``), and wall times;
      B3 at each of its schemas, with the byte bound of that schema, beside
      a device-to-device copy_ that moves as many bytes (the rate this card
-     reaches);
+     reaches); a profiler reading above its event time prints as a null
+     ``kernel_ms`` (the reading stays as ``profiler_ms``); B1, B2 and B3
+     at phase 7's string schema, each first held bit for bit against its
+     plain version there; the variable-width byte copies of the string
+     table's first batch against their byte bounds, among them the
+     window copy of a lone string column beside the general masked
+     gather it stands in for (both must agree); and S1's batch
+     boundaries by the device search beside a host read of the row sizes
+     with the JAX package's rule (both must agree);
   6. the plan engine: TPC-H q1, q6, q3 and q5 at SF10 through their entry
      points on both engines ("auto", fused at this size, and "eager"):
      first pass and warm median of 5 each, bit for bit fused == eager ==
@@ -37,7 +48,20 @@ run exits non-zero:
      under torch.profiler (``plan_profile_sf10``); q3 once with the default
      knobs (its groupby overflows at SF10 and replays eagerly); and a
      GroupBy plan at 1M rows forced to overflow its slot budget, which
-     must replay eagerly and equal the eager engine.
+     must replay eagerly and equal the eager engine;
+  7. ``strings_60m``: STRING columns through the Spark shuffle, a
+     string-keyed aggregation and a string-keyed join, at 60M rows of the
+     JAX package's string row-conversion table (utils/datagen
+     .string_rows_table; bench_ops.py:109-137), launch counts set to 0
+     just before and read just after the first pass: S1 map side
+     (partition route on the STRING key, JCUDF rows in two batches whose
+     boundaries follow the JAX package's rule), S2 reduce side (each batch
+     back to columns, concatenated: the table bit for bit), S3 groupby on
+     the STRING key (equal to numpy grouping by the strings' bytes), S4
+     inner join to a dimension table of the distinct keys (60M pairs, each
+     row to its key; B2 on the dimension key bit-exact against its plain
+     version); per stage the first and warm (median of 5) wall ms,
+     launches, peak memory, and one warm run under torch.profiler.
 
 Prints JSON lines (timings, then the {"kernels": [...]} line, whose
 entries give each kernel's launches by path) and, last,
@@ -58,6 +82,19 @@ ALU_OPS_PER_S = 67e12       # H100 SXM non-tensor-core fp32 rate, used as
 #                             the rate of the kernels' 32-bit integer ops
 SF10_ROWS = 60_000_000      # lineitem rows; orders 15M, customer 1.5M
 PARTITIONS = 200            # spark.sql.shuffle.partitions default
+
+
+STRING_ROWS = 60_000_000    # phase 7: TPC-H SF10's lineitem count
+PHASE_SECONDS = {}
+_PHASE_T0 = [time.perf_counter()]
+
+
+def phase_end(name):
+    """Record the seconds since the last phase ended."""
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = now - _PHASE_T0[0]
+    _PHASE_T0[0] = now
+    log(f"phase {name}: {PHASE_SECONDS[name]:.1f} s")
 
 
 def log(msg):
@@ -115,6 +152,14 @@ def kernel_ms(calls, reps=5):
     return out
 
 
+def profiler_fields(kms, ms):
+    """``kernel_ms`` from a profiler reading ``kms`` of a kernel whose
+    launches take ``ms`` by CUDA events: null where the reading exceeds
+    the event time (the kernel alone cannot take longer than its calls),
+    and the reading itself as ``profiler_ms``."""
+    return {"kernel_ms": kms if kms <= ms else None, "profiler_ms": kms}
+
+
 # the CUDA kernel of each wrapper, by the name the profiler shows
 DEVICE_KERNEL = {"murmur3_fixed_rows": "murmur3_rows_kernel",
                  "xxhash64_fixed_rows": "xxhash64_rows_kernel",
@@ -144,6 +189,7 @@ def main():
               file=sys.stderr)
         return 2
     from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.utils import datagen
 
     dev = torch.device("cuda")
     # ---- phase 1: the card ----------------------------------------------
@@ -155,6 +201,7 @@ def main():
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     card = {"card": smi}
+    phase_end("card")
 
     # ---- phase 2: build -------------------------------------------------
     t = time.perf_counter()
@@ -167,23 +214,43 @@ def main():
                     or "spill" in line:
                 log(f"  {src}.cu: {line.strip()}")
 
+    phase_end("build")
+
     # ---- phases 3 and 4 ---------------------------------------------------
     state = check_kernels(dev, SF10_ROWS)
+    check_string_kernels(dev, 1 << 20)
+    t = time.perf_counter()
+    strings = datagen.string_rows_table(STRING_ROWS, 0, device=dev)
+    _sync(dev)
+    strings_gen_s = time.perf_counter() - t
+    phase_end("check_kernels")
     launches, summary = main_path(dev, state)
     for wrapper, count in launches.items():
         if count < 1:
             raise AssertionError(f"the SF10 main path never launched "
                                  f"{wrapper}")
     jline({"phase": "main_path_sf10", **card, **summary})
+    phase_end("main_path")
 
     # ---- phase 5: timings -------------------------------------------------
-    entries = timings(state, launches, card)
+    entries = timings(state, launches, card, strings)
     breakdown(state, card)
+    variable_width_copy_times(card, strings)
+    batch_boundary_times(card, strings)
+    phase_end("timings")
 
     # ---- phase 6: the plan engine -----------------------------------------
     paths = {"main_path_sf10": launches, **plan_engine(dev, state, card)}
+    phase_end("plan_engine")
+    del state
+
+    # ---- phase 7: strings -------------------------------------------------
+    paths["strings_60m"] = strings_phase(dev, card, strings, strings_gen_s)
+    del strings
+    phase_end("strings_60m")
     for entry, (_, wrapper, _, _) in zip(entries, K.KERNELS):
         entry["launches_by_path"] = {p: c[wrapper] for p, c in paths.items()}
+    jline({"phase_seconds": PHASE_SECONDS})
     jline({"kernels": entries})
     jline({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})
@@ -191,9 +258,12 @@ def main():
 
 
 def _schema(cols, for_xx):
+    """The B1/B2 schema of columns, as ops/hashing._hash_rows builds it."""
+    from spark_rapids_jni_tpu_torch.columnar.dtype import TypeId
     from spark_rapids_jni_tpu_torch.ops import hashing as H
-    return [(*H._fixed_element_words(c.dtype, c.data, for_xx), c.validity)
-            for c in cols]
+    return [(("str", (c.offsets, c.data)) if c.dtype.id is TypeId.STRING
+             else H._fixed_element_words(c.dtype, c.data, for_xx))
+            + (c.validity,) for c in cols]
 
 
 def _rowconv_args(table):
@@ -338,6 +408,54 @@ def check_kernels(dev, rows):
             "mixed": mixed, "wide": wide}
 
 
+def check_string_kernels(dev, n):
+    """Phase 3, strings: B1 and B2 over a STRING column of random bytes
+    0-255, lengths 0-100, 1% null, alone and first, middle and last among
+    fixed-width columns, seeds 42 and 0; B3 with 1-3 string slots. Every
+    kernel bit-exact against its plain version."""
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.utils import datagen
+
+    rng = np.random.default_rng(7)
+    s = datagen.random_bytes_column(n, 100, 0.01, seed=1, device=dev)
+    fixed = [Column.from_numpy(rng.integers(-2**62, 2**62, n), dt.INT64,
+                               validity=rng.random(n) > 0.1, device=dev),
+             Column.from_numpy(rng.standard_normal(n).astype(np.float32),
+                               device=dev),
+             Column.from_numpy(rng.integers(0, 2, n).astype(np.uint8),
+                               dt.BOOL8, device=dev)]
+    layouts = {"only": [s], "first": [s, *fixed],
+               "middle": [fixed[0], s, *fixed[1:]], "last": [*fixed, s]}
+    for algo, fn, plain in (
+            ("B1", K.murmur3_fixed_rows, K.murmur3_fixed_rows_plain),
+            ("B2", K.xxhash64_fixed_rows, K.xxhash64_fixed_rows_plain)):
+        for where, cols in layouts.items():
+            sch = _schema(cols, algo == "B2")
+            for seed in (42, 0):
+                got = fn(sch, seed, n)
+                _sync(dev)
+                if not torch.equal(got, plain(sch, seed, n)):
+                    raise AssertionError(f"{algo} string {where} seed "
+                                         f"{seed}: differs")
+        log(f"check {algo} STRING (bytes 0-255, lengths 0-100, 1% null) "
+            f"alone/first/middle/last, seeds 42 and 0: bit-exact over {n} "
+            f"rows")
+    for nstr in (1, 2, 3):
+        cols = []
+        for i in range(nstr):
+            cols += [fixed[i], datagen.random_bytes_column(
+                n, 40, 0.1, seed=10 + i, device=dev)]
+        args = _rowconv_args(Table(tuple(cols)))
+        got = K.rowconv_fixed_words(*args)
+        _sync(dev)
+        if not torch.equal(got, K.rowconv_fixed_words_plain(*args)):
+            raise AssertionError(f"B3 with {nstr} string slot(s): differs")
+        log(f"check B3 with {nstr} string slot(s): bit-exact, {args[3]} "
+            f"words x {n} rows")
+
+
 def main_path(dev, state):
     """Phase 4: the main path with the launch counts set to 0 just before
     and read just after; then its checks. Returns (launches, summary)."""
@@ -411,9 +529,10 @@ def main_path(dev, state):
                       "launches": launches}
 
 
-def timings(state, launches, card):
+def timings(state, launches, card, strings):
     """Phase 5: each kernel's device time at the main path's SF10 shape,
-    its plain version's, and its bound. Returns the kernel entries."""
+    its plain version's, and its bound; then at the string schema of
+    phase 7 (``strings``). Returns the kernel entries (SF10 shapes)."""
     from spark_rapids_jni_tpu_torch.ops import kernels as K
 
     n = state["rows"]
@@ -440,18 +559,23 @@ def timings(state, launches, card):
             _rowconv_bytes(li_args), n * 3 * len(li_args[2])),
     }
     b3 = {label: _rowconv_args(state[label]) for label in ("mixed", "wide")}
+    # one profiler session for the SF10 shapes and one for the string
+    # schema's (string_kernel_lines): torch.profiler drops kernel events
+    # once a process has run many sessions
     k_ms = kernel_ms(
         [(work[w][0], DEVICE_KERNEL[w]) for _, w, _, _ in K.KERNELS]
         + [((lambda a=a: K.rowconv_fixed_words(*a)),
             DEVICE_KERNEL["rowconv_fixed_words"]) for a in b3.values()])
+    string_kernel_lines(card, string_kernel_work(strings), strings.num_rows)
     entries = []
     for i, (kname, wrapper, source, replaces) in enumerate(K.KERNELS):
         run, plain, nbytes, nops = work[wrapper]
         b_ms, b_by = bound_ms(nbytes, nops)
+        ms = cuda_ms(run)
         entry = {"name": kname, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[wrapper],
-                 "bit_exact": True, "max_abs_err": 0, "ms": cuda_ms(run),
-                 "kernel_ms": k_ms[i],
+                 "bit_exact": True, "max_abs_err": 0, "ms": ms,
+                 **profiler_fields(k_ms[i], ms),
                  "plain_ms": cuda_ms(plain, reps=3, warm=1),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         jline({"phase": "kernel_time", "rows": n, **card, **entry})
@@ -459,11 +583,10 @@ def timings(state, launches, card):
     for i, (label, args) in enumerate(b3.items(), len(K.KERNELS)):
         nbytes = _rowconv_bytes(args)
         b_ms, b_by = bound_ms(nbytes, args[4] * 3 * len(args[2]))
+        ms = cuda_ms(lambda: K.rowconv_fixed_words(*args))
         jline({"phase": f"rowconv_time_{label}", **card, "rows": args[4],
                "columns": len(args[0]), "row_bytes": 4 * args[3],
-               "bytes": nbytes,
-               "ms": cuda_ms(lambda: K.rowconv_fixed_words(*args)),
-               "kernel_ms": k_ms[i],
+               "bytes": nbytes, "ms": ms, **profiler_fields(k_ms[i], ms),
                "plain_ms": cuda_ms(lambda: K.rowconv_fixed_words_plain(
                    *args), reps=3, warm=1),
                "bound_ms": b_ms, "bound_by": b_by})
@@ -762,6 +885,332 @@ def forced_fallback(dev, card):
         raise AssertionError(f"forced fallback: {line}")
     log("check forced overflow at 1M rows: one overflow fallback, "
         "== eager")
+
+
+def _fresh(col):
+    """The same column as a new Column object (a Table: each column): no
+    padded-bytes memo, so a timed stage pads its string keys itself."""
+    import dataclasses
+    from spark_rapids_jni_tpu_torch.columnar.column import Table
+    if isinstance(col, Table):
+        return Table(tuple(dataclasses.replace(c) for c in col.columns))
+    return dataclasses.replace(col)
+
+
+def _same_table(a, b) -> bool:
+    """Same dtypes, bytes (values, characters, offsets) and validity
+    presence and bits."""
+    for x, y in zip(a.columns, b.columns):
+        if x.dtype != y.dtype or x.size != y.size \
+                or (x.validity is None) != (y.validity is None):
+            return False
+        pairs = [(x.data.view(torch.uint8), y.data.view(torch.uint8))]
+        if x.offsets is not None:
+            pairs.append((x.offsets, y.offsets))
+        if x.validity is not None:
+            pairs.append((x.validity, y.validity))
+        if not all(torch.equal(p, q) for p, q in pairs):
+            return False
+    return a.num_columns == b.num_columns
+
+
+def strings_phase(dev, card, table, gen_s):
+    """Phase 7: STRING columns through S1-S4 over ``table``, the string
+    row table (see the module docstring), made in ``gen_s`` seconds.
+    Returns the launches of the counted first pass, by wrapper."""
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column
+    from spark_rapids_jni_tpu_torch.columnar.table_ops import concat_tables
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+    from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate
+    from spark_rapids_jni_tpu_torch.ops.join import inner_join
+    from spark_rapids_jni_tpu_torch.parallel.exchange import partition_ids
+    from spark_rapids_jni_tpu_torch.utils import datagen
+
+    cuda = dev.type == "cuda"
+    rows = table.num_rows
+    # the generator's own draws: each row's pool entry, for the checks
+    draws = datagen.string_draws(rows, datagen.STRING_ROWS_PROFILE,
+                                 np.random.default_rng(0), None)
+    keys, pool_gid = np.unique(np.array(draws.pool_strings(), dtype=object),
+                               return_inverse=True)
+    gid = pool_gid[draws.index]
+    info = R.compute_column_information([c.dtype for c in table])
+    sizes = (info.size_per_row + draws.lengths + 7) // 8 * 8
+    dtypes = [c.dtype for c in table]
+    aggs = [(0, "sum"), (0, "count"), (1, "min"), (1, "max")]
+    dim = Column.from_pylist(list(keys), dt.STRING, device=dev)
+    jline({"phase": "strings_table", **card, "rows": rows,
+           "device_bytes": table.device_nbytes(),
+           "string_bytes": int(table[4].data.numel()),
+           "distinct_keys": len(keys), "size_per_row": info.size_per_row,
+           "jcudf_bytes": int(sizes.sum()), "generate_s": gen_s})
+
+    out = {}
+    stages = {
+        "S1_map_side": lambda: (partition_ids(_fresh(table), [4],
+                                              PARTITIONS),
+                                R.convert_to_rows(_fresh(table))),
+        "S2_reduce_side": lambda: concat_tables(
+            [R.convert_from_rows(b, dtypes) for b in out["S1_map_side"][1]]),
+        "S3_aggregate": lambda: groupby_aggregate(
+            _fresh(out["S2_reduce_side"]), [4], aggs),
+        "S4_dimension_join": lambda: inner_join(
+            [_fresh(out["S2_reduce_side"][4])], [_fresh(dim)]),
+    }
+    lines = {}
+    K.reset_launches()
+    for name, fn in stages.items():  # the counted first pass
+        before = _kernel_counts()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        out[name], first = wall(fn, dev)
+        lines[name] = {
+            "phase": "strings_stage", **card, "stage": name, "rows": rows,
+            "first_ms": first,
+            "launches": {w: c - before[w]
+                         for w, c in _kernel_counts().items()},
+            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated()
+                                        / 1e9 if cuda else None)}
+    launches = _kernel_counts()
+    log(f"strings_60m launches: {launches}")
+    for wrapper, count in launches.items():
+        if cuda and count < 1:
+            raise AssertionError(f"strings_60m never launched {wrapper}")
+
+    # S1: partition ids against the plain version on the same device;
+    # two batches at the JAX package's boundaries
+    pids, batches = out["S1_map_side"]
+    sch = _schema([table[4]], False)
+    plain = ((K.murmur3_fixed_rows_plain(sch, 42, rows).to(torch.int64)
+              & 0xFFFFFFFF) % PARTITIONS).to(torch.int32)
+    bounds = R._batch_boundaries(sizes, R.MAX_BATCH_BYTES)
+    got_bounds = [0] + np.cumsum([b.size for b in batches]).tolist()
+    checks = {
+        "S1_partition_ids_equal_plain": torch.equal(pids, plain),
+        "S1_batches": len(batches),
+        "S1_boundaries_follow_the_rule": got_bounds == bounds,
+        "S1_batch_bytes": [int(b.offsets[-1]) for b in batches] == [
+            int(sizes[b0:b1].sum()) for b0, b1 in zip(bounds, bounds[1:])],
+        "S2_round_trip_bit_for_bit": _same_table(table,
+                                                 out["S2_reduce_side"]),
+    }
+    del plain
+    # B2 on S4's right key, the dimension table's, against its plain
+    # version at that shape (on the left key, T's, in phase 5)
+    dsch = _schema([dim], True)
+    checks["S4_dimension_key_B2_equal_plain"] = torch.equal(
+        K.xxhash64_fixed_rows(dsch, 42, dim.size),
+        K.xxhash64_fixed_rows_plain(dsch, 42, dim.size))
+    # S3: numpy groups by the strings' bytes (pool entries can repeat)
+    agg = out["S3_aggregate"]
+    v0 = table[0].data.cpu().numpy()
+    v1 = table[1].data.cpu().numpy().astype(np.int64)
+    ng = len(keys)
+    lo_sum = np.bincount(gid, weights=v0 & 0xFFFF, minlength=ng)
+    hi_sum = np.bincount(gid, weights=v0 >> 16, minlength=ng)
+    present = np.bincount(gid * 100 + v1, minlength=ng * 100).reshape(ng, 100)
+    want = [np.round(hi_sum).astype(np.int64) * 65536
+            + np.round(lo_sum).astype(np.int64),
+            np.bincount(gid, minlength=ng),
+            (present > 0).argmax(axis=1),              # least value
+            99 - (present[:, ::-1] > 0).argmax(axis=1)]  # greatest value
+    checks["S3_keys_equal_numpy"] = (
+        agg.num_rows == ng
+        and agg[0].to_pylist() == [k.decode() for k in keys])
+    checks["S3_aggregates_equal_numpy"] = all(
+        np.array_equal(c.to_numpy().astype(np.int64), w)
+        for c, w in zip(agg.columns[1:], want))
+    # S4: every row matches exactly its own key in the dimension table
+    l_idx, r_idx = out["S4_dimension_join"]
+    checks["S4_pairs"] = int(l_idx.numel())
+    checks["S4_each_row_to_its_key"] = (
+        torch.equal(l_idx, torch.arange(rows, device=dev))
+        and torch.equal(r_idx, torch.from_numpy(gid).to(dev)))
+    jline({"phase": "strings_checks", **card, **checks})
+    failed = [k for k, v in checks.items() if v is not True
+              and k not in ("S1_batches", "S4_pairs")]
+    if checks["S4_pairs"] != rows:
+        failed.append("S4_pairs")
+    if rows == STRING_ROWS and len(batches) != 2:  # 3.4 GB of rows
+        failed.append("S1_batches")
+    if failed:
+        raise AssertionError(f"strings_60m: {failed}")
+    log(f"check strings_60m: S1 pids == plain, {len(batches)} batch(es) "
+        f"at the rule's boundaries {bounds}, S2 round trip bit-identical, "
+        f"S3 == numpy ({ng} groups by bytes), S4 {rows} pairs, each row "
+        f"to its key")
+
+    if cuda:
+        for name, fn in stages.items():
+            warm = sorted(wall(fn, dev)[1] for _ in range(5))
+            lines[name].update(warm_median_ms=warm[2], warm_ms=warm,
+                               profile=profile_once(fn))
+            jline(lines[name])
+    else:
+        for line in lines.values():
+            jline(line)
+    del out, batches
+    return launches
+
+
+def string_kernel_work(table):
+    """B1, B2 and B3 at the string schema (the STRING key; the whole table
+    for B3): {wrapper: (kernel call, plain call, bytes, operations)}.
+    Operations: ~10 integer ops per murmur3 block or tail byte plus the
+    fmix; ~20 per xxhash64 8-byte round (a 64-bit multiply counts 4) and
+    ~10 per 4-byte or 1-byte round; 3 per B3 piece."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+
+    rows = table.num_rows
+    key = table[4]
+    lengths = (key.offsets[1:] - key.offsets[:-1]).to(torch.int64)
+    chars = int(key.data.numel())
+    blocks4 = int((lengths // 4).sum())
+    rounds8 = int((lengths // 8).sum())
+    mm, xx = _schema([key], False), _schema([key], True)
+    b3 = _rowconv_args(table)
+    return {
+        "murmur3_fixed_rows": (
+            lambda: K.murmur3_fixed_rows(mm, 42, rows),
+            lambda: K.murmur3_fixed_rows_plain(mm, 42, rows),
+            4 * (rows + 1) + chars + 4 * rows,
+            10 * (blocks4 + (chars - 4 * blocks4)) + 12 * rows),
+        "xxhash64_fixed_rows": (
+            lambda: K.xxhash64_fixed_rows(xx, 42, rows),
+            lambda: K.xxhash64_fixed_rows_plain(xx, 42, rows),
+            4 * (rows + 1) + chars + 8 * rows,
+            20 * rounds8 + 10 * (chars - 8 * rounds8) + 40 * rows),
+        "rowconv_fixed_words": (
+            lambda: K.rowconv_fixed_words(*b3),
+            lambda: K.rowconv_fixed_words_plain(*b3),
+            _rowconv_bytes(b3), rows * 3 * len(b3[2])),
+    }
+
+
+def string_kernel_lines(card, work, rows):
+    """One ``string_kernel_time`` line per kernel of ``work``, each held
+    bit for bit against its plain version on these inputs first (the
+    shapes phase 7 gives B1 and B3, and B2 on S4's left key)."""
+    for name, (run, plain, _, _) in work.items():
+        if not torch.equal(run(), plain()):
+            raise AssertionError(f"{name} at the string schema ({rows} "
+                                 f"rows): differs from its plain version")
+        log(f"check {name} at the string schema: bit-exact over {rows} "
+            f"rows")
+    k_ms = kernel_ms([(w[0], DEVICE_KERNEL[name])
+                      for name, w in work.items()])
+    for (name, (run, plain, nbytes, nops)), kms in zip(work.items(), k_ms):
+        b_ms, b_by = bound_ms(nbytes, nops)
+        ms = cuda_ms(run)
+        jline({"phase": "string_kernel_time", **card, "kernel": name,
+               "rows": rows, "bytes": nbytes, "bit_exact": True,
+               "max_abs_err": 0, "ms": ms, **profiler_fields(kms, ms),
+               "plain_ms": cuda_ms(plain, reps=2, warm=1),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+
+def variable_width_copy_times(card, table):
+    """The variable-width byte copies of the string row table's first
+    batch (row-matrix and per-byte assembly, string extraction), by CUDA
+    events, against their byte bounds."""
+    from spark_rapids_jni_tpu_torch.columnar.strings import padded_bytes
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+
+    table = _fresh(table)
+    key = table[4]
+    info = R.compute_column_information([c.dtype for c in table])
+    batch = R.convert_to_rows(table)[0]
+    spr = info.size_per_row
+    lanes = R._string_lanes(table, info)
+    fixed = R._build_fixed_words(table, info, R._round_up(spr, 8), lanes)
+    mat, _ = padded_bytes(key)
+    b1 = batch.size
+    roffs = batch.offsets
+    total = int(roffs[-1])
+    bchars = int(key.offsets[b1]) - int(key.offsets[0])
+    row_pad = R._round_up(int((roffs[1:] - roffs[:-1]).max()), 16)
+    args = (fixed[:b1], [mat[:b1]], [(o[:b1], ln[:b1]) for o, ln in lanes],
+            roffs, total)
+    words = R._row_words(batch, info)
+    o = info.column_starts[4]
+    out_offs = torch.zeros(b1 + 1, dtype=torch.int32, device=roffs.device)
+    torch.cumsum(words[:, o // 4 + 1], 0, dtype=torch.int32,
+                 out=out_offs[1:])
+    blob = batch.children[0].data.view(torch.uint8)
+    slot = words[:, o // 4].contiguous()
+    # bytes: the fixed words (or the slot words) and characters read once,
+    # the row bytes (or the characters) written once
+    assemble_bytes = 4 * fixed.shape[1] * b1 + bchars + 8 * b1 + total
+    # the one string column into its row-matrix window two ways: the copy
+    # _assemble_rowmat makes of a lone string column, and the masked
+    # gather (_place_strings) it runs for several; both must agree
+    w = min(mat.shape[1], row_pad - spr)
+    by_copy = torch.zeros((b1, row_pad), dtype=torch.uint8,
+                          device=roffs.device)
+    by_gather = torch.zeros_like(by_copy)
+
+    def window_copy():
+        by_copy[:, spr:spr + w] = mat[:b1, :w]
+
+    window_copy()
+    R._place_strings(by_gather, args[1], args[2], spr)
+    if not torch.equal(by_copy, by_gather):
+        raise AssertionError("the window copy differs from _place_strings")
+    copies = {
+        "assemble_rowmat": (lambda: R._assemble_rowmat(*args, row_pad, spr),
+                            assemble_bytes),
+        "string_window_copy": (window_copy, 2 * b1 * w),
+        "place_strings_gather": (lambda: R._place_strings(
+            by_gather, args[1], args[2], spr), 2 * b1 * w),
+        "assemble_bytes": (lambda: R._assemble_bytes(*args, spr),
+                           assemble_bytes),
+        "extract_string_bytes": (lambda: R._extract_string_bytes(
+            blob, roffs[:-1], slot, out_offs, bchars),
+            bchars * 2 + 12 * b1),
+    }
+    for name, (fn, nbytes) in copies.items():
+        b_ms, _ = bound_ms(nbytes, 0)
+        jline({"phase": "variable_width_copy_time", **card, "op": name,
+               "batch_rows": b1, "batch_bytes": total, "bytes": nbytes,
+               "ms": cuda_ms(fn, reps=3, warm=1), "bound_ms": b_ms,
+               "bound_by": "bytes"})
+
+
+def batch_boundary_times(card, table):
+    """S1's batch boundaries over the string row table two ways: the
+    device search convert_to_rows runs (_device_boundaries) and a host
+    read of the row sizes with the JAX package's host rule
+    (_batch_boundaries); both must agree. Wall ms, median of 5."""
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+
+    dev = table.device
+    info = R.compute_column_information([c.dtype for c in table])
+    row_sizes, cum = R._row_sizes(R._string_lanes(table, info))
+    total, max_row = torch.cat([cum[-1:],
+                                row_sizes.max().reshape(1)]).tolist()
+    cap = R.MAX_BATCH_BYTES
+
+    def host():
+        sizes = row_sizes.cpu().numpy()
+        bounds = R._batch_boundaries(sizes, cap)
+        return bounds, [0] + np.cumsum([int(sizes[b0:b1].sum()) for b0, b1
+                                        in zip(bounds, bounds[1:])]).tolist()
+
+    def device():
+        return R._device_boundaries(cum, table.num_rows, total, max_row, cap)
+
+    got, ms = {}, {}
+    for name, fn in (("host_read_and_rule", host), ("device_search", device)):
+        runs = [wall(fn, dev) for _ in range(5)]
+        got[name] = runs[0][0]
+        ms[f"{name}_ms"] = sorted(t for _, t in runs)[2]
+    if got["host_read_and_rule"] != got["device_search"]:
+        raise AssertionError("batch boundaries: the device search differs "
+                             "from the host rule")
+    jline({"phase": "batch_boundary_time", **card, "rows": table.num_rows,
+           "boundaries": got["device_search"][0], **ms})
 
 
 def numpy_q1(a, cutoff=2400):

@@ -4,8 +4,10 @@ The same Spark-exact columnar kernels, written for one NVIDIA H100 with
 PyTorch for the plain tensor code and hand-written CUDA C++ (``csrc/``) for
 the kernels the JAX package wrote in Pallas:
 
-  * columnar/  - dtypes, Column/Table over torch tensors, the wire-format
-                 interop with the JAX package, gather/slice/filter.
+  * columnar/  - dtypes, Column/Table over torch tensors (fixed-width and
+                 STRING columns), STRING helpers (padded bytes), the
+                 wire-format interop with the JAX package,
+                 gather/concat/slice/filter.
   * ops/       - Spark row hashes (murmur3_32, xxhash64), JCUDF row
                  conversion, sort, sort-probe joins, sorted groupby, the
                  plan cores the fused engine composes, and ops/kernels.py:
@@ -16,6 +18,8 @@ the kernels the JAX package wrote in Pallas:
                  planner, and the fused executor (one program of torch ops
                  per query, one host sync); its knobs are utils/config.py.
   * tpch.py    - TPC-H q1, q3, q5 and q6: tables and both engines.
+  * utils/     - the plan knobs, shape bucketing and seeded data
+                 (datagen.py).
   * csrc/      - CUDA sources, built with nvcc for sm_90a at first use
                  into build/torch_kernels/.
 

@@ -9,13 +9,17 @@ Fields of a Column:
             each type id — FLOAT64 is native float64 here, where the JAX
             package keeps uint64 bit patterns).
   size:     row count.
-  data:     the values, a 1-D tensor of ``dtype.torch_dtype``.
+  data:     the values, a 1-D tensor of ``dtype.torch_dtype``; for a
+            STRING column the characters, ``uint8[nbytes]``.
   validity: ``bool[n]`` mask (True = valid), or None when every row is.
-  offsets:  ``int32[n+1]`` row offsets of a LIST column, else None.
+  offsets:  ``int32[n+1]`` row offsets of a STRING or LIST column, else
+            None: row i is ``data[offsets[i]:offsets[i+1]]``.
   children: the child column of a LIST column.
 
-The only LIST column in this slice is the LIST<INT8> column of JCUDF rows
-that ops/row_conversion.convert_to_rows returns.
+A null STRING row may hold bytes (its offsets say how many); every op
+carries them as they are, as the JAX package does. The only LIST column
+in the port is the LIST<INT8> column of JCUDF rows that
+ops/row_conversion.convert_to_rows returns.
 
 A column may carry advisory ``ColumnStats`` (``with_stats``/``stats``),
 which the plan engine's planner reads. They are not a field: every derived
@@ -153,6 +157,34 @@ class Column:
         return Column(dtype, int(host.shape[0]), data=data, validity=vmask)
 
     @staticmethod
+    def from_pylist(values, dtype: DType, device="cuda") -> "Column":
+        """Column from a Python list; None entries become nulls. STRING
+        takes str (UTF-8 encoded) or bytes, a null row holds no bytes."""
+        dev = resolve_device(device)
+        n = len(values)
+        valid = np.array([v is not None for v in values], dtype=bool)
+        vmask = None if valid.all() else torch.from_numpy(valid).to(dev)
+        if dtype.id is TypeId.STRING:
+            parts = [b"" if v is None else
+                     (v.encode("utf-8") if isinstance(v, str) else bytes(v))
+                     for v in values]
+            offsets = np.zeros(n + 1, dtype=np.int32)
+            np.cumsum([len(p) for p in parts], out=offsets[1:])
+            chars = np.frombuffer(b"".join(parts), dtype=np.uint8).copy()
+            return Column(dtype, n, data=torch.from_numpy(chars).to(dev),
+                          validity=vmask,
+                          offsets=torch.from_numpy(offsets).to(dev))
+        if dtype.is_decimal:
+            raise dt.not_ported("from_pylist of decimals", "A12, decimals")
+        arr = np.zeros(n, dtype=dtype.np_dtype)
+        for i, v in enumerate(values):
+            if v is not None:
+                arr[i] = bool(v) if dtype.id is TypeId.BOOL8 else v
+        col = Column.from_numpy(arr, dtype, device=dev)
+        col.validity = vmask
+        return col
+
+    @staticmethod
     def list_of(child: "Column", offsets: torch.Tensor,
                 validity: Optional[torch.Tensor] = None) -> "Column":
         return Column(dt.LIST, int(offsets.shape[0]) - 1, data=None,
@@ -160,9 +192,24 @@ class Column:
                       children=(child,))
 
     # ---- host readback ----------------------------------------------------
+    def host_offsets(self) -> Optional[np.ndarray]:
+        """Host copy of ``offsets`` (int32), memoized on the column and
+        read-only: a column is never changed in place."""
+        if self.offsets is None:
+            return None
+        cached = getattr(self, "_host_offsets", None)
+        if cached is None:
+            cached = self.offsets.cpu().numpy()
+            cached.flags.writeable = False
+            self._host_offsets = cached
+        return cached
+
     def to_numpy(self) -> np.ndarray:
         """Host copy of the values in the type's numpy dtype (unsigned
         storage viewed back; null rows hold whatever the data holds)."""
+        if self.dtype.id is TypeId.STRING:
+            raise ValueError("a STRING column has no fixed-width values: "
+                             "read data and offsets, or to_pylist()")
         if not self.dtype.is_stored:
             raise dt.not_ported(f"to_numpy of {self.dtype.id.value}",
                                 "A1, nested columns")
@@ -172,6 +219,12 @@ class Column:
     def to_pylist(self) -> list:
         """Python list with None for nulls (test/debug path)."""
         valid = self.valid_mask().cpu().numpy()
+        if self.dtype.id is TypeId.STRING:
+            chars = self.data.cpu().numpy().tobytes()
+            offs = self.host_offsets()
+            return [chars[offs[i]:offs[i + 1]].decode("utf-8",
+                                                      errors="replace")
+                    if valid[i] else None for i in range(self.size)]
         if self.dtype.id is TypeId.LIST:
             child = self.children[0].to_pylist()
             offs = self.offsets.cpu().numpy()

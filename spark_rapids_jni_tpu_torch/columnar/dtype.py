@@ -3,8 +3,12 @@
 The type ids and their wire names are the JAX package's (a column crosses
 between the two packages as ``(dtype_str, rows, data, offsets, validity)``;
 see columnar/interop.py), so every id is declared here. The port stores
-the fixed-width ids only; the others raise ``NotImplementedError`` naming
-the ROADMAP queue item that brings them.
+the fixed-width ids and STRING (uint8 characters + int32 offsets, see
+columnar/column.py); the others raise ``NotImplementedError`` naming the
+ROADMAP queue item that brings them. ``require_stored`` admits the
+fixed-width ids only: a STRING column raises there too, in every op that
+reads values as fixed-width elements (plan expressions, aggregated
+values).
 
 Storage (``DType.torch_dtype``): each fixed-width id is held in the torch
 dtype of its byte size and signedness. torch's kernels lack arithmetic and
@@ -75,7 +79,7 @@ _FIXED = {
 
 # where each id the port does not store yet is queued (ROADMAP.md queue A)
 _QUEUED = {
-    TypeId.STRING: "A9/A10, strings",
+    TypeId.STRING: "A10, strings in plan expressions and aggregates",
     TypeId.DICT32: "A10, encoded columns",
     TypeId.RLE: "A10, encoded columns",
     TypeId.FOR32: "A10, encoded columns",
@@ -172,6 +176,7 @@ UINT64 = DType(TypeId.UINT64)
 FLOAT32 = DType(TypeId.FLOAT32)
 FLOAT64 = DType(TypeId.FLOAT64)
 LIST = DType(TypeId.LIST)
+STRING = DType(TypeId.STRING)
 
 
 def parse_dtype(s: str) -> DType:

@@ -31,13 +31,21 @@ WireCol = Tuple[str, int, bytes, Optional[bytes], Optional[bytes]]
 
 
 def wire_to_col(w: WireCol, device="cuda") -> Column:
-    """Wire tuple -> port Column on ``device`` (fixed-width types)."""
+    """Wire tuple -> port Column on ``device`` (fixed-width and STRING
+    types; STRING offsets narrow to int32 and the characters stop at the
+    last offset, as in the JAX package's bridge)."""
     name, rows, data, offsets, validity = w
-    d = dt.parse_dtype(name).require_stored()
+    d = dt.parse_dtype(name)
     dev = resolve_device(device)
     rows = int(rows)
-    vals = np.frombuffer(data, d.np_dtype)[:rows]
-    col = Column.from_numpy(vals, d, device=dev)
+    if d.id is TypeId.STRING:
+        offs = np.frombuffer(offsets, np.int64)[:rows + 1]
+        chars = np.frombuffer(data, np.uint8)[:int(offs[-1])].copy()
+        col = Column(d, rows, data=torch.from_numpy(chars).to(dev),
+                     offsets=torch.from_numpy(offs.astype(np.int32)).to(dev))
+    else:
+        vals = np.frombuffer(data, d.require_stored().np_dtype)[:rows]
+        col = Column.from_numpy(vals, d, device=dev)
     if validity is not None:
         v = np.frombuffer(validity, np.uint8)[:rows].astype(bool)
         col.validity = torch.from_numpy(v).to(dev)
@@ -45,11 +53,15 @@ def wire_to_col(w: WireCol, device="cuda") -> Column:
 
 
 def col_to_wire(col: Column) -> WireCol:
-    """Port Column -> wire tuple (fixed-width types)."""
+    """Port Column -> wire tuple (fixed-width and STRING types)."""
     if col.dtype.id is TypeId.LIST:
         raise ValueError("nested columns must be decomposed by the caller")
     validity = None
     if col.validity is not None:
         validity = col.validity.cpu().numpy().astype(np.uint8).tobytes()
+    if col.dtype.id is TypeId.STRING:
+        return (dt.dtype_str(col.dtype), col.size,
+                col.data.cpu().numpy().tobytes(),
+                col.host_offsets().astype(np.int64).tobytes(), validity)
     return (dt.dtype_str(col.dtype), col.size, col.to_numpy().tobytes(),
             None, validity)

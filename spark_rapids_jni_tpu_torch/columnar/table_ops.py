@@ -1,11 +1,15 @@
-"""Gather, slice and filter of fixed-width tables (the JAX package's
-columnar/table_ops.py). Every op runs on the device of its input."""
+"""Gather, concatenate, slice and filter of tables of fixed-width and
+STRING columns (the JAX package's columnar/table_ops.py). Every op runs on
+the device of its input."""
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
 from .column import Column, Table
+from .dtype import TypeId
 
 
 def _index(idx, device: torch.device) -> torch.Tensor:
@@ -31,6 +35,53 @@ def gather_table(table: Table, idx, out_of_bounds_null: bool = False
     idx = _index(idx, table.device)
     return Table(tuple(gather_column(c, idx, out_of_bounds_null)
                        for c in table.columns))
+
+
+def _concat_validity(cols: Sequence[Column]):
+    if all(c.validity is None for c in cols):
+        return None
+    return torch.cat([c.valid_mask() for c in cols])
+
+
+def concat_columns(cols: Sequence[Column]) -> Column:
+    """Equal-type columns, one after the other. STRING characters are
+    concatenated whole and each column's offsets shifted by the last
+    offsets of the columns before it (one host read of those last
+    offsets, as the JAX package reads them)."""
+    cols = list(cols)
+    if not cols:
+        raise ValueError("concat of zero columns")
+    d = cols[0].dtype
+    for c in cols[1:]:
+        if c.dtype != d:
+            raise TypeError(f"concat dtype mismatch: {c.dtype} vs {d}")
+    n = sum(c.size for c in cols)
+    validity = _concat_validity(cols)
+    if d.id is TypeId.STRING:
+        ends = torch.stack([c.offsets[-1].to(torch.int64)
+                            for c in cols]).tolist()
+        bases = [0]
+        for e in ends[:-1]:
+            bases.append(bases[-1] + e)
+        if bases[-1] + ends[-1] >= 1 << 31:
+            raise ValueError("concatenated STRING column exceeds int32 "
+                             "offsets")
+        offsets = torch.cat([torch.zeros_like(cols[0].offsets[:1])] + [
+            c.offsets[1:] + b for c, b in zip(cols, bases)])
+        return Column(d, n, data=torch.cat([c.data for c in cols]),
+                      validity=validity, offsets=offsets)
+    d.require_stored()
+    return Column(d, n, data=torch.cat([c.data for c in cols]),
+                  validity=validity)
+
+
+def concat_tables(tables: Sequence[Table]) -> Table:
+    """Equal-schema tables, one after the other."""
+    tables = list(tables)
+    if not tables:
+        raise ValueError("concat of zero tables")
+    return Table(tuple(concat_columns([t.columns[i] for t in tables])
+                       for i in range(tables[0].num_columns)))
 
 
 def slice_table(table: Table, start: int, end: int) -> Table:

@@ -3,7 +3,8 @@
   1. ``sort_order`` over the key columns (nulls form their own group and
      sort first, Spark's default);
   2. segment boundaries where a sorted row's keys differ from the row
-     before it (float keys over normalized bits: NaNs equal, -0.0 == 0.0);
+     before it (float keys over normalized bits: NaNs equal, -0.0 == 0.0;
+     STRING keys over their zero-padded bytes and their lengths);
   3. segmented reductions over the sorted values.
 
 Aggregations: sum, count, min, max and mean over integer-valued columns,
@@ -29,6 +30,7 @@ import torch
 from ..columnar import dtype as dt
 from ..columnar.column import Column, Table
 from ..columnar.dtype import TypeId
+from ..columnar.strings import padded_bytes
 from ..plan.registry import plan_core
 from .hashing import spark_key_values
 from .sort import gather, lexsort, sort_lanes, sort_order
@@ -43,8 +45,16 @@ def _keys_equal_prev(col: Column, order: torch.Tensor) -> torch.Tensor:
     idx, pidx = order[1:], order[:-1]
     valid = col.valid_mask()
     v_cur, v_prev = valid.index_select(0, idx), valid.index_select(0, pidx)
-    vals = spark_key_values(col)
-    same_val = vals.index_select(0, idx) == vals.index_select(0, pidx)
+    if col.dtype.id is TypeId.STRING:
+        mat, lengths = padded_bytes(col)
+        words = mat.view(torch.int64)  # 8 padded bytes a word
+        same_val = ((words.index_select(0, idx)
+                     == words.index_select(0, pidx)).all(dim=1)
+                    & (lengths.index_select(0, idx)
+                       == lengths.index_select(0, pidx)))
+    else:
+        vals = spark_key_values(col)
+        same_val = vals.index_select(0, idx) == vals.index_select(0, pidx)
     return (v_cur & v_prev & same_val) | (~v_cur & ~v_prev)
 
 
@@ -187,6 +197,8 @@ def _shrink(col: Column, n: int) -> Column:
     """The first ``n`` groups (drops the dead groups of a row_mask)."""
     if col.size == n:
         return col
+    if col.dtype.id is TypeId.STRING:
+        return gather(col, torch.arange(n, device=col.device))
     validity = None if col.validity is None else col.validity[:n]
     return Column(col.dtype, n, data=col.data[:n], validity=validity)
 

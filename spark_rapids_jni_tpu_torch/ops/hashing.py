@@ -1,19 +1,26 @@
-"""Spark row hashes over fixed-width columns: MurmurHash3_32 and XXHash64.
+"""Spark row hashes over fixed-width and STRING columns: MurmurHash3_32
+and XXHash64.
 
-The fixed-width part of the JAX package's ops/hashing.py. Spark's rules,
-as that module reproduces them:
+The JAX package's ops/hashing.py for flat columns. Spark's rules, as that
+module reproduces them:
 
   * the running hash is chained across columns as the next column's seed,
     and a null element passes it through unchanged;
   * INT8/INT16 sign-extend to 4 bytes, BOOL8 hashes as ``!= 0``,
     DECIMAL32/64 hash as the 8 bytes of the sign-extended unscaled value;
   * murmur3 canonicalizes float NaNs only; xxhash64 canonicalizes NaNs
-    and folds -0.0 into 0.0.
+    and folds -0.0 into 0.0;
+  * a string hashes its bytes: murmur3 mixes 4-byte little-endian blocks,
+    then each tail byte SIGN-EXTENDED as a full block (not standard
+    murmur3), then fmix with the length; xxhash64 runs 32-byte stripes,
+    8-, 4- and 1-byte rounds (``_mm_bytes``, ``_xx_bytes``).
 
 The per-type normalization (``_fixed_element_words``) runs here in torch;
-the chained mixing runs in the CUDA kernels B1 (murmur3) and B2 (xxhash64)
-behind ops/kernels.py, whose plain versions are built from the mixing
-functions below.
+the chained mixing of whole rows, strings included, runs in the CUDA
+kernels B1 (murmur3) and B2 (xxhash64) behind ops/kernels.py, whose plain
+versions are built from the mixing functions below (strings over their
+zero-padded bytes, columnar/strings.py). DECIMAL128, LIST and STRUCT
+hashing are ROADMAP A2.
 
 torch has no shift, add or compare for uint32/uint64, so these mixing
 functions hold a u32 value in an int64 tensor masked to its low 32 bits,
@@ -94,6 +101,30 @@ def _mm_u64(h, v_u64):
     return _mm_fmix(h, 8)
 
 
+def _bytes4_to_u32(b0, b1, b2, b3):
+    """Little-endian u32 (in int64) of four byte lanes."""
+    return (b0.to(torch.int64) | (b1.to(torch.int64) << 8)
+            | (b2.to(torch.int64) << 16) | (b3.to(torch.int64) << 24))
+
+
+def _mm_bytes(h, mat, lengths):
+    """murmur3 of variable-length bytes: padded ``uint8[n, L]`` and
+    ``[n]`` lengths, seeds ``h`` (compute_bytes, murmur_hash.cuh:95-119)."""
+    n, L = mat.shape
+    lengths = lengths.to(torch.int64)
+    nblocks = lengths // 4
+    for i in range(L // 4):
+        k = _bytes4_to_u32(*(mat[:, 4 * i + j] for j in range(4)))
+        h = torch.where(i < nblocks, _mm_block(h, k), h)
+    # Spark's tail: each remaining byte sign-extended, a full block mix
+    smat = mat.view(torch.int8)
+    for i in range(min(3, L)):
+        idx = (nblocks * 4 + i).clamp(0, L - 1)
+        k = smat.gather(1, idx[:, None])[:, 0].to(torch.int64) & _M32
+        h = torch.where(nblocks * 4 + i < lengths, _mm_block(h, k), h)
+    return _mm_fmix(h, lengths)
+
+
 # ---------------------------------------------------------------------------
 # xxhash64 (u64 as int64 bits)
 # ---------------------------------------------------------------------------
@@ -126,6 +157,76 @@ def _xx_round8(h, k64):
 def _xx_round4(h, k32):
     h = h ^ (k32 * _P1)
     return _rotl64(h, 23) * _P2 + _P3
+
+
+def _xx_round1(h, b):
+    h = h ^ (b * _P5)
+    return _rotl64(h, 11) * _P1
+
+
+def _gather_bytes_le(mat, idx, nbytes: int):
+    """The ``nbytes`` little-endian bytes of each row at byte ``idx``
+    (positions past the row clipped: callers mask those rows)."""
+    L = mat.shape[1]
+    pos = (idx[:, None] + torch.arange(nbytes, device=mat.device)).clamp(
+        0, L - 1)
+    b = mat.gather(1, pos).to(torch.int64)
+    out = b[:, 0]
+    for i in range(1, nbytes):
+        out = out | (b[:, i] << (8 * i))
+    return out
+
+
+def _gather_u64(mat, idx):
+    return _gather_bytes_le(mat, idx, 8)
+
+
+def _gather_u32(mat, idx):
+    return _gather_bytes_le(mat, idx, 4)
+
+
+def _xx_bytes(seed, mat, lengths):
+    """xxhash64 of variable-length bytes: padded ``uint8[n, L]`` and
+    ``[n]`` lengths, seeds ``seed`` (compute_bytes, xxhash64.cu:109-175)."""
+    n, L = mat.shape
+    lengths = lengths.to(torch.int64)
+    nstripes = lengths // 32
+    h = seed + _P5
+    if L >= 32:
+        v = [seed + _s64(_P1 + _P2), seed + _P2, seed, seed - _P1]
+
+        def vround(acc, k):
+            return _rotl64(acc + k * _P2, 31) * _P1
+
+        for s in range(L // 32):
+            active = s < nstripes
+            base = torch.full((n,), s * 32, dtype=torch.int64,
+                              device=mat.device)
+            v = [torch.where(active,
+                             vround(acc, _gather_u64(mat, base + 8 * j)), acc)
+                 for j, acc in enumerate(v)]
+        merged = (_rotl64(v[0], 1) + _rotl64(v[1], 7) + _rotl64(v[2], 12)
+                  + _rotl64(v[3], 18))
+        for acc in v:
+            merged = (merged ^ vround(0, acc)) * _P1 + _P4
+        h = torch.where(lengths >= 32, merged, h)
+    h = h + lengths
+    offset = nstripes * 32
+    n8 = (lengths - offset) // 8
+    if L >= 8:
+        for i in range(3):
+            k = _gather_u64(mat, offset + 8 * i)
+            h = torch.where(i < n8, _xx_round8(h, k), h)
+    offset = offset + n8 * 8
+    if L >= 4:
+        has4 = (lengths % 8) >= 4
+        h = torch.where(has4, _xx_round4(h, _gather_u32(mat, offset)), h)
+        offset = offset + torch.where(has4, 4, 0)
+    for i in range(min(3, L)):
+        b = mat.gather(1, (offset + i).clamp(0, L - 1)[:, None])[:, 0]
+        h = torch.where(offset + i < lengths,
+                        _xx_round1(h, b.to(torch.int64)), h)
+    return _xx_final(h)
 
 
 def _xx_u32(seed, v_u32):
@@ -196,10 +297,12 @@ def _fixed_element_words(col_dtype: DType, data: torch.Tensor,
         return "u64", _f64_bits(data, normalize_zero=for_xxhash)
     if tid is TypeId.DECIMAL32:
         return "u64", data.to(torch.int64)
-    if tid in (TypeId.DECIMAL128, TypeId.STRING, TypeId.LIST,
-               TypeId.STRUCT):
-        raise dt.not_ported(f"{tid.value} hashing", "A2, variable-width "
-                            "and nested row hashes")
+    if tid is TypeId.STRING:
+        raise TypeError("a STRING column hashes its bytes (the \"str\" "
+                        "schema entry of _hash_rows), not fixed-width words")
+    if tid in (TypeId.DECIMAL128, TypeId.LIST, TypeId.STRUCT):
+        raise dt.not_ported(f"{tid.value} hashing", "A2, decimal128 and "
+                            "nested row hashes")
     raise dt.not_ported(f"{tid.value} hashing", "A10, encoded columns")
 
 
@@ -216,9 +319,10 @@ def _normalize_input(table: Union[Table, Sequence[Column]]
 
 def _hash_rows(columns: Tuple[Column, ...], seed: int, algo: str) -> Column:
     """Seed-chain ``algo`` ("mm" or "xx") across the columns; the mixing
-    runs in kernel B1 or B2 (ops/kernels.py). Every column is flat here,
-    so each is its own hash unit (STRUCT/LIST flattening is queued with
-    nested hashing and raises in _fixed_element_words)."""
+    runs in kernel B1 or B2 (ops/kernels.py), one launch for the whole
+    row. Every column is flat here, so each is its own hash unit
+    (STRUCT/LIST flattening is queued with nested hashing and raises in
+    _fixed_element_words)."""
     for_xx = algo == "xx"
     out_dt = dt.INT64 if for_xx else dt.INT32
     if not columns:
@@ -227,7 +331,10 @@ def _hash_rows(columns: Tuple[Column, ...], seed: int, algo: str) -> Column:
     n = columns[0].size
     schema = []
     for c in columns:
-        kind, words = _fixed_element_words(c.dtype, c.data, for_xx)
+        if c.dtype.id is TypeId.STRING:
+            kind, words = "str", (c.offsets, c.data)
+        else:
+            kind, words = _fixed_element_words(c.dtype, c.data, for_xx)
         schema.append((kind, words, c.validity))
     if for_xx:
         h = kernels.xxhash64_fixed_rows(schema, seed, n)

@@ -6,7 +6,9 @@ A sort-probe join, as in the JAX package:
   2. stable sort of the right side's hashes;
   3. per left row, the run of equal right hashes by binary search;
   4. expansion of the candidate pairs and an exact key compare that kills
-     hash collisions (floats over normalized bits: NaNs equal, -0.0 == 0.0).
+     hash collisions (floats over normalized bits: NaNs equal, -0.0 == 0.0;
+     STRING keys over their zero-padded bytes and lengths), in chunks of
+     pairs whose gathered key bytes stay under ``_VERIFY_MAX_BYTES``.
 
 The u64 hashes are held as int64 bits; XOR-ing the sign bit makes signed
 order the unsigned order, so torch's stable sort and searchsorted give the
@@ -34,6 +36,8 @@ import torch
 
 from ..columnar import dtype as dt
 from ..columnar.column import Column, Table
+from ..columnar.dtype import TypeId
+from ..columnar.strings import padded_bytes
 from ..plan.registry import plan_core
 from .hashing import _s64, spark_key_values, xxhash64
 from .sort import lexsort
@@ -65,11 +69,34 @@ def _col_equal(lc: Column, l_idx: torch.Tensor, rc: Column,
     """Equality of candidate row pairs on one key column."""
     lv = lc.valid_mask()[l_idx]
     rv = rc.valid_mask()[r_idx]
-    vals = spark_key_values(lc)[l_idx] == spark_key_values(rc)[r_idx]
+    if lc.dtype.id is TypeId.STRING:
+        lmat, llen = padded_bytes(lc)
+        rmat, rlen = padded_bytes(rc)
+        # equal lengths fit both widths, so the narrower width decides
+        w = min(lmat.shape[1], rmat.shape[1]) // 8
+        lw = lmat.view(torch.int64)[:, :w]
+        rw = rmat.view(torch.int64)[:, :w]
+        vals = ((lw.index_select(0, l_idx) == rw.index_select(0, r_idx))
+                .all(dim=1) & (llen[l_idx] == rlen[r_idx]))
+    else:
+        vals = spark_key_values(lc)[l_idx] == spark_key_values(rc)[r_idx]
     eq = lv & rv & vals
     if nulls_equal:
         eq = eq | (~lv & ~rv)
     return eq
+
+
+# gathered key bytes one verify chunk may hold (the JAX package caps its
+# speculative expansion at the same byte count)
+_VERIFY_MAX_BYTES = 1 << 30
+
+
+def _verify_width(col: Column) -> int:
+    """Bytes ``_col_equal`` gathers per candidate pair for one key column:
+    the padded row of a STRING key, one element otherwise."""
+    if col.dtype.id is TypeId.STRING:
+        return int(padded_bytes(col)[0].shape[1]) if col.size else 1
+    return col.dtype.itemsize
 
 
 def _widen_keys(left_keys, right_keys):
@@ -143,8 +170,13 @@ def _expand_and_verify(left_keys, right_keys, nulls_equal, order, lo, cnt,
         keep = keep & left_mask[l_idx]
     if right_mask is not None:
         keep = keep & right_mask[r_idx]
-    for lc, rc in zip(left_keys, right_keys):
-        keep = keep & _col_equal(lc, l_idx, rc, r_idx, nulls_equal)
+    width = sum(_verify_width(lc) + _verify_width(rc)
+                for lc, rc in zip(left_keys, right_keys))
+    step = max(1, _VERIFY_MAX_BYTES // width)
+    for p0 in range(0, total, step):
+        li, ri = l_idx[p0:p0 + step], r_idx[p0:p0 + step]
+        for lc, rc in zip(left_keys, right_keys):
+            keep[p0:p0 + step] &= _col_equal(lc, li, rc, ri, nulls_equal)
     return l_idx[keep], r_idx[keep]
 
 
@@ -156,8 +188,13 @@ def inner_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
     (bool[n]) push a filter into the join: the same pairs as pre-filtering
     that side, with indices into the ORIGINAL tables."""
     left_keys, right_keys = _widen_keys(list(left_keys), list(right_keys))
+    for lc, rc in zip(left_keys, right_keys):
+        if (lc.dtype.id is TypeId.STRING) != (rc.dtype.id is TypeId.STRING):
+            raise TypeError(f"join key types differ: {lc.dtype} and "
+                            f"{rc.dtype}")
     for c in (*left_keys, *right_keys):
-        c.dtype.require_stored()
+        if c.dtype.id is not TypeId.STRING:
+            c.dtype.require_stored()
     left_mask = _check_mask(left_mask, left_keys, "left")
     right_mask = _check_mask(right_mask, right_keys, "right")
     order, lo, cnt = _candidate_counts(left_keys, right_keys, nulls_equal,

@@ -46,11 +46,12 @@ _lock = threading.Lock()
 
 _VP = ctypes.c_void_p
 _SIGNATURES = {
-    # (schema pointers, kinds, validity pointers, ncols, n, seed, out, stream)
-    "srjt_murmur3_rows": [_VP, _VP, _VP, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_uint, _VP, _VP],
-    "srjt_xxhash64_rows": [_VP, _VP, _VP, ctypes.c_int, ctypes.c_longlong,
-                           ctypes.c_ulonglong, _VP, _VP],
+    # (schema pointers, offsets pointers, kinds, validity pointers, ncols,
+    #  n, seed, out, stream)
+    "srjt_murmur3_rows": [_VP, _VP, _VP, _VP, ctypes.c_int,
+                          ctypes.c_longlong, ctypes.c_uint, _VP, _VP],
+    "srjt_xxhash64_rows": [_VP, _VP, _VP, _VP, ctypes.c_int,
+                           ctypes.c_longlong, ctypes.c_ulonglong, _VP, _VP],
     # (device metadata, nslots, nwin, npairs, npieces, rows per tile,
     #  stage bytes, sub-tile rows, sub-tile bytes, n, out, stream)
     "srjt_rowconv_rows": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -149,8 +150,16 @@ def _where(tensors: Sequence[Optional[torch.Tensor]]) -> torch.device:
     raise ValueError(f"unsupported device {dev}: the kernels run on cuda:0")
 
 
+def _schema_tensors(schema) -> List[Optional[torch.Tensor]]:
+    out: List[Optional[torch.Tensor]] = []
+    for kind, words, v in schema:
+        out += list(words) if kind == "str" else [words]
+        out.append(v)
+    return out
+
+
 def _schema_device(schema) -> torch.device:
-    return _where([t for _, w, v in schema for t in (w, v)])
+    return _where(_schema_tensors(schema))
 
 
 def reset_launches() -> None:
@@ -159,13 +168,18 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
-# B1 / B2: fixed-width row hashes
+# B1 / B2: row hashes over fixed-width and STRING columns
 # ---------------------------------------------------------------------------
 # A hash schema is a list of (kind, words, validity): kind "u32" with int32
-# words or "u64" with int64 words (the bits _fixed_element_words made), and
-# a bool[n] validity or None.
+# words or "u64" with int64 words (the bits _fixed_element_words made), or
+# kind "str" with words = (int32[n+1] offsets, uint8 characters) of a
+# STRING column; and a bool[n] validity or None. The wrappers keep the
+# names of the Pallas entries they replace, which hash fixed-width columns
+# only; here one launch hashes a whole mixed row, as the reference's CUDA
+# does (murmur_hash.cu:187, xxhash64.cu:109-175).
 
 MAX_HASH_COLUMNS = 64  # csrc/row_hash.cu: the schema rides in the params
+_HASH_KINDS = {"u32": 0, "u64": 1, "str": 2}
 
 
 def _hash_args(schema, n: int):
@@ -174,18 +188,31 @@ def _hash_args(schema, n: int):
                          f"takes at most {MAX_HASH_COLUMNS}")
     keep = []
     ptrs = (ctypes.c_void_p * len(schema))()
+    offs = (ctypes.c_void_p * len(schema))()
     kinds = (ctypes.c_int * len(schema))()
     valid = (ctypes.c_void_p * len(schema))()
     for i, (kind, words, v) in enumerate(schema):
-        want = torch.int32 if kind == "u32" else torch.int64
-        if words.dtype != want or words.shape != (n,):
-            raise ValueError(f"hash column {i}: {kind} words must be "
-                             f"{want}[{n}], got {words.dtype}"
-                             f"{list(words.shape)}")
-        words = words.contiguous()
-        keep.append(words)
+        if kind == "str":
+            offsets, chars = words
+            if (offsets.dtype != torch.int32 or offsets.shape != (n + 1,)
+                    or chars.dtype != torch.uint8 or chars.dim() != 1):
+                raise ValueError(f"hash column {i}: str words must be "
+                                 f"int32[{n + 1}] offsets and uint8 "
+                                 f"characters")
+            offsets, chars = offsets.contiguous(), chars.contiguous()
+            keep += [offsets, chars]
+            offs[i] = offsets.data_ptr()
+            words = chars
+        else:
+            want = torch.int32 if kind == "u32" else torch.int64
+            if words.dtype != want or words.shape != (n,):
+                raise ValueError(f"hash column {i}: {kind} words must be "
+                                 f"{want}[{n}], got {words.dtype}"
+                                 f"{list(words.shape)}")
+            words = words.contiguous()
+            keep.append(words)
         ptrs[i] = words.data_ptr()
-        kinds[i] = 0 if kind == "u32" else 1
+        kinds[i] = _HASH_KINDS[kind]
         if v is not None:
             if v.dtype != torch.bool or v.shape != (n,):
                 raise ValueError(f"hash column {i}: validity must be "
@@ -193,7 +220,16 @@ def _hash_args(schema, n: int):
             v = v.contiguous()
             keep.append(v)
             valid[i] = v.data_ptr()
-    return keep, ptrs, kinds, valid
+    return keep, ptrs, offs, kinds, valid
+
+
+def _padded(words) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(padded bytes, lengths) of a "str" schema entry's words."""
+    from ..columnar.strings import densify_offsets, pad_width
+    offsets, chars = words
+    lengths = offsets[1:] - offsets[:-1]
+    max_len = int(lengths.max()) if lengths.numel() else 0
+    return densify_offsets(chars, offsets, pad_width(max_len))
 
 
 def murmur3_fixed_rows_plain(schema, seed: int, n: int) -> torch.Tensor:
@@ -202,29 +238,38 @@ def murmur3_fixed_rows_plain(schema, seed: int, n: int) -> torch.Tensor:
     dev = _schema_device(schema) if schema else torch.device("cpu")
     h = torch.full((n,), seed & 0xFFFFFFFF, dtype=torch.int64, device=dev)
     for kind, words, v in schema:
-        w = words.to(torch.int64)
-        nh = H._mm_u32(h, w & 0xFFFFFFFF) if kind == "u32" \
-            else H._mm_u64(h, w)
+        if kind == "str":
+            nh = H._mm_bytes(h, *_padded(words))
+        else:
+            w = words.to(torch.int64)
+            nh = H._mm_u32(h, w & 0xFFFFFFFF) if kind == "u32" \
+                else H._mm_u64(h, w)
         h = nh if v is None else torch.where(v, nh, h)
     return h.to(torch.int32)
 
 
-def murmur3_fixed_rows(schema, seed: int, n: int) -> torch.Tensor:
-    """B1: int32[n] Spark murmur3_32 row hashes of a fixed-width schema
-    (seed chained across columns, null rows pass the running hash)."""
-    if n == 0 or not schema:
-        return murmur3_fixed_rows_plain(schema, seed, n)
+def _launch_hash(fn: str, schema, seed: int, n: int,
+                 out_dtype: torch.dtype) -> torch.Tensor:
     dev = _schema_device(schema)
-    if dev.type == "cpu":
-        return murmur3_fixed_rows_plain(schema, seed, n)
     lib = _lib("row_hash")
-    keep, ptrs, kinds, valid = _hash_args(schema, n)
-    out = torch.empty(n, dtype=torch.int32, device=dev)
-    err = lib.srjt_murmur3_rows(ctypes.addressof(ptrs), ctypes.addressof(kinds),
-                                ctypes.addressof(valid), len(schema), n,
-                                seed & 0xFFFFFFFF, out.data_ptr(),
-                                _stream(dev))
-    _check(lib, err, "murmur3")
+    keep, ptrs, offs, kinds, valid = _hash_args(schema, n)
+    out = torch.empty(n, dtype=out_dtype, device=dev)
+    err = getattr(lib, fn)(ctypes.addressof(ptrs), ctypes.addressof(offs),
+                           ctypes.addressof(kinds), ctypes.addressof(valid),
+                           len(schema), n, seed, out.data_ptr(),
+                           _stream(dev))
+    _check(lib, err, fn)
+    return out
+
+
+def murmur3_fixed_rows(schema, seed: int, n: int) -> torch.Tensor:
+    """B1: int32[n] Spark murmur3_32 row hashes of a schema of
+    fixed-width and STRING columns (seed chained across columns, null
+    rows pass the running hash)."""
+    if n == 0 or not schema or _schema_device(schema).type == "cpu":
+        return murmur3_fixed_rows_plain(schema, seed, n)
+    out = _launch_hash("srjt_murmur3_rows", schema, seed & 0xFFFFFFFF, n,
+                       torch.int32)
     murmur3_fixed_rows.launches += 1
     return out
 
@@ -236,30 +281,23 @@ def xxhash64_fixed_rows_plain(schema, seed: int, n: int) -> torch.Tensor:
     dev = _schema_device(schema) if schema else torch.device("cpu")
     h = torch.full((n,), H._s64(seed), dtype=torch.int64, device=dev)
     for kind, words, v in schema:
-        w = words.to(torch.int64)
-        nh = H._xx_u32(h, w & 0xFFFFFFFF) if kind == "u32" \
-            else H._xx_u64(h, w)
+        if kind == "str":
+            nh = H._xx_bytes(h, *_padded(words))
+        else:
+            w = words.to(torch.int64)
+            nh = H._xx_u32(h, w & 0xFFFFFFFF) if kind == "u32" \
+                else H._xx_u64(h, w)
         h = nh if v is None else torch.where(v, nh, h)
     return h
 
 
 def xxhash64_fixed_rows(schema, seed: int, n: int) -> torch.Tensor:
-    """B2: int64[n] (u64 bits) Spark xxhash64 row hashes of a fixed-width
-    schema, chained like B1."""
-    if n == 0 or not schema:
+    """B2: int64[n] (u64 bits) Spark xxhash64 row hashes of a schema of
+    fixed-width and STRING columns, chained like B1."""
+    if n == 0 or not schema or _schema_device(schema).type == "cpu":
         return xxhash64_fixed_rows_plain(schema, seed, n)
-    dev = _schema_device(schema)
-    if dev.type == "cpu":
-        return xxhash64_fixed_rows_plain(schema, seed, n)
-    lib = _lib("row_hash")
-    keep, ptrs, kinds, valid = _hash_args(schema, n)
-    out = torch.empty(n, dtype=torch.int64, device=dev)
-    err = lib.srjt_xxhash64_rows(ctypes.addressof(ptrs),
-                                 ctypes.addressof(kinds),
-                                 ctypes.addressof(valid), len(schema), n,
-                                 seed & 0xFFFFFFFFFFFFFFFF, out.data_ptr(),
-                                 _stream(dev))
-    _check(lib, err, "xxhash64")
+    out = _launch_hash("srjt_xxhash64_rows", schema,
+                       seed & 0xFFFFFFFFFFFFFFFF, n, torch.int64)
     xxhash64_fixed_rows.launches += 1
     return out
 

@@ -6,6 +6,10 @@ sorted from the least significant to the most significant with stable
 sorts. That is the permutation the JAX package's stable lexsort gives:
 rows ordered by their keys, ties in row order. Descending flips a lane
 with ``~``; a null lane above a column's value lanes places its nulls.
+A STRING key gives one lane per 8 bytes of its zero-padded bytes
+(columnar/strings.padded_bytes), big-endian: the order of the padded
+bytes, the JAX package's (its lanes hold 4 bytes each). A string that ends
+in NUL bytes ties with its prefix and keeps its input order, as there.
 
 ``sort_lanes`` and ``select_topk_core`` are plan cores (plan/registry.py):
 the fused plan engine composes them, so the eager and fused paths order
@@ -20,6 +24,7 @@ import torch
 
 from ..columnar.column import Column, Table
 from ..columnar.dtype import TypeId
+from ..columnar.strings import padded_bytes, row_of_position
 from ..plan.registry import plan_core
 from .hashing import _f32_bits, _f64_bits
 
@@ -36,6 +41,9 @@ def _monotone_unsigned(col: Column) -> List[torch.Tensor]:
     (the null lane masks them)."""
     tid = col.dtype.id
     data = col.data
+    if tid is TypeId.STRING:
+        mat, _ = padded_bytes(col)  # L is a multiple of 8
+        return [w ^ _SIGN64 for w in _big_endian_words(mat)]
     if tid is TypeId.FLOAT64:
         bits = _f64_bits(data, normalize_zero=True)
         ukey = torch.where(bits < 0, ~bits, bits | _SIGN64)
@@ -53,6 +61,19 @@ def _monotone_unsigned(col: Column) -> List[torch.Tensor]:
     col.dtype.require_stored()
     # signed integers, decimals, timestamps; BOOL8/UINT8 are stored uint8
     return [data.to(torch.int64)]
+
+
+def _big_endian_words(mat: torch.Tensor) -> List[torch.Tensor]:
+    """The int64 words of each 8 bytes of ``uint8[n, L]`` rows read
+    big-endian, as contiguous columns, first bytes first: their unsigned
+    order is the order of the bytes."""
+    n, L = mat.shape
+    x = mat.view(torch.int64)  # little-endian words, [n, L / 8]
+    m8, m16 = 0x00FF00FF00FF00FF, 0x0000FFFF0000FFFF
+    x = ((x & m8) << 8) | ((x >> 8) & m8)
+    x = ((x & m16) << 16) | ((x >> 16) & m16)
+    x = (x << 32) | ((x >> 32) & 0xFFFFFFFF)
+    return [x[:, c].contiguous() for c in range(L // 8)]
 
 
 @plan_core("sort_lanes")
@@ -101,12 +122,35 @@ def lexsort(lanes: Sequence[torch.Tensor], n: int,
 
 
 def gather(col: Column, idx: torch.Tensor) -> Column:
-    """Rows ``idx`` (int64, in range) of a fixed-width column."""
-    col.dtype.require_stored()
+    """Rows ``idx`` (int64, in range) of a fixed-width or STRING column."""
     validity = (None if col.validity is None
                 else col.validity.index_select(0, idx))
+    if col.dtype.id is TypeId.STRING:
+        data, offsets = _gather_string_bytes(col.data, col.offsets, idx)
+        return Column(col.dtype, int(idx.shape[0]), data=data,
+                      validity=validity, offsets=offsets)
+    col.dtype.require_stored()
     return Column(col.dtype, int(idx.shape[0]),
                   data=col.data.index_select(0, idx), validity=validity)
+
+
+def _gather_string_bytes(chars: torch.Tensor, offsets: torch.Tensor,
+                         idx: torch.Tensor):
+    """(characters, int32 offsets) of rows ``idx`` of a STRING column: a
+    flat gather of every output byte (int32 positions: the characters of
+    a column stay under 2^31). The output size is the one host sync."""
+    starts = offsets[:-1].index_select(0, idx)
+    lens = offsets[1:].index_select(0, idx) - starts
+    out = torch.zeros(idx.shape[0] + 1, dtype=torch.int32,
+                      device=offsets.device)
+    torch.cumsum(lens, 0, dtype=torch.int32, out=out[1:])
+    total = int(out[-1])
+    if total == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=chars.device), out
+    row = row_of_position(out, total)
+    pos = (starts.index_select(0, row) - out.index_select(0, row)
+           + torch.arange(total, dtype=torch.int32, device=chars.device))
+    return chars.index_select(0, pos), out
 
 
 @plan_core("select_topk")

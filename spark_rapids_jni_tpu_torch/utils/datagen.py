@@ -1,0 +1,274 @@
+"""Seeded benchmark data (the JAX package's utils/datagen.py).
+
+Per-type value distributions (uniform, normal, geometric, with bounds),
+null frequency, a pool of distinct values (cardinality), geometric runs of
+repeated values and string lengths: the reference's data_profile. The
+numpy draws are the JAX package's, call for call, so one seed gives the
+same column in both packages, bit for bit.
+
+A STRING column's bytes are expanded on the column's device: the JAX
+package indexes every output byte on the host, which at 60M rows of ~16
+bytes takes int64 index arrays of ~7.7 GB each. Here the pool is padded
+to a ``uint8[cardinality, L]`` matrix, the rows gather their pool rows in
+chunks, and a mask keeps each row's bytes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..columnar import dtype as dt
+from ..columnar.column import Column, Table, resolve_device
+from ..columnar.dtype import DType, TypeId
+
+UNIFORM = "uniform"
+NORMAL = "normal"
+GEOMETRIC = "geometric"
+
+# rows of one chunk of the string expansion
+_EXPAND_ROWS = 1 << 22
+
+
+@dataclass(frozen=True)
+class Dist:
+    """A bounded sampling distribution; GEOMETRIC concentrates samples
+    near ``lower``."""
+
+    kind: str = UNIFORM
+    lower: float = 0.0
+    upper: float = 1.0
+
+
+def _int_upper(dtype: DType) -> int:
+    bits = min(dtype.itemsize * 8, 63)
+    if dtype.id in (TypeId.UINT8, TypeId.UINT16, TypeId.UINT32,
+                    TypeId.UINT64):
+        return (1 << bits) - 1
+    return (1 << (bits - 1)) - 1
+
+
+def _default_dist(dtype: DType) -> Dist:
+    """Timestamps and unsigned integers geometric, signed integers and
+    decimals uniform over their range, floats normal."""
+    tid = dtype.id
+    if tid.value.startswith("timestamp"):
+        return Dist(GEOMETRIC, 0, 2_000_000_000)
+    if tid in (TypeId.UINT8, TypeId.UINT16, TypeId.UINT32, TypeId.UINT64):
+        return Dist(GEOMETRIC, 0, _int_upper(dtype))
+    if dtype.is_integral or dtype.is_decimal:
+        return Dist(UNIFORM, -_int_upper(dtype) - 1, _int_upper(dtype))
+    if dtype.is_floating:
+        return Dist(NORMAL, -1e5, 1e5)
+    return Dist(UNIFORM, 0, 1)
+
+
+@dataclass(frozen=True)
+class ColumnProfile:
+    """How one column is generated."""
+
+    dtype: DType
+    dist: Optional[Dist] = None            # value distribution
+    null_frequency: Optional[float] = 0.01
+    cardinality: int = 2000                # 0 = unbounded distinct values
+    avg_run_length: int = 4                # 1 = no runs
+    string_len: Dist = field(default_factory=lambda: Dist(NORMAL, 0, 32))
+    bool_probability: float = 0.5
+
+
+def _sample(dist: Dist, n: int, rng: np.random.Generator,
+            integral: bool) -> np.ndarray:
+    lo, hi = float(dist.lower), float(dist.upper)
+    span = max(hi - lo, 1e-9)
+    if dist.kind == UNIFORM:
+        vals = rng.uniform(lo, hi, n)
+    elif dist.kind == NORMAL:
+        vals = np.clip(rng.normal((lo + hi) / 2, span / 6, n), lo, hi)
+    elif dist.kind == GEOMETRIC:
+        vals = np.clip(lo + rng.exponential(span / 4, n), lo, hi)
+    else:
+        raise ValueError(f"unknown distribution {dist.kind!r}")
+    if integral:
+        vals = np.clip(vals, -9.223372036854775e18, 9.223372036854775e18)
+        return np.floor(vals).astype(np.int64)
+    return vals
+
+
+def _with_runs(n: int, arl: int, rng: np.random.Generator,
+               draw) -> np.ndarray:
+    """n values in geometric runs averaging ``arl``."""
+    if arl <= 1:
+        return draw(n)
+    n_runs = max(1, int(np.ceil(n / arl * 1.5)))
+    lengths = rng.geometric(1.0 / arl, n_runs)
+    vals = draw(n_runs)
+    out = np.repeat(vals, lengths)
+    while out.shape[0] < n:
+        more = draw(n_runs)
+        out = np.concatenate(
+            [out, np.repeat(more, rng.geometric(1.0 / arl, n_runs))])
+    return out[:n]
+
+
+def _pooled(cardinality: int, rng: np.random.Generator, sample_pool):
+    """A draw routed through a pool of ``cardinality`` distinct values
+    (unbounded when cardinality <= 0)."""
+    if cardinality <= 0:
+        return sample_pool
+    pool = sample_pool(cardinality)
+
+    def draw(k):
+        return pool[rng.integers(0, len(pool), k)]
+    return draw
+
+
+def generate_column(n: int, profile: ColumnProfile, seed: int = 0,
+                    device="cuda") -> Column:
+    """One seeded column per the profile, on ``device``."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    p = profile
+    dtype = p.dtype
+    tid = dtype.id
+    valid = (rng.random(n) >= p.null_frequency
+             if p.null_frequency is not None and p.null_frequency > 0
+             else None)
+    if tid is TypeId.STRING:
+        return _generate_strings(n, p, rng, valid, dev)
+    if tid is TypeId.BOOL8:
+        def sample_bool(k):
+            return (rng.random(k) < p.bool_probability).astype(np.uint8)
+        vals = _with_runs(n, p.avg_run_length, rng, sample_bool)
+        return Column.from_numpy(vals, dtype, validity=valid, device=dev)
+    dtype.require_stored()  # DECIMAL128 is ROADMAP A12
+    dist = p.dist or _default_dist(dtype)
+
+    def sample_fixed(k):
+        return _sample(dist, k, rng, not dtype.is_floating)
+
+    vals = _with_runs(n, p.avg_run_length, rng,
+                      _pooled(p.cardinality, rng, sample_fixed))
+    return Column.from_numpy(vals.astype(dtype.np_dtype), dtype,
+                             validity=valid, device=dev)
+
+
+@dataclass(frozen=True)
+class StringDraws:
+    """The numpy draws of a STRING column: a pool of strings and, per row,
+    its pool entry and length (0 for a null row)."""
+
+    pool_lengths: np.ndarray   # int64[card]
+    pool_offsets: np.ndarray   # int64[card + 1]
+    pool_chars: np.ndarray     # uint8[pool_offsets[-1]]
+    index: np.ndarray          # int64[n]: the pool entry of each row
+    lengths: np.ndarray        # int64[n]
+
+    def pool_strings(self) -> list:
+        """The pool's strings as bytes."""
+        return [self.pool_chars[a:b].tobytes() for a, b in
+                zip(self.pool_offsets[:-1], self.pool_offsets[1:])]
+
+
+_ALPHABET = np.frombuffer(
+    b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 _-",
+    dtype=np.uint8)
+
+
+def string_draws(n: int, p: ColumnProfile, rng: np.random.Generator,
+                 valid) -> StringDraws:
+    """The JAX package's draws for a STRING column, in its order."""
+    card = p.cardinality if p.cardinality > 0 else max(n, 1)
+    pool_lengths = np.maximum(
+        _sample(p.string_len, card, rng, integral=True), 0)
+    pool_offs = np.zeros(card + 1, dtype=np.int64)
+    np.cumsum(pool_lengths, out=pool_offs[1:])
+    pool_chars = _ALPHABET[rng.integers(0, len(_ALPHABET),
+                                        int(pool_offs[-1]))]
+    idx = _with_runs(n, p.avg_run_length, rng,
+                     lambda k: rng.integers(0, card, k))
+    lengths = pool_lengths[idx]
+    if valid is not None:
+        lengths = np.where(valid, lengths, 0)  # nulls carry no bytes
+    return StringDraws(pool_lengths, pool_offs, pool_chars, idx, lengths)
+
+
+def _generate_strings(n: int, p: ColumnProfile, rng: np.random.Generator,
+                      valid, dev: torch.device) -> Column:
+    d = string_draws(n, p, rng, valid)
+    offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(d.lengths, out=offs[1:])
+    if offs[-1] >= 1 << 31:
+        raise ValueError("STRING column over 2^31 bytes: int32 offsets")
+    width = max(1, int(d.pool_lengths.max(initial=0)))
+    pool = np.zeros((len(d.pool_lengths), width), dtype=np.uint8)
+    keep = np.arange(width) < d.pool_lengths[:, None]
+    pool[keep] = d.pool_chars
+    pool_t = torch.from_numpy(pool).to(dev)
+    at = torch.arange(width, device=dev)
+    parts = []
+    for r0 in range(0, n, _EXPAND_ROWS):
+        idx = torch.from_numpy(d.index[r0:r0 + _EXPAND_ROWS]).to(dev)
+        ln = torch.from_numpy(d.lengths[r0:r0 + _EXPAND_ROWS]).to(dev)
+        parts.append(pool_t.index_select(0, idx)[at < ln[:, None]])
+    chars = (torch.cat(parts) if parts
+             else torch.zeros(0, dtype=torch.uint8, device=dev))
+    vmask = None if valid is None else torch.from_numpy(valid).to(dev)
+    return Column(dt.STRING, n, data=chars, validity=vmask,
+                  offsets=torch.from_numpy(offs.astype(np.int32)).to(dev))
+
+
+def generate_table(n: int, profiles: Sequence[ColumnProfile],
+                   seed: int = 0, device="cuda") -> Table:
+    """A table; column i uses ``seed + i``."""
+    return Table(tuple(generate_column(n, p, seed + i, device)
+                       for i, p in enumerate(profiles)))
+
+
+# The JAX package's string row-conversion table
+# (benchmarks/bench_ops.py:109-137): INT64, INT32 in [0, 100), FLOAT64,
+# BOOL8 from one generator, and a STRING column of 1000 pooled strings of
+# 0-32 ASCII bytes in runs of mean 4.
+STRING_ROWS_PROFILE = ColumnProfile(
+    dt.STRING, string_len=Dist(NORMAL, 0, 32), cardinality=1000,
+    null_frequency=None)
+
+
+def string_rows_table(rows: int, seed: int = 0, device="cuda") -> Table:
+    """The string row-conversion table of the JAX package's bench_ops.py
+    at ``rows`` rows, on ``device``."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    cols = [
+        Column.from_numpy(rng.integers(-2**31, 2**31, rows), dt.INT64,
+                          device=dev),
+        Column.from_numpy(rng.integers(0, 100, rows).astype(np.int32),
+                          dt.INT32, device=dev),
+        Column.from_numpy(rng.standard_normal(rows), dt.FLOAT64,
+                          device=dev),
+        Column.from_numpy(rng.integers(0, 2, rows).astype(np.uint8),
+                          dt.BOOL8, device=dev),
+        generate_column(rows, STRING_ROWS_PROFILE, seed=seed, device=dev),
+    ]
+    return Table(tuple(cols))
+
+
+def random_bytes_column(n: int, max_len: int, null_frequency: float = 0.0,
+                        seed: int = 0, device="cuda") -> Column:
+    """A STRING column of ``n`` strings of uniform random bytes 0-255
+    (UTF-8 multibyte sequences and invalid UTF-8 included), lengths uniform
+    in [0, max_len], a ``null_frequency`` share null (with their bytes):
+    the input that reaches every branch of the byte hashes."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, max_len + 1, n)
+    offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offs[1:])
+    chars = rng.integers(0, 256, int(offs[-1]), dtype=np.uint8)
+    valid = rng.random(n) >= null_frequency if null_frequency else None
+    return Column(dt.STRING, n, data=torch.from_numpy(chars).to(dev),
+                  validity=None if valid is None
+                  else torch.from_numpy(valid).to(dev),
+                  offsets=torch.from_numpy(offs.astype(np.int32)).to(dev))

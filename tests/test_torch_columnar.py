@@ -89,8 +89,8 @@ def test_float64_storage_keeps_nan_payload_bits():
 
 
 def test_unported_types_raise_with_queue_item():
-    jc = JColumn.from_pylist(["a", None], jdt.STRING)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    jc = JColumn.from_pylist([1, None], jdt.decimal128(2))
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         interop.wire_to_col(bridge.col_to_wire(jc), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         dt.DType(dt.TypeId.DECIMAL128, 2).itemsize

@@ -17,7 +17,11 @@ from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
 from spark_rapids_jni_tpu_torch.ops import hashing as H
 from spark_rapids_jni_tpu_torch.ops import kernels as K
 from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+from spark_rapids_jni_tpu_torch.columnar.table_ops import concat_tables
+from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate
+from spark_rapids_jni_tpu_torch.ops.join import inner_join
 from spark_rapids_jni_tpu_torch.parallel.exchange import partition_ids
+from spark_rapids_jni_tpu_torch.utils import datagen
 
 pytestmark = pytest.mark.gpu
 
@@ -68,6 +72,72 @@ def test_hash_kernels_match_plain(cuda, algo, nulls):
         assert fn.launches == before + 1
         assert got.device.type == "cuda"
         assert torch.equal(got, plain(schema, seed, t.num_rows))
+
+
+def _string_schema(t, xx):
+    return [(("str", (c.offsets, c.data)) if c.dtype.id is dt.TypeId.STRING
+             else H._fixed_element_words(c.dtype, c.data, xx)) + (c.validity,)
+            for c in t.columns]
+
+
+@pytest.mark.parametrize("algo", ["murmur3", "xxhash64"])
+@pytest.mark.parametrize("where", ["only", "first", "middle", "last"])
+def test_string_hash_kernels_match_plain(cuda, algo, where):
+    """B1/B2 with a STRING column of random bytes 0-255, lengths 0-100
+    (every tail and stripe branch), 1% nulls, alone or among fixed-width
+    columns."""
+    s = datagen.random_bytes_column(50_001, 100, 0.01, seed=3, device=cuda)
+    fixed = _mixed(50_001, cuda, seed=4).columns[:3]
+    cols = {"only": [s], "first": [s, *fixed],
+            "middle": [fixed[0], s, *fixed[1:]], "last": [*fixed, s]}[where]
+    xx = algo == "xxhash64"
+    schema = _string_schema(Table(tuple(cols)), xx)
+    fn = K.xxhash64_fixed_rows if xx else K.murmur3_fixed_rows
+    plain = K.xxhash64_fixed_rows_plain if xx else K.murmur3_fixed_rows_plain
+    for seed in (42, 0):
+        got = fn(schema, seed, s.size)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(schema, seed, s.size))
+
+
+@pytest.mark.parametrize("nstr", [1, 2, 3])
+def test_string_slot_rowconv_kernel_matches_plain(cuda, nstr):
+    """B3 with the (offset, length) lanes of 1-3 string slots."""
+    n = 70_001
+    base = _mixed(n, cuda, seed=5).columns
+    cols = []
+    for i in range(nstr):
+        cols += [base[i], datagen.random_bytes_column(n, 40, 0.1, seed=i,
+                                                      device=cuda)]
+    t = Table(tuple(cols))
+    info = R.compute_column_information([c.dtype for c in t])
+    args = (*R._word_plan(t, info), R._round_up(info.size_per_row, 8) // 4,
+            n)
+    got = K.rowconv_fixed_words(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.rowconv_fixed_words_plain(*args))
+
+
+def test_string_slice_on_card_equals_cpu(cuda):
+    """The string slice (partition route, JCUDF rows in batches, back,
+    aggregate and join by the string key) on the card and on the CPU."""
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        t = datagen.string_rows_table(100_000, 0, device=dev)
+        rows = R.convert_to_rows(t, max_batch_bytes=2_000_000)
+        back = concat_tables([R.convert_from_rows(b, [c.dtype for c in t])
+                              for b in rows])
+        agg = groupby_aggregate(back, [4], [(0, "sum"), (0, "count"),
+                                            (1, "min"), (1, "max")])
+        dim = Table((agg[0],))
+        out[dev.type] = ([partition_ids(t, [4], 200)]
+                         + [b.children[0].data for b in rows]
+                         + [c.data for c in back]
+                         + [c.data for c in agg]
+                         + list(inner_join([back[4]], [dim[0]])))
+    assert len(out["cuda"]) == len(out["cpu"])
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_hash_wrapper_checks_its_inputs(cuda):

@@ -201,5 +201,8 @@ def test_fixed_width_optimized_limits():
     back = R.convert_from_rows_fixed_width_optimized(
         rows[0], [c.dtype for c in small])
     assert all(torch.equal(a.data, b.data) for a, b in zip(small, back))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        R.compute_column_information([dt.DType(dt.TypeId.STRING)])
+    with pytest.raises(ValueError, match="fixed-width and STRING"):
+        R.compute_column_information([dt.LIST])
+    strings = Table((Column.from_pylist(["a"], dt.STRING, device="cpu"),))
+    with pytest.raises(ValueError, match="requires fixed-width"):
+        R.convert_to_rows_fixed_width_optimized(strings)

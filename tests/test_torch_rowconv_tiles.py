@@ -1,12 +1,14 @@
 """Kernel B3's tile plan and metadata (spark_rapids_jni_tpu_torch.ops.kernels
 ``rowconv_tile_plan``, ``rowconv_meta``), on the CPU.
 
-The plan is checked on random schemas of 1-2000 fixed-width columns: R is a
-positive multiple of 32, the windows are even-word aligned and cover the
-row, every piece falls in exactly one window, and every window's staged
-bytes fit the budget. The metadata is checked by executing it: a NumPy
-model of csrc/rowconv.cu (stage each slice at its address % 16, then OR the
-pair pieces) must give the plain version's words bit for bit."""
+The plan is checked on random schemas of 1-2000 fixed-width and STRING
+columns (a STRING column's JCUDF slot is two int32 lanes, offset and
+length): R is a positive multiple of 32, the windows are even-word aligned
+and cover the row, every piece falls in exactly one window, and every
+window's staged bytes fit the budget. The metadata is checked by executing
+it: a NumPy model of csrc/rowconv.cu (stage each slice at its address %
+16, then OR the pair pieces) must give the plain version's words bit for
+bit."""
 
 import numpy as np
 import pytest
@@ -18,11 +20,14 @@ from spark_rapids_jni_tpu_torch.columnar import dtype as dt
 from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
 from spark_rapids_jni_tpu_torch.ops import kernels as K
 from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+from spark_rapids_jni_tpu_torch.utils.datagen import random_bytes_column
 
 _TYPES = [(dt.INT8, np.int8), (dt.BOOL8, np.uint8), (dt.INT16, np.int16),
           (dt.UINT16, np.uint16), (dt.INT32, np.int32),
           (dt.FLOAT32, np.float32), (dt.INT64, np.int64),
-          (dt.FLOAT64, np.float64), (dt.UINT64, np.uint64)]
+          (dt.FLOAT64, np.float64), (dt.UINT64, np.uint64),
+          (dt.STRING, None)]
+STR = len(_TYPES) - 1
 
 
 def _table(kinds, nullable, n, seed=0):
@@ -30,9 +35,15 @@ def _table(kinds, nullable, n, seed=0):
     cols = []
     for k, null in zip(kinds, nullable):
         d, npt = _TYPES[k]
+        v = rng.random(n) > 0.3 if null else None
+        if npt is None:
+            col = random_bytes_column(n, 29, seed=int(rng.integers(2**31)),
+                                      device="cpu")
+            cols.append(col.with_validity(
+                None if v is None else torch.from_numpy(v)))
+            continue
         vals = rng.integers(0, 256, n * np.dtype(npt).itemsize,
                             dtype=np.uint8).view(npt)
-        v = rng.random(n) > 0.3 if null else None
         cols.append(Column.from_numpy(vals, d, validity=v, device="cpu"))
     return Table(tuple(cols))
 
@@ -226,6 +237,9 @@ def _assert_model_matches(table, budget=None):
     ([6, 4, 6, 4], [False] * 4),         # lineitem, 32-byte rows
     ([6, 7, 8, 6], [True] * 4),          # 40-byte rows
     ([0, 6, 2, 5, 1, 7, 4, 3, 0, 8, 4], [i % 3 > 0 for i in range(11)]),
+    ([6, 4, 7, 1, STR], [False] * 5),    # the string row table's schema
+    ([STR], [True]),                     # one string slot
+    ([0, STR, 2, STR, 6, STR], [True, False, True, True, False, False]),
 ])
 @pytest.mark.parametrize("n", [1, 1000, 2100])
 def test_meta_model_matches_plain(kinds, nullable, n):
@@ -274,3 +288,23 @@ def test_meta_merges_8_byte_elements():
     meta, lay = K.rowconv_meta(cols, valids, plan, nwords)
     parts = [(p >> 18) & 7 for p in meta[len(meta) - lay.npieces:]]
     assert parts == [K.PART_U64, K.PART_U64]
+
+
+def test_string_slots_are_two_contiguous_lanes():
+    """A STRING column's slot reads its offset lane in the column's place
+    (its validity piece keeps the column's index) and its length lane as
+    an input past the table's columns, with no validity."""
+    t = _table([STR, 6, STR], [True, False, False], 50)
+    cols, valids, plan, _ = _plan_args(t)
+    assert len(cols) == 5 and valids[3] is None and valids[4] is None
+    assert valids[0] is t[0].validity
+    assert all(c.is_contiguous() and c.shape == (50,) for c in cols)
+    length0 = t[0].offsets[1:] - t[0].offsets[:-1]
+    assert torch.equal(cols[3], length0)
+    assert torch.equal(cols[2], R.compute_column_information(
+        [c.dtype for c in t]).size_per_row + length0)
+    info = R.compute_column_information([c.dtype for c in t])
+    slot0, slot2 = info.variable_width_column_starts
+    assert (slot0 // 4, 0, K.PART_U32, 0) in plan
+    assert (slot0 // 4 + 1, 3, K.PART_U32, 0) in plan
+    assert (slot2 // 4 + 1, 4, K.PART_U32, 0) in plan

@@ -5,12 +5,15 @@ its own constructors and to the port through the JAX package's wire format
 (``interop.wire_to_col(bridge.col_to_wire(c), "cpu")``), advisory column
 stats included. Plans cross with ``plan_to_port``, which rebuilds a JAX
 plan node by node from the port's constructors. Comparisons are bit-exact:
-every value on the port's path is an integer or a bit pattern.
+every value on the port's path is an integer or a bit pattern; a STRING
+column compares its characters and its offsets.
 """
 
 import dataclasses
 
+import jax
 import numpy as np
+import pytest
 import torch
 
 from spark_rapids_jni_tpu import bridge
@@ -21,6 +24,27 @@ from spark_rapids_jni_tpu_torch.columnar import interop
 from spark_rapids_jni_tpu_torch.columnar.column import ColumnStats, Table
 from spark_rapids_jni_tpu_torch.plan import expr as pex
 from spark_rapids_jni_tpu_torch.plan import nodes as pnodes
+
+
+@pytest.fixture(scope="module")
+def quick_jax_reference():
+    """The JAX package as a reference that compiles less, for one test
+    module: its byte hashes under ``jax.jit`` (each padded shape compiles
+    once, not once per op) and XLA's optimization passes off. Either
+    changes how long its first calls take, not what they compute."""
+    from spark_rapids_jni_tpu.columnar import strings as JS
+    from spark_rapids_jni_tpu.ops import hashing as JH
+    was = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(JH, "_mm_bytes", jax.jit(JH._mm_bytes))
+            mp.setattr(JH, "_xx_bytes", jax.jit(JH._xx_bytes))
+            mp.setattr(JS, "densify_offsets", jax.jit(
+                JS.densify_offsets, static_argnames=("L",)))
+            yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", was)
 
 
 def to_port(col, device="cpu"):
@@ -44,6 +68,13 @@ def col_bits(col) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(col.data)).view(np.uint8)
 
 
+def col_offsets(col) -> np.ndarray:
+    """int64 offsets of a STRING column of either package."""
+    o = col.offsets
+    o = o.cpu().numpy() if isinstance(o, torch.Tensor) else np.asarray(o)
+    return o.astype(np.int64)
+
+
 def assert_col_equal(jcol, pcol, where="", presence=True):
     """Same type id, rows, validity bits and value bytes — and, with
     ``presence``, validity present on both or neither. The engines of
@@ -60,6 +91,9 @@ def assert_col_equal(jcol, pcol, where="", presence=True):
     np.testing.assert_array_equal(col_bits(jcol).reshape(-1),
                                   col_bits(pcol).reshape(-1),
                                   err_msg=f"{where}: value bytes")
+    if pcol.dtype.id.value == "string":
+        np.testing.assert_array_equal(col_offsets(jcol), col_offsets(pcol),
+                                      err_msg=f"{where}: offsets")
 
 
 def assert_table_equal(jt, pt, presence=True):
