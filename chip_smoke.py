@@ -17,7 +17,12 @@ run exits non-zero:
      does not start on 16 bytes; B1 and B2 over a 1M-row STRING column of
      random bytes 0-255 and lengths 0-100 (1% null) alone and first,
      middle and last among fixed-width columns, seeds 42 and 0; B3 with
-     1-3 string slots;
+     1-3 string slots; B2 at the edges of its staged STRING path
+     (characters at every address residue mod 16, 1/31/33/1000 rows,
+     all-empty and all-null columns, 2 and 3 STRING columns among
+     fixed-width ones, 1M rows with ~1% strings of 2-8 KB, whose tiles
+     take both the staged and the device-memory path: logged as
+     ``b2_staging_tiles``);
   4. the main path with the launch counts set to 0: shuffle write
      (partition route for 200 partitions + JCUDF rows), shuffle read (must
      equal the input bit for bit), then q3's eager stage on the read-back
@@ -32,8 +37,9 @@ run exits non-zero:
      reaches); a profiler reading above its event time prints as a null
      ``kernel_ms`` (the reading stays as ``profiler_ms``); B1, B2 and B3
      at phase 7's string schema, each first held bit for bit against its
-     plain version there; the variable-width byte copies of the string
-     table's first batch against their byte bounds, among them the
+     plain version there, and B2 at a second string shape (16M strings of
+     random bytes, lengths 0-100); the variable-width byte copies of the
+     string table's first batch against their byte bounds, among them the
      window copy of a lone string column beside the general masked
      gather it stands in for (both must agree); and S1's batch
      boundaries by the device search beside a host read of the row sizes
@@ -161,8 +167,10 @@ def profiler_fields(kms, ms):
 
 
 # the CUDA kernel of each wrapper, by the name the profiler shows
+# (B2: xxhash64_rows_kernel for fixed-width rows,
+# xxhash64_staged_rows_kernel for rows with a STRING column)
 DEVICE_KERNEL = {"murmur3_fixed_rows": "murmur3_rows_kernel",
-                 "xxhash64_fixed_rows": "xxhash64_rows_kernel",
+                 "xxhash64_fixed_rows": "xxhash64_",
                  "rowconv_fixed_words": "rowconv_tiles_kernel"}
 
 
@@ -411,8 +419,9 @@ def check_kernels(dev, rows):
 def check_string_kernels(dev, n):
     """Phase 3, strings: B1 and B2 over a STRING column of random bytes
     0-255, lengths 0-100, 1% null, alone and first, middle and last among
-    fixed-width columns, seeds 42 and 0; B3 with 1-3 string slots. Every
-    kernel bit-exact against its plain version."""
+    fixed-width columns, seeds 42 and 0; B3 with 1-3 string slots; B2 at
+    its staging edges (check_b2_staging). Every kernel bit-exact against
+    its plain version."""
     from spark_rapids_jni_tpu_torch.columnar import dtype as dt
     from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
     from spark_rapids_jni_tpu_torch.ops import kernels as K
@@ -454,6 +463,113 @@ def check_string_kernels(dev, n):
             raise AssertionError(f"B3 with {nstr} string slot(s): differs")
         log(f"check B3 with {nstr} string slot(s): bit-exact, {args[3]} "
             f"words x {n} rows")
+    check_b2_staging(dev, n)
+
+
+def at_residue(col, r, row0):
+    """STRING column ``col`` from row ``row0`` on (its offsets no longer
+    start at 0), its characters copied to an address that is r mod 16."""
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column
+    buf = torch.empty(col.data.numel() + 32, dtype=torch.uint8,
+                      device=col.data.device)
+    start = (r - buf.data_ptr()) % 16
+    data = buf[start:start + col.data.numel()]
+    data.copy_(col.data)
+    v = None if col.validity is None else col.validity[row0:]
+    return Column(dt.STRING, col.size - row0, data=data, validity=v,
+                  offsets=col.offsets[row0:])
+
+
+def long_strings_column(n, seed, device):
+    """A STRING column of ``n`` rows, lengths 0-100 but ~1% of 2-8 KB,
+    bytes 0-255, 1% null: B2 stages most tiles whole, splits the tiles
+    that hold a long string, and hashes the long strings from device
+    memory."""
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 101, n)
+    long = rng.random(n) < 0.01
+    lengths[long] = rng.integers(2048, 8001, int(long.sum()))
+    offs = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(lengths, out=offs[1:])
+    chars = rng.integers(0, 256, int(offs[-1]), dtype=np.uint8)
+    return Column(dt.STRING, n, data=torch.from_numpy(chars).to(device),
+                  validity=torch.from_numpy(rng.random(n) > 0.01).to(device),
+                  offsets=torch.from_numpy(offs).to(device))
+
+
+def b2_staging_cases(dev, n_long):
+    """{label: columns} of B2's staging edges: characters at every
+    address residue mod 16 with offsets not starting at 0; 1, 31, 33 and
+    1000 rows (ragged tiles); all-empty and all-null columns; two and three
+    STRING columns among fixed-width ones; ``n_long`` rows with ~1% long
+    strings (both the staged and the device-memory path in one launch)."""
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column
+    from spark_rapids_jni_tpu_torch.utils import datagen
+
+    rng = np.random.default_rng(21)
+    base = datagen.random_bytes_column(4099, 100, 0.05, seed=20, device=dev)
+    cases = {f"residue {r}": [at_residue(base, r, r + 1)] for r in range(16)}
+    for n in (1, 31, 33, 1000):
+        cases[f"n {n}"] = [datagen.random_bytes_column(n, 100, 0.1, seed=n,
+                                                       device=dev)]
+    cases["all empty"] = [datagen.random_bytes_column(1000, 0, seed=2,
+                                                      device=dev)]
+    cases["all null"] = [datagen.random_bytes_column(1000, 100, 1.0, seed=3,
+                                                     device=dev)]
+    m = 5003
+    fixed = [Column.from_numpy(rng.integers(-2**62, 2**62, m), dt.INT64,
+                               validity=rng.random(m) > 0.1, device=dev),
+             Column.from_numpy(rng.integers(-2**31, 2**31, m)
+                               .astype(np.int32), device=dev)]
+    strs = [datagen.random_bytes_column(m, 60 * (i + 1), 0.1, seed=30 + i,
+                                        device=dev) for i in range(3)]
+    cases["2 strings among fixed"] = [fixed[0], strs[0], fixed[1], strs[1]]
+    cases["3 strings among fixed"] = [strs[0], fixed[0], strs[1], fixed[1],
+                                      strs[2]]
+    cases["1% long strings"] = [long_strings_column(n_long, 5, dev)]
+    return cases
+
+
+def check_b2_staging(dev, n_long):
+    """Phase 3: B2 bit-exact against its plain version at its staging
+    edges (b2_staging_cases); logs how the tiles of the long-string case
+    split between the staged and the device-memory path (by the tile plan,
+    ops/kernels.xxhash64_tile_plan)."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+
+    cases = b2_staging_cases(dev, n_long)
+    for label, cols in cases.items():
+        sch = _schema(cols, True)
+        n = cols[0].size
+        for seed in (42, 0):
+            got = K.xxhash64_fixed_rows(sch, seed, n)
+            _sync(dev)
+            if not torch.equal(got, K.xxhash64_fixed_rows_plain(sch, seed,
+                                                                 n)):
+                raise AssertionError(f"B2 staging, {label}, seed {seed}: "
+                                     f"differs")
+    log(f"check B2 staging edges (residues 0-15, n 1/31/33/1000, all "
+        f"empty, all null, 2 and 3 strings among fixed, {n_long} rows with "
+        f"1% long strings), seeds 42 and 0: bit-exact")
+    col = cases["1% long strings"][0]
+    tiles = K.xxhash64_tile_plan(col.offsets.cpu().numpy(),
+                                 col.data.data_ptr() % 16)
+    one = sum(len(t.windows) == 1 and not t.device_rows for t in tiles)
+    with_dev = sum(bool(t.device_rows) for t in tiles)
+    windows = sum(len(t.windows) for t in tiles)
+    dev_rows = sum(len(t.device_rows) for t in tiles)
+    jline({"phase": "b2_staging_tiles", "rows": col.size,
+           "stage_bytes": K.XX_STAGE_BYTES, "tiles": len(tiles),
+           "staged_in_one_window": one,
+           "staged_in_several_windows": len(tiles) - one - with_dev,
+           "with_device_rows": with_dev, "windows": windows,
+           "device_rows": dev_rows})
+    if not windows or not dev_rows:
+        raise AssertionError("the long-string case ran only one B2 path")
 
 
 def main_path(dev, state):
@@ -566,7 +682,12 @@ def timings(state, launches, card, strings):
         [(work[w][0], DEVICE_KERNEL[w]) for _, w, _, _ in K.KERNELS]
         + [((lambda a=a: K.rowconv_fixed_words(*a)),
             DEVICE_KERNEL["rowconv_fixed_words"]) for a in b3.values()])
-    string_kernel_lines(card, string_kernel_work(strings), strings.num_rows)
+    string_kernel_lines(card, string_kernel_work(strings), strings.num_rows,
+                        "strings_60m")
+    wide = b2_second_shape(16_000_000)
+    string_kernel_lines(card, {"xxhash64_fixed_rows": b2_string_work(wide)},
+                        wide.size, "random_bytes_16m_0_100")
+    del wide
     entries = []
     for i, (kname, wrapper, source, replaces) in enumerate(K.KERNELS):
         run, plain, nbytes, nops = work[wrapper]
@@ -1068,8 +1189,7 @@ def string_kernel_work(table):
     lengths = (key.offsets[1:] - key.offsets[:-1]).to(torch.int64)
     chars = int(key.data.numel())
     blocks4 = int((lengths // 4).sum())
-    rounds8 = int((lengths // 8).sum())
-    mm, xx = _schema([key], False), _schema([key], True)
+    mm = _schema([key], False)
     b3 = _rowconv_args(table)
     return {
         "murmur3_fixed_rows": (
@@ -1077,11 +1197,7 @@ def string_kernel_work(table):
             lambda: K.murmur3_fixed_rows_plain(mm, 42, rows),
             4 * (rows + 1) + chars + 4 * rows,
             10 * (blocks4 + (chars - 4 * blocks4)) + 12 * rows),
-        "xxhash64_fixed_rows": (
-            lambda: K.xxhash64_fixed_rows(xx, 42, rows),
-            lambda: K.xxhash64_fixed_rows_plain(xx, 42, rows),
-            4 * (rows + 1) + chars + 8 * rows,
-            20 * rounds8 + 10 * (chars - 8 * rounds8) + 40 * rows),
+        "xxhash64_fixed_rows": b2_string_work(key),
         "rowconv_fixed_words": (
             lambda: K.rowconv_fixed_words(*b3),
             lambda: K.rowconv_fixed_words_plain(*b3),
@@ -1089,23 +1205,48 @@ def string_kernel_work(table):
     }
 
 
-def string_kernel_lines(card, work, rows):
+def b2_string_work(key):
+    """B2 over the STRING column ``key`` alone: (kernel call, plain call,
+    bytes, operations), as string_kernel_work counts them."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+
+    rows = key.size
+    lengths = (key.offsets[1:] - key.offsets[:-1]).to(torch.int64)
+    chars = int(lengths.sum())
+    rounds8 = int((lengths // 8).sum())
+    xx = _schema([key], True)
+    return (lambda: K.xxhash64_fixed_rows(xx, 42, rows),
+            lambda: K.xxhash64_fixed_rows_plain(xx, 42, rows),
+            4 * (rows + 1) + chars + 8 * rows,
+            20 * rounds8 + 10 * (chars - 8 * rounds8) + 40 * rows)
+
+
+def b2_second_shape(rows):
+    """B2's second string shape: ``rows`` strings of random bytes, lengths
+    0-100 (mean 50), 1% null."""
+    from spark_rapids_jni_tpu_torch.utils import datagen
+    return datagen.random_bytes_column(rows, 100, 0.01, seed=1,
+                                       device="cuda")
+
+
+def string_kernel_lines(card, work, rows, shape):
     """One ``string_kernel_time`` line per kernel of ``work``, each held
     bit for bit against its plain version on these inputs first (the
-    shapes phase 7 gives B1 and B3, and B2 on S4's left key)."""
+    shapes phase 7 gives B1 and B3, and B2 on S4's left key; or B2's
+    second string shape)."""
     for name, (run, plain, _, _) in work.items():
         if not torch.equal(run(), plain()):
-            raise AssertionError(f"{name} at the string schema ({rows} "
-                                 f"rows): differs from its plain version")
-        log(f"check {name} at the string schema: bit-exact over {rows} "
-            f"rows")
+            raise AssertionError(f"{name} at {shape} ({rows} rows): "
+                                 f"differs from its plain version")
+        log(f"check {name} at {shape}: bit-exact over {rows} rows")
     k_ms = kernel_ms([(w[0], DEVICE_KERNEL[name])
                       for name, w in work.items()])
     for (name, (run, plain, nbytes, nops)), kms in zip(work.items(), k_ms):
         b_ms, b_by = bound_ms(nbytes, nops)
         ms = cuda_ms(run)
         jline({"phase": "string_kernel_time", **card, "kernel": name,
-               "rows": rows, "bytes": nbytes, "bit_exact": True,
+               "shape": shape, "rows": rows, "bytes": nbytes,
+               "bit_exact": True,
                "max_abs_err": 0, "ms": ms, **profiler_fields(kms, ms),
                "plain_ms": cuda_ms(plain, reps=2, warm=1),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})

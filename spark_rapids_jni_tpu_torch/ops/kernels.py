@@ -33,6 +33,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -110,6 +111,18 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     return reports
 
 
+def load_library(path) -> ctypes.CDLL:
+    """A built kernel library, its C functions typed."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    lib.srjt_error_string.argtypes = [ctypes.c_int]
+    lib.srjt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _lib(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
@@ -117,14 +130,7 @@ def _lib(name: str) -> ctypes.CDLL:
             path = _lib_path(name)
             if not path.exists():
                 build_all([name])
-            lib = ctypes.CDLL(str(path))
-            for fn, argtypes in _SIGNATURES.items():
-                if hasattr(lib, fn):
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
-            lib.srjt_error_string.argtypes = [ctypes.c_int]
-            lib.srjt_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            lib = _libs[name] = load_library(path)
         return lib
 
 
@@ -289,6 +295,225 @@ def xxhash64_fixed_rows_plain(schema, seed: int, n: int) -> torch.Tensor:
                 else H._xx_u64(h, w)
         h = nh if v is None else torch.where(v, nh, h)
     return h
+
+
+# B2 over a schema with a STRING column (csrc/row_hash.cu
+# xxhash64_staged_rows_kernel) works on tiles of XX_TILE_ROWS consecutive
+# rows, one warp each. For each STRING column the warp copies the
+# 16-byte-aligned cover of the tile's characters into shared memory when it
+# fits XX_STAGE_BYTES and hashes every row from there; otherwise each 32
+# rows of the tile take windows: runs of rows whose cover fits the stage,
+# and a row whose own cover exceeds it is hashed from device memory. A
+# row's bytes are read as aligned 32-bit words joined by funnel shifts. The
+# tile plan and the emulation below mirror the kernel in plain Python for
+# the CPU tests; nothing on the path calls them.
+
+XX_TILE_ROWS = 128     # csrc/row_hash.cu kXxTile (32 * kXxRowsPerLane)
+XX_STAGE_BYTES = 4096  # csrc kXxStage: characters one warp stages
+_XX_PAD = 16           # csrc kXxPad: the stage's tail
+_M64 = (1 << 64) - 1
+_XP1, _XP2, _XP3, _XP4, _XP5 = (0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F,
+                                0x165667B19E3779F9, 0x85EBCA77C2B2AE63,
+                                0x27D4EB2F165667C5)  # xxhash64's primes
+
+
+@dataclass(frozen=True)
+class XxTile:
+    """One tile of a STRING column: ``windows`` (j0, j1, w0, w1) stage the
+    tile's rows [j0, j1) from bytes [w0, w1) counted from the characters'
+    16-byte-aligned base; ``device_rows`` are hashed from device memory."""
+
+    windows: Tuple[Tuple[int, int, int, int], ...]
+    device_rows: Tuple[int, ...]
+
+
+def xxhash64_tile_plan(offsets, residue: int, budget: int = XX_STAGE_BYTES,
+                       tile_rows: int = XX_TILE_ROWS) -> List[XxTile]:
+    """B2's plan for a STRING column: its ``int32[n + 1]`` offsets, the
+    address of its characters % 16 (``residue``), one XxTile per
+    ``tile_rows`` rows.
+
+    Row j's cover is [lo_j, hi_j), its bytes' 16-byte-aligned span. A tile
+    whose rows' cover fits ``budget`` bytes is one window. Otherwise, in
+    each 32 rows from row j0 on, a window takes the rows whose covers end
+    within ``budget`` bytes of lo_j0; when row j0's own cover is longer,
+    row j0 goes to the device path and the next window starts at row
+    j0 + 1."""
+    offs = np.asarray(offsets, dtype=np.int64)
+    n = len(offs) - 1
+    lo = (offs[:-1] + residue) & ~15
+    hi = (offs[1:] + residue + 15) & ~15
+    tiles = []
+    for r0 in range(0, n, tile_rows):
+        rows = min(tile_rows, n - r0)
+        # the kernel's cover: from the first row's start to the tile's end
+        w0 = (int(offs[r0]) + residue) & ~15
+        w1 = (int(offs[r0 + rows]) + residue + 15) & ~15
+        if w1 - w0 <= budget:
+            tiles.append(XxTile(((0, rows, w0, w1),), ()))
+            continue
+        windows, device = [], []
+        for s0 in range(0, rows, 32):
+            sub = min(32, rows - s0)
+            slo, shi = lo[r0 + s0:r0 + s0 + sub], hi[r0 + s0:r0 + s0 + sub]
+            j0 = 0
+            while j0 < sub:
+                fit = shi[j0:] - slo[j0] <= budget
+                if not fit[0]:
+                    device.append(s0 + j0)
+                    j0 += 1
+                    continue
+                j1 = j0 + int(fit.sum())
+                windows.append((s0 + j0, s0 + j1, int(slo[j0]),
+                                int(shi[j1 - 1])))
+                j0 = j1
+        tiles.append(XxTile(tuple(windows), tuple(device)))
+    return tiles
+
+
+def _rotl64(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def _xx_mix(h: int, k: int, width: int) -> int:
+    """One 8-byte (``width`` 8) or 4-byte round of xxhash64 on ints."""
+    if width == 8:
+        h ^= _rotl64(k * _XP2 & _M64, 31) * _XP1 & _M64
+        return (_rotl64(h, 27) * _XP1 + _XP4) & _M64
+    h ^= k * _XP1 & _M64
+    return (_rotl64(h, 23) * _XP2 + _XP3) & _M64
+
+
+def _xx_final_int(h: int) -> int:
+    h = (h ^ (h >> 33)) * _XP2 & _M64
+    h = (h ^ (h >> 29)) * _XP3 & _M64
+    return h ^ (h >> 32)
+
+
+class _RowWords:
+    """csrc RowWords: a row's bytes as aligned 32-bit words of ``mem``
+    (bytes from an aligned base) from byte ``q`` on, joined by funnel
+    shifts. The device path reads only words that hold a byte of the row
+    (it checks); the stage's reads stay within ``limit``."""
+
+    def __init__(self, mem: bytes, q: int, length: int, device: bool,
+                 limit: int):
+        self.mem, self.k0, self.s = mem, q >> 2, 8 * (q & 3)
+        self.q, self.end, self.device, self.limit = (q, q + length, device,
+                                                     limit)
+
+    def word(self, k: int, need: bool) -> int:
+        if self.device and not need:
+            return 0
+        a = 4 * (self.k0 + k)
+        if self.device and not self.q - 4 < a < self.end:
+            raise AssertionError(f"device word at byte {a} holds no byte of "
+                                 f"the row [{self.q}, {self.end})")
+        if a + 4 > self.limit:
+            raise AssertionError(f"stage read at byte {a} past {self.limit}")
+        return int.from_bytes(self.mem[a:a + 4], "little")
+
+    def _funnel(self, lo: int, hi: int) -> int:
+        return ((hi << 32 | lo) >> self.s) & 0xFFFFFFFF
+
+    def u32(self, pos: int, nbytes: int) -> int:
+        """Bytes [pos, pos + 4) of the row; the first ``nbytes`` its own."""
+        k = pos >> 2
+        return self._funnel(self.word(k, True),
+                            self.word(k + 1, self.s + 8 * nbytes > 32))
+
+    def u64(self, pos: int) -> int:
+        """Bytes [pos, pos + 8) of the row, all its own."""
+        k = pos >> 2
+        a, b = self.word(k, True), self.word(k + 1, True)
+        c = self.word(k + 2, self.s != 0)
+        return self._funnel(a, b) | self._funnel(b, c) << 32
+
+
+def _xx_row(seed: int, r: _RowWords, length: int) -> int:
+    """csrc xx_row: Spark's xxhash64 of a row's bytes, on ints."""
+    def stripe(v, k):
+        return _rotl64((v + k * _XP2) & _M64, 31) * _XP1 & _M64
+
+    off = 0
+    if length >= 32:
+        v = [(seed + _XP1 + _XP2) & _M64, (seed + _XP2) & _M64, seed,
+             (seed - _XP1) & _M64]
+        for off in range(0, length - 31, 32):
+            v = [stripe(acc, r.u64(off + 8 * j)) for j, acc in enumerate(v)]
+        off = length // 32 * 32
+        h = (_rotl64(v[0], 1) + _rotl64(v[1], 7) + _rotl64(v[2], 12)
+             + _rotl64(v[3], 18)) & _M64
+        for acc in v:
+            h = ((h ^ stripe(0, acc)) * _XP1 + _XP4) & _M64
+    else:
+        h = (seed + _XP5) & _M64
+    h = (h + length) & _M64
+    while off + 8 <= length:
+        h = _xx_mix(h, r.u64(off), 8)
+        off += 8
+    if off + 4 <= length:
+        h = _xx_mix(h, r.u32(off, 4), 4)
+        off += 4
+    if off < length:
+        t = r.u32(off, length - off)
+        for _ in range(off, length):
+            h = _rotl64(h ^ ((t & 0xFF) * _XP5 & _M64), 11) * _XP1 & _M64
+            t >>= 8
+    return _xx_final_int(h)
+
+
+def xxhash64_staged_emulation(schema, seed: int, n: int,
+                              residues: Optional[Sequence[int]] = None,
+                              budget: int = XX_STAGE_BYTES,
+                              tile_rows: int = XX_TILE_ROWS,
+                              garbage: int = 0xA5) -> torch.Tensor:
+    """B2's staged kernel in plain Python on CPU tensors: int64[n] (u64
+    bits), as xxhash64_fixed_rows. STRING column c's characters lie at
+    address % 16 ``residues[c]`` (default: their own); the bytes around
+    them, which the kernel's aligned copies also read, are ``garbage``.
+    Each tile of ``tile_rows`` follows xxhash64_tile_plan: a window is
+    copied into a stage of ``budget`` + 16 bytes and its rows hashed from
+    there, the rest from "device memory"."""
+    h = [seed & _M64] * n
+    for c, (kind, words, v) in enumerate(schema):
+        valid = [True] * n if v is None else v.tolist()
+        if kind != "str":
+            width = 4 if kind == "u32" else 8
+            mask = 0xFFFFFFFF if width == 4 else _M64
+            for i, (k, ok) in enumerate(zip(words.tolist(), valid)):
+                if ok:
+                    h[i] = _xx_final_int(_xx_mix(
+                        (h[i] + _XP5 + width) & _M64, k & mask, width))
+            continue
+        offsets, chars = words
+        offs = offsets.tolist()
+        res = chars.data_ptr() % 16 if residues is None else residues[c]
+        mem = (bytes([garbage]) * res + chars.numpy().tobytes()
+               + bytes([garbage]) * 32)
+        for t, tile in enumerate(xxhash64_tile_plan(offs, res, budget,
+                                                    tile_rows)):
+            r0 = tile_rows * t
+            for j0, j1, w0, w1 in tile.windows:
+                if w1 - w0 > budget or w0 % 16 or w1 % 16:
+                    raise AssertionError(f"tile {t}: window [{w0}, {w1})")
+                stage = mem[w0:w1] + bytes([garbage]) * (budget + _XX_PAD
+                                                         - (w1 - w0))
+                for i in range(r0 + j0, r0 + j1):
+                    if valid[i]:
+                        q = offs[i] + res - w0
+                        h[i] = _xx_row(h[i], _RowWords(
+                            stage, q, offs[i + 1] - offs[i], False,
+                            budget + _XX_PAD), offs[i + 1] - offs[i])
+            for j in tile.device_rows:
+                i = r0 + j
+                if valid[i]:
+                    length = offs[i + 1] - offs[i]
+                    h[i] = _xx_row(h[i], _RowWords(mem, offs[i] + res,
+                                                    length, True, len(mem)),
+                                   length)
+    return torch.tensor([x - (1 << 64) if x >> 63 else x for x in h],
+                        dtype=torch.int64)
 
 
 def xxhash64_fixed_rows(schema, seed: int, n: int) -> torch.Tensor:

@@ -100,6 +100,89 @@ def test_string_hash_kernels_match_plain(cuda, algo, where):
         assert torch.equal(got, plain(schema, seed, s.size))
 
 
+def _b2_matches_plain(cols):
+    """B2 over ``cols`` launches once per call and equals its plain
+    version bit for bit, seeds 42 and 0."""
+    schema = _string_schema(Table(tuple(cols)), True)
+    n = cols[0].size
+    for seed in (42, 0):
+        before = K.xxhash64_fixed_rows.launches
+        got = K.xxhash64_fixed_rows(schema, seed, n)
+        torch.cuda.synchronize()
+        assert K.xxhash64_fixed_rows.launches == before + 1
+        assert torch.equal(got, K.xxhash64_fixed_rows_plain(schema, seed, n))
+
+
+def _at_residue(col, r, row0):
+    """``col`` from row ``row0`` on (offsets not starting at 0), its
+    characters copied to an address that is r mod 16."""
+    buf = torch.empty(col.data.numel() + 32, dtype=torch.uint8,
+                      device=col.data.device)
+    start = (r - buf.data_ptr()) % 16
+    data = buf[start:start + col.data.numel()]
+    data.copy_(col.data)
+    return Column(dt.STRING, col.size - row0, data=data,
+                  validity=col.validity[row0:], offsets=col.offsets[row0:])
+
+
+@pytest.mark.parametrize("residue", range(16))
+def test_b2_strings_at_every_address_residue(cuda, residue):
+    """B2's 16-byte staging copies over characters that start at every
+    address residue mod 16, from a row whose offset is not 0."""
+    base = datagen.random_bytes_column(4099, 100, 0.05, seed=20, device=cuda)
+    col = _at_residue(base, residue, residue + 1)
+    assert col.data.data_ptr() % 16 == residue
+    assert int(col.offsets[0]) > 0
+    _b2_matches_plain([col])
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+def test_b2_strings_ragged_tiles(cuda, n):
+    """Row counts around B2's 32-row tile."""
+    _b2_matches_plain([datagen.random_bytes_column(n, 100, 0.1, seed=n,
+                                                   device=cuda)])
+
+
+@pytest.mark.parametrize("case", ["all_empty", "all_null"])
+def test_b2_strings_all_empty_or_null(cuda, case):
+    col = (datagen.random_bytes_column(1000, 0, seed=2, device=cuda)
+           if case == "all_empty" else
+           datagen.random_bytes_column(1000, 100, 1.0, seed=3, device=cuda))
+    _b2_matches_plain([col])
+
+
+@pytest.mark.parametrize("nstr", [2, 3])
+def test_b2_several_string_columns_among_fixed(cuda, nstr):
+    m = 5003
+    fixed = _mixed(m, cuda, seed=6).columns
+    strs = [datagen.random_bytes_column(m, 60 * (i + 1), 0.1, seed=30 + i,
+                                        device=cuda) for i in range(nstr)]
+    cols = [fixed[1], strs[0], fixed[6], strs[1]]
+    if nstr == 3:
+        cols = [strs[0], fixed[1], strs[1], fixed[6], strs[2]]
+    _b2_matches_plain(cols)
+
+
+def test_b2_long_strings_take_both_paths(cuda):
+    """1M rows, ~1% of them strings of 2-8 KB: the tiles without one are
+    staged, a long string is hashed from device memory, in one launch."""
+    n = 1 << 20
+    rng = np.random.default_rng(5)
+    lengths = rng.integers(0, 101, n)
+    long = rng.random(n) < 0.01
+    lengths[long] = rng.integers(2048, 8001, int(long.sum()))
+    offs = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(lengths, out=offs[1:])
+    chars = rng.integers(0, 256, int(offs[-1]), dtype=np.uint8)
+    col = Column(dt.STRING, n, data=torch.from_numpy(chars).to(cuda),
+                 validity=torch.from_numpy(rng.random(n) > 0.01).to(cuda),
+                 offsets=torch.from_numpy(offs).to(cuda))
+    tiles = K.xxhash64_tile_plan(offs, col.data.data_ptr() % 16)
+    assert any(t.windows for t in tiles)
+    assert any(t.device_rows for t in tiles)
+    _b2_matches_plain([col])
+
+
 @pytest.mark.parametrize("nstr", [1, 2, 3])
 def test_string_slot_rowconv_kernel_matches_plain(cuda, nstr):
     """B3 with the (offset, length) lanes of 1-3 string slots."""
