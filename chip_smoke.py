@@ -67,7 +67,19 @@ run exits non-zero:
      inner join to a dimension table of the distinct keys (60M pairs, each
      row to its key; B2 on the dimension key bit-exact against its plain
      version); per stage the first and warm (median of 5) wall ms,
-     launches, peak memory, and one warm run under torch.profiler.
+     launches, peak memory, and one warm run under torch.profiler;
+  8. float aggregates (kernel H1) and encoded columns over the same
+     table, counted the same way: S5 float sum/mean/min/max over the
+     STRING key (== numpy's sequential sum per group, bit for bit), S6
+     S3's aggregates over the key as DICT32 (== S3), S7 S5 over the DICT32
+     key (== S5), S8 the DICT32 key joined to the dimension on its
+     dictionary (== S4's pairs), S9 a fused Filter -> GroupBy with a
+     string literal over the DICT32 table (== eager, no fallback, no host
+     sync), S10 the codes RLE-encoded as key with a FOR32 value (== the
+     plain columns), and H1's worst case, two groups of ~30M (== numpy);
+     H1 against its plain version at S5's shape (timed there against its
+     bound and torch.segment_reduce) and on a 1M-row edge table of NaN
+     payloads, ±0, ±inf and subnormals; encode_strings at 1M rows.
 
 Prints JSON lines (timings, then the {"kernels": [...]} line, whose
 entries give each kernel's launches by path) and, last,
@@ -91,6 +103,9 @@ PARTITIONS = 200            # spark.sql.shuffle.partitions default
 
 
 STRING_ROWS = 60_000_000    # phase 7: TPC-H SF10's lineitem count
+# the kernels of the SF10 main path and of phase 7 (H1 runs in phase 8)
+ROW_KERNELS = ("murmur3_fixed_rows", "xxhash64_fixed_rows",
+               "rowconv_fixed_words")
 PHASE_SECONDS = {}
 _PHASE_T0 = [time.perf_counter()]
 
@@ -132,28 +147,38 @@ def kernel_ms(calls, reps=5):
     CUDA kernel whose name holds ``kernel``, which fn() launches once, timed
     by torch.profiler — the kernel alone, without the host gaps that cuda_ms
     counts when the wrapper's host work is the longer. One profiler session
-    for all calls; the kernels are attributed in launch order."""
+    for all calls; the kernels are attributed in launch order. A session
+    that misses launches is run once more; a kernel it still misses reads
+    None (not measured: the CUDA-event time ``ms`` stands)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for fn, _ in calls:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn, _ in calls:
-            for _ in range(reps):
-                fn()
-        torch.cuda.synchronize()
     names = {k for _, k in calls}
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA
-                     and any(k in e.name for k in names)),
-                    key=lambda e: e.time_range.start)
+    events = []
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn, _ in calls:
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and any(k in e.name for k in names)),
+                        key=lambda e: e.time_range.start)
+        if len(events) == reps * len(calls):
+            break
+        log(f"the profiler saw {len(events)} of {reps * len(calls)} "
+            f"kernel launches (session {attempt + 1})")
+    if len(events) != reps * len(calls):
+        return [None] * len(calls)  # launch order no longer attributes
     out = []
     for _, kernel in calls:
         mine, events = events[:reps], events[reps:]
-        if len(mine) < reps or any(kernel not in e.name for e in mine):
-            raise AssertionError(f"the profiler did not see {reps} "
-                                 f"launches of {kernel}")
+        if any(kernel not in e.name for e in mine):
+            raise AssertionError(f"the profiler saw another kernel where "
+                                 f"{kernel} launched")
         out.append(sum(e.time_range.elapsed_us() for e in mine) / 1e3 / reps)
     return out
 
@@ -163,7 +188,8 @@ def profiler_fields(kms, ms):
     launches take ``ms`` by CUDA events: null where the reading exceeds
     the event time (the kernel alone cannot take longer than its calls),
     and the reading itself as ``profiler_ms``."""
-    return {"kernel_ms": kms if kms <= ms else None, "profiler_ms": kms}
+    return {"kernel_ms": kms if kms is not None and kms <= ms else None,
+            "profiler_ms": kms}
 
 
 # the CUDA kernel of each wrapper, by the name the profiler shows
@@ -234,7 +260,7 @@ def main():
     phase_end("check_kernels")
     launches, summary = main_path(dev, state)
     for wrapper, count in launches.items():
-        if count < 1:
+        if wrapper in ROW_KERNELS and count < 1:
             raise AssertionError(f"the SF10 main path never launched "
                                  f"{wrapper}")
     jline({"phase": "main_path_sf10", **card, **summary})
@@ -254,8 +280,13 @@ def main():
 
     # ---- phase 7: strings -------------------------------------------------
     paths["strings_60m"] = strings_phase(dev, card, strings, strings_gen_s)
-    del strings
     phase_end("strings_60m")
+
+    # ---- phase 8: float aggregates and encoded columns --------------------
+    paths["strings_60m_encoded"], h1 = encoded_phase(dev, card, strings)
+    entries.append(h1)
+    del strings
+    phase_end("encoded")
     for entry, (_, wrapper, _, _) in zip(entries, K.KERNELS):
         entry["launches_by_path"] = {p: c[wrapper] for p, c in paths.items()}
     jline({"phase_seconds": PHASE_SECONDS})
@@ -601,9 +632,7 @@ def main_path(dev, state):
     top, q3_ms = wall(lambda: tpch.run_q3(read["customer"], read["orders"],
                                           read["lineitem"], engine="eager"),
                       dev)
-    launches = {"murmur3_fixed_rows": K.murmur3_fixed_rows.launches,
-                "xxhash64_fixed_rows": K.xxhash64_fixed_rows.launches,
-                "rowconv_fixed_words": K.rowconv_fixed_words.launches}
+    launches = _kernel_counts()
     peak_gb = (torch.cuda.max_memory_allocated() / 1e9
                if dev.type == "cuda" else None)
     log(f"main path launches: {launches}")
@@ -678,8 +707,9 @@ def timings(state, launches, card, strings):
     # one profiler session for the SF10 shapes and one for the string
     # schema's (string_kernel_lines): torch.profiler drops kernel events
     # once a process has run many sessions
+    hashes_rowconv = [k for k in K.KERNELS if k[1] in work]  # H1: phase 8
     k_ms = kernel_ms(
-        [(work[w][0], DEVICE_KERNEL[w]) for _, w, _, _ in K.KERNELS]
+        [(work[w][0], DEVICE_KERNEL[w]) for _, w, _, _ in hashes_rowconv]
         + [((lambda a=a: K.rowconv_fixed_words(*a)),
             DEVICE_KERNEL["rowconv_fixed_words"]) for a in b3.values()])
     string_kernel_lines(card, string_kernel_work(strings), strings.num_rows,
@@ -689,7 +719,7 @@ def timings(state, launches, card, strings):
                         wide.size, "random_bytes_16m_0_100")
     del wide
     entries = []
-    for i, (kname, wrapper, source, replaces) in enumerate(K.KERNELS):
+    for i, (kname, wrapper, source, replaces) in enumerate(hashes_rowconv):
         run, plain, nbytes, nops = work[wrapper]
         b_ms, b_by = bound_ms(nbytes, nops)
         ms = cuda_ms(run)
@@ -701,7 +731,7 @@ def timings(state, launches, card, strings):
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         jline({"phase": "kernel_time", "rows": n, **card, **entry})
         entries.append(entry)
-    for i, (label, args) in enumerate(b3.items(), len(K.KERNELS)):
+    for i, (label, args) in enumerate(b3.items(), len(hashes_rowconv)):
         nbytes = _rowconv_bytes(args)
         b_ms, b_by = bound_ms(nbytes, args[4] * 3 * len(args[2]))
         ms = cuda_ms(lambda: K.rowconv_fixed_words(*args))
@@ -1097,7 +1127,7 @@ def strings_phase(dev, card, table, gen_s):
     launches = _kernel_counts()
     log(f"strings_60m launches: {launches}")
     for wrapper, count in launches.items():
-        if cuda and count < 1:
+        if cuda and wrapper in ROW_KERNELS and count < 1:
             raise AssertionError(f"strings_60m never launched {wrapper}")
 
     # S1: partition ids against the plain version on the same device;
@@ -1174,6 +1204,293 @@ def strings_phase(dev, card, table, gen_s):
             jline(line)
     del out, batches
     return launches
+
+
+def string_key_draws(rows):
+    """(keys, gid): the string table's distinct key bytes in byte order,
+    and each row's index among them, from the generator's own draws."""
+    from spark_rapids_jni_tpu_torch.utils import datagen
+    draws = datagen.string_draws(rows, datagen.STRING_ROWS_PROFILE,
+                                 np.random.default_rng(0), None)
+    keys, pool_gid = np.unique(np.array(draws.pool_strings(), dtype=object),
+                               return_inverse=True)
+    return keys, pool_gid[draws.index]
+
+
+def _same_col(a, b) -> bool:
+    """Same dtype, rows, value bytes (characters and offsets of a STRING;
+    the strings of a DICT32) and validity bits."""
+    from spark_rapids_jni_tpu_torch.columnar import dictionary as D
+    a = D.materialize(a) if D.is_dict(a) else a
+    b = D.materialize(b) if D.is_dict(b) else b
+    if a.dtype != b.dtype or a.size != b.size:
+        return False
+    if not torch.equal(a.valid_mask(), b.valid_mask()):
+        return False
+    if a.offsets is not None and not torch.equal(a.offsets, b.offsets):
+        return False
+    return torch.equal(a.data.view(torch.uint8), b.data.view(torch.uint8))
+
+
+def _same_cols(a, b) -> bool:
+    return (a.num_columns == b.num_columns
+            and all(_same_col(x, y) for x, y in zip(a.columns, b.columns)))
+
+
+def _numpy_groups(gid, ng, v):
+    """Per group of ``gid`` (table order within a group): the sequential
+    sum (np.cumsum), min, max and count of float64 ``v``."""
+    order = np.argsort(gid, kind="stable")
+    vs = v[order]
+    bounds = np.searchsorted(gid[order], np.arange(ng + 1))
+    sums = np.array([np.cumsum(vs[b:e])[-1] for b, e in
+                     zip(bounds[:-1], bounds[1:])])
+    seg = np.repeat(np.arange(ng), np.diff(bounds))
+    mins = np.full(ng, np.inf)
+    np.minimum.at(mins, seg, vs)
+    maxs = np.full(ng, -np.inf)
+    np.maximum.at(maxs, seg, vs)
+    return sums, mins, maxs, np.diff(bounds)
+
+
+def _h1_args(key, z):
+    """(z, valid, starts) of the float64 values ``z`` grouped by the int64
+    group ids ``key`` (sorted by a stable sort, as the groupby sorts)."""
+    order = torch.sort(key, stable=True).indices
+    k = key.index_select(0, order)
+    ids = torch.arange(int(k[-1]) + 2, device=k.device)
+    return (z.index_select(0, order),
+            torch.ones(z.shape[0], dtype=torch.bool, device=z.device),
+            torch.searchsorted(k, ids))
+
+
+def h1_entry(card, z, valid, starts, launches):
+    """H1 at one shape: held bit for bit against its plain version, then
+    its time by CUDA events, the plain version's, the bound (the larger of
+    the byte bound and the longest segment's chain of dependent f64 adds
+    at this card's add latency, measured here), and torch.segment_reduce
+    as a yardstick that does not give the same bits."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    n, G = z.shape[0], starts.shape[0] - 1
+    got = K.segment_float_agg(z, valid, starts)
+    want = K.segment_float_agg_plain(z, valid, starts)
+    if not all(torch.equal(g.view(torch.int64), w.view(torch.int64))
+               for g, w in zip(got, want)):
+        raise AssertionError(f"H1 at {n} rows, {G} segments: differs "
+                             f"from its plain version")
+    lens = starts[1:] - starts[:-1]
+    longest = int(lens.max())
+    entry = {"name": "H1 segment_float_agg", "route": "cuda",
+             "source": K.KERNELS[3][2], "replaces": K.KERNELS[3][3],
+             "launches": launches, "rows": n, "segments": G,
+             "longest_segment": longest, "bit_exact": True,
+             "max_abs_err": 0, **card}
+    if z.device.type != "cuda":  # a CPU rehearsal times nothing
+        return entry
+    add_ns = K.dadd_chain_ms(10_000_000, z.device) * 1e6 / 1e7
+    nbytes = n * 9 + (G + 1) * 8 + 3 * G * 8
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    chain_ms = longest * add_ns / 1e6
+    entry.update(
+        ms=cuda_ms(lambda: K.segment_float_agg(z, valid, starts), reps=5),
+        plain_ms=wall(lambda: K.segment_float_agg_plain(z, valid, starts),
+                      z.device)[1],
+        bound_ms=max(byte_ms, chain_ms),
+        bound_by="bytes" if byte_ms >= chain_ms else "operations",
+        byte_bound_ms=byte_ms, chain_bound_ms=chain_ms,
+        dadd_latency_ns=add_ns,
+        library_ms=cuda_ms(lambda: torch.segment_reduce(
+            z, "sum", lengths=lens), reps=5),
+        library_call="torch.segment_reduce(z, 'sum'), not bit-equal")
+    return entry
+
+
+def encoded_phase(dev, card, table, edge_rows=1 << 20):
+    """Phase 8: float aggregates (kernel H1) and encoded columns over the
+    string table ``table`` (phase 7's), stages S5-S10 and H1's two-group
+    case, launch counts set to 0 just before and read just after the
+    counted first pass; then every check; H1 against its plain version at
+    S5's shape and on an edge table of ``edge_rows`` rows; encode_strings
+    at 1M rows. Returns (launches, the H1 entry of the kernels line)."""
+    from spark_rapids_jni_tpu_torch.columnar import dictionary as D
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar import encodings as E
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import groupby as GB
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.ops.join import inner_join
+    from spark_rapids_jni_tpu_torch.plan import (Filter, GroupBy, Scan, col,
+                                                 execute_plan, lit,
+                                                 plan_metrics,
+                                                 resolve_literals, run_eager)
+    from spark_rapids_jni_tpu_torch.plan.expr import Lit
+    from spark_rapids_jni_tpu_torch.utils import datagen
+
+    cuda = dev.type == "cuda"
+    rows = table.num_rows
+    keys, gid = string_key_draws(rows)
+    ng = len(keys)
+    codes = torch.from_numpy(gid.astype(np.int32)).to(dev)
+    # the DICT32 key as a dictionary page hands it over: the entries, and
+    # each row's code
+    values = D.values_from_entries(list(keys), dev)
+    dkey = D.dict_column(codes, values, validity=table[4].validity)
+    td = Table(table.columns[:4] + (dkey,))
+    dim = D.dict_column(torch.arange(ng, device=dev), values)
+    t = time.perf_counter()
+    tr = Table((E.rle_encode(Column(dt.INT32, rows, data=codes)),
+                E.for_encode(table[1])))
+    encode_s = time.perf_counter() - t
+    tr_plain = Table((Column(dt.INT32, rows, data=codes), table[1]))
+    s3_aggs = [(0, "sum"), (0, "count"), (1, "min"), (1, "max")]
+    s5_aggs = [(2, "sum"), (2, "mean"), (2, "min"), (2, "max"),
+               (2, "count")]
+    s10_aggs = [(1, "min"), (1, "max"), (1, "sum"), (1, "count")]
+    needle = keys[min(7, ng - 1)].decode()
+    plan9 = GroupBy(Filter(Scan(5), (col(1) < lit(50))
+                           & (col(4) != lit(needle))),
+                    (4,), ((2, "sum"), (2, "mean"), (2, "min"), (2, "max"),
+                           (0, "sum"), (0, "count")))
+    jline({"phase": "encoded_table", **card, "rows": rows,
+           "dictionary_entries": ng,
+           "dict_key_device_bytes": dkey.device_nbytes(),
+           "string_key_device_bytes": table[4].device_nbytes(),
+           "rle_runs": E.num_runs(tr[0]), "for_width": E.for_width(tr[1]),
+           "for_packed_bytes": int(tr[1].data.numel()),
+           "host_encode_s": encode_s})
+    stages = {
+        "S5_float_aggregate": lambda: GB.groupby_aggregate(
+            _fresh(table), [4], s5_aggs),
+        "S6_dict_aggregate": lambda: GB.groupby_aggregate(td, [4], s3_aggs),
+        "S7_dict_float_aggregate": lambda: GB.groupby_aggregate(
+            td, [4], s5_aggs),
+        "S8_dict_join": lambda: inner_join([dkey], [dim]),
+        "S9_fused_dict_plan": lambda: execute_plan(plan9, td),
+        "S10_rle_for_aggregate": lambda: GB.groupby_aggregate(
+            tr, [0], s10_aggs),
+        "H1_two_groups": lambda: GB.groupby_aggregate(
+            table, [3], [(2, "sum"), (2, "mean")]),
+    }
+    out, lines = {}, {}
+    K.reset_launches()
+    plan_metrics.reset()
+    for name, fn in stages.items():  # the counted first pass
+        before = _kernel_counts()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        out[name], first = wall(fn, dev)
+        lines[name] = {
+            "phase": "encoded_stage", **card, "stage": name, "rows": rows,
+            "first_ms": first,
+            "launches": {w: c - before[w]
+                         for w, c in _kernel_counts().items()},
+            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated()
+                                        / 1e9 if cuda else None)}
+    launches = _kernel_counts()
+    snap = plan_metrics.snapshot()
+    log(f"encoded launches: {launches}")
+    for wrapper in ("segment_float_agg", "xxhash64_fixed_rows"):
+        if cuda and launches[wrapper] < 1:
+            raise AssertionError(f"phase 8 never launched {wrapper}")
+
+    checks = {"dict_key_materializes_to_the_string_key":
+              _same_col(D.materialize(dkey), table[4])}
+    # S5: numpy per group in table order (sequential sums: standard normal
+    # values, no flush can occur)
+    v = table[2].data.cpu().numpy()
+    sums, mins, maxs, cnt = _numpy_groups(gid, ng, v)
+    s5 = out["S5_float_aggregate"]
+    checks["S5_keys_equal_numpy"] = (
+        s5.num_rows == ng and s5[0].to_pylist() == [k.decode() for k in keys])
+    checks["S5_equal_numpy"] = all(
+        np.array_equal(c.to_numpy().view(np.uint64), w.view(np.uint64))
+        for c, w in zip(s5.columns[1:5], (sums, sums / cnt, mins, maxs))
+    ) and np.array_equal(s5[5].to_numpy(), cnt)
+    ref3 = GB.groupby_aggregate(table, [4], s3_aggs)
+    checks["S6_equals_S3_bit_for_bit"] = _same_cols(out["S6_dict_aggregate"],
+                                                    ref3)
+    checks["S6_key_stays_dict32"] = D.is_dict(out["S6_dict_aggregate"][0])
+    checks["S7_equals_S5_bit_for_bit"] = _same_cols(
+        out["S7_dict_float_aggregate"], s5)
+    l_idx, r_idx = out["S8_dict_join"]
+    checks["S8_equals_S4_pairs"] = (
+        torch.equal(l_idx, torch.arange(rows, device=dev))
+        and torch.equal(r_idx, torch.from_numpy(gid).to(dev)))
+    resolved = resolve_literals(plan9, td)
+    lit_code = resolved.child.predicate.right.right
+    checks["S9_literal_resolved_to_its_code"] = (
+        isinstance(lit_code, Lit)
+        and lit_code.value == D.lookup_code(dkey, needle) >= 0)
+    checks["S9_fused_equals_eager"] = _same_cols(
+        out["S9_fused_dict_plan"], run_eager(resolved, td))
+    checks["S9_no_fallback"] = (snap["plan_fallbacks"] == 0
+                                and snap["plan_executes"] == 1)
+    checks["S9_sync_check"] = (sync_free(plan9, td) if cuda
+                               else "not checked on the cpu")
+    checks["S10_equals_plain_columns"] = _same_cols(
+        out["S10_rle_for_aggregate"],
+        GB.groupby_aggregate(tr_plain, [0], s10_aggs))
+    b3 = table[3].data.cpu().numpy().astype(np.int64)
+    sums2, _, _, cnt2 = _numpy_groups(b3, 2, v)
+    two = out["H1_two_groups"]
+    checks["H1_two_groups_equal_numpy"] = (
+        np.array_equal(two[1].to_numpy().view(np.uint64),
+                       sums2.view(np.uint64))
+        and np.array_equal(two[2].to_numpy().view(np.uint64),
+                           (sums2 / cnt2).view(np.uint64)))
+    del v
+
+    # H1 at S5's shape (995 segments) and on the edge table
+    z, valid, starts = _h1_args(codes.to(torch.int64), table[2].data)
+    entry = h1_entry(card, z, valid, starts, launches["segment_float_agg"])
+    del z, valid, starts
+    edge = datagen.float_edge_table(edge_rows, 0, device=dev)
+    for c in (1, 2):
+        ez, _, estarts = _h1_args(edge[0].data.to(torch.int64),
+                                  GB._f64_values(edge[c]))
+        evalid = edge[c].valid_mask().index_select(
+            0, torch.sort(edge[0].data.to(torch.int64), stable=True).indices)
+        got = K.segment_float_agg(ez, evalid, estarts)
+        want = K.segment_float_agg_plain(ez, evalid, estarts)
+        checks[f"H1_edge_table_{edge[c].dtype.id.value}_equals_plain"] = all(
+            torch.equal(g.view(torch.int64), w.view(torch.int64))
+            for g, w in zip(got, want))
+    del edge
+    small = datagen.string_rows_table(1_000_000, 3, device=dev)[4]
+    enc = D.encode_strings(small)
+    checks["encode_strings_1m_round_trip"] = _same_col(D.materialize(enc),
+                                                       small)
+    jline({"phase": "encoded_checks", **card, **checks})
+    failed = [k for k, ok in checks.items() if ok is not True
+              and not (k == "S9_sync_check" and ok in ("passed",
+                                                       "not checked on the "
+                                                       "cpu"))]
+    if failed:
+        raise AssertionError(f"phase 8: {failed}")
+    log(f"check phase 8: S5 == numpy ({ng} groups), S6 == S3, S7 == S5, "
+        f"S8 == S4's pairs, S9 fused == eager, S10 == plain columns, "
+        f"two groups == numpy, H1 == plain at S5's shape and on the edge "
+        f"table")
+    jline({"phase": "kernel_time_h1", **entry})
+
+    if cuda:
+        two_args = _h1_args(table[3].data.to(torch.int64), table[2].data)
+        longest = int((two_args[2][1:] - two_args[2][:-1]).max())
+        lines["H1_two_groups"].update(
+            h1_kernel_ms=cuda_ms(lambda: K.segment_float_agg(*two_args),
+                                 reps=3, warm=1),
+            longest_segment=longest,
+            chain_bound_ms=longest * entry["dadd_latency_ns"] / 1e6)
+        del two_args
+        for name, fn in stages.items():
+            warm = sorted(wall(fn, dev)[1] for _ in range(5))
+            lines[name].update(warm_median_ms=warm[2], warm_ms=warm,
+                               profile=profile_once(fn))
+            jline(lines[name])
+    else:
+        for line in lines.values():
+            jline(line)
+    return launches, entry
 
 
 def string_kernel_work(table):

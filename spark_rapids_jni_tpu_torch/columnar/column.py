@@ -14,7 +14,11 @@ Fields of a Column:
   validity: ``bool[n]`` mask (True = valid), or None when every row is.
   offsets:  ``int32[n+1]`` row offsets of a STRING or LIST column, else
             None: row i is ``data[offsets[i]:offsets[i+1]]``.
-  children: the child column of a LIST column.
+  children: the child column of a LIST column; the shared dictionary of a
+            DICT32 column (values, ranks: columnar/dictionary.py); the run
+            values and lengths of an RLE column and the reference header
+            of a FOR column (columnar/encodings.py). Children are shared
+            by reference and never changed in place.
 
 A null STRING row may hold bytes (its offsets say how many); every op
 carries them as they are, as the JAX package does. The only LIST column
@@ -210,6 +214,9 @@ class Column:
         if self.dtype.id is TypeId.STRING:
             raise ValueError("a STRING column has no fixed-width values: "
                              "read data and offsets, or to_pylist()")
+        if self.dtype.is_encoded:
+            raise ValueError("an RLE or FOR column holds no row values: "
+                             "decode it (columnar/encodings.materialize)")
         if not self.dtype.is_stored:
             raise dt.not_ported(f"to_numpy of {self.dtype.id.value}",
                                 "A1, nested columns")
@@ -225,6 +232,12 @@ class Column:
             return [chars[offs[i]:offs[i + 1]].decode("utf-8",
                                                       errors="replace")
                     if valid[i] else None for i in range(self.size)]
+        if self.dtype.id is TypeId.DICT32:
+            from .dictionary import materialize
+            return materialize(self).to_pylist()
+        if self.dtype.is_encoded:
+            from .encodings import materialize
+            return materialize(self).to_pylist()
         if self.dtype.id is TypeId.LIST:
             child = self.children[0].to_pylist()
             offs = self.offsets.cpu().numpy()

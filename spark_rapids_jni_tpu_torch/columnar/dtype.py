@@ -3,12 +3,13 @@
 The type ids and their wire names are the JAX package's (a column crosses
 between the two packages as ``(dtype_str, rows, data, offsets, validity)``;
 see columnar/interop.py), so every id is declared here. The port stores
-the fixed-width ids and STRING (uint8 characters + int32 offsets, see
-columnar/column.py); the others raise ``NotImplementedError`` naming the
-ROADMAP queue item that brings them. ``require_stored`` admits the
-fixed-width ids only: a STRING column raises there too, in every op that
-reads values as fixed-width elements (plan expressions, aggregated
-values).
+the fixed-width ids, STRING (uint8 characters + int32 offsets, see
+columnar/column.py) and the encoded ids DICT32, RLE, FOR32 and FOR64
+(columns with children: columnar/dictionary.py, columnar/encodings.py);
+the others raise ``NotImplementedError`` naming the ROADMAP queue item
+that brings them. ``require_stored`` admits the fixed-width and encoded
+ids: a STRING column raises there, in every op that reads values as
+fixed-width elements (plan expressions, aggregated values).
 
 Storage (``DType.torch_dtype``): each fixed-width id is held in the torch
 dtype of its byte size and signedness. torch's kernels lack arithmetic and
@@ -16,7 +17,10 @@ comparison for uint16/uint32/uint64, so those three are stored as the
 int16/int32/int64 of the same bits; readback (``Column.to_numpy``) views
 them back. FLOAT64 is stored as native float64 (Hopper has exact f64; the
 JAX package keeps uint64 bit patterns because the TPU's f64 is lossy) —
-views, copies and gathers keep every bit, NaN payloads included.
+views, copies and gathers keep every bit, NaN payloads included. DICT32
+stores int32 codes. RLE stores no row buffer and FOR stores packed bytes;
+for those ``np_dtype`` and ``torch_dtype`` name the LOGICAL element type,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -75,15 +79,15 @@ _FIXED = {
     TypeId.TIMESTAMP_MICROSECONDS: (np.int64, torch.int64),
     TypeId.DECIMAL32: (np.int32, torch.int32),
     TypeId.DECIMAL64: (np.int64, torch.int64),
+    TypeId.DICT32: (np.int32, torch.int32),
+    TypeId.RLE: (np.int64, torch.int64),
+    TypeId.FOR32: (np.int32, torch.int32),
+    TypeId.FOR64: (np.int64, torch.int64),
 }
 
 # where each id the port does not store yet is queued (ROADMAP.md queue A)
 _QUEUED = {
     TypeId.STRING: "A10, strings in plan expressions and aggregates",
-    TypeId.DICT32: "A10, encoded columns",
-    TypeId.RLE: "A10, encoded columns",
-    TypeId.FOR32: "A10, encoded columns",
-    TypeId.FOR64: "A10, encoded columns",
     TypeId.DECIMAL128: "A12, decimal128",
     TypeId.LIST: "A1, nested columns",
     TypeId.STRUCT: "A1, nested columns",
@@ -128,8 +132,13 @@ class DType:
         return self.id in (TypeId.FLOAT32, TypeId.FLOAT64)
 
     @property
+    def is_encoded(self) -> bool:
+        """RLE, FOR32 or FOR64 (DICT32 has its own paths)."""
+        return self.id in (TypeId.RLE, TypeId.FOR32, TypeId.FOR64)
+
+    @property
     def is_stored(self) -> bool:
-        """True for the fixed-width ids this port stores."""
+        """True for the fixed-width and encoded ids this port stores."""
         return self.id in _FIXED
 
     def require_stored(self) -> "DType":
@@ -177,6 +186,18 @@ FLOAT32 = DType(TypeId.FLOAT32)
 FLOAT64 = DType(TypeId.FLOAT64)
 LIST = DType(TypeId.LIST)
 STRING = DType(TypeId.STRING)
+DICT32 = DType(TypeId.DICT32)
+RLE = DType(TypeId.RLE)
+
+
+def for32(width: int) -> DType:
+    """FOR32 with a static bit width (1..32) in the scale slot."""
+    return DType(TypeId.FOR32, width)
+
+
+def for64(width: int) -> DType:
+    """FOR64 with a static bit width (1..32) in the scale slot."""
+    return DType(TypeId.FOR64, width)
 
 
 def parse_dtype(s: str) -> DType:

@@ -1,6 +1,8 @@
-"""Gather, concatenate, slice and filter of tables of fixed-width and
-STRING columns (the JAX package's columnar/table_ops.py). Every op runs on
-the device of its input."""
+"""Gather, concatenate, slice and filter of tables of fixed-width, STRING
+and encoded columns (the JAX package's columnar/table_ops.py). Every op
+runs on the device of its input. A gather keeps DICT32 codes on their
+dictionary and decodes RLE/FOR (ops/sort.gather); a concat keeps RLE and
+aligned FOR columns encoded and puts DICT32 columns on one dictionary."""
 
 from __future__ import annotations
 
@@ -51,6 +53,19 @@ def concat_columns(cols: Sequence[Column]) -> Column:
     cols = list(cols)
     if not cols:
         raise ValueError("concat of zero columns")
+    if any(c.dtype.is_encoded for c in cols):
+        # RLE always concatenates run-wise, FOR where width, reference and
+        # byte alignment allow; anything else decodes here
+        from . import encodings as enc
+        if (all(enc.is_rle(c) for c in cols)
+                and len({enc.rle_values(c).dtype for c in cols}) == 1):
+            return enc.concat_rle(cols)
+        if all(enc.is_for(c) for c in cols):
+            packed = enc.concat_for(cols)
+            if packed is not None:
+                return packed
+        return concat_columns([enc.materialize(c) if enc.is_encoded(c)
+                               else c for c in cols])
     d = cols[0].dtype
     for c in cols[1:]:
         if c.dtype != d:
@@ -70,6 +85,14 @@ def concat_columns(cols: Sequence[Column]) -> Column:
             c.offsets[1:] + b for c, b in zip(cols, bases)])
         return Column(d, n, data=torch.cat([c.data for c in cols]),
                       validity=validity, offsets=offsets)
+    if d.id is TypeId.DICT32:
+        # co-dictionary columns keep sharing their dictionary; others are
+        # re-encoded onto the union of their entries first
+        from .dictionary import dict_column, merge_dictionaries
+        cols = merge_dictionaries(cols)
+        return dict_column(torch.cat([c.data for c in cols]),
+                           cols[0].children[0], validity,
+                           ranks=cols[0].children[1])
     d.require_stored()
     return Column(d, n, data=torch.cat([c.data for c in cols]),
                   validity=validity)

@@ -244,21 +244,28 @@ def _xx_u64(seed, v_u64):
 
 def _f32_bits(x: torch.Tensor, normalize_zero: bool) -> torch.Tensor:
     """int32 bits of float32 values: NaNs canonical (0x7FC00000), and
-    -0.0 folded into 0.0 when ``normalize_zero``."""
-    bits = torch.where(torch.isnan(x), 0x7FC00000, x.view(torch.int32))
+    every value whose exponent field is zero (±0.0 and the subnormals)
+    folded into +0.0 when ``normalize_zero``: the JAX package's ``x ==
+    0.0`` runs under XLA:CPU's denormals-are-zero, which makes a float32
+    subnormal equal 0.0. The test is on the bits, so it holds on any
+    backend and denormal mode."""
+    bits = x.view(torch.int32)
+    bits = torch.where((bits & 0x7FFFFFFF) > 0x7F800000, 0x7FC00000, bits)
     if normalize_zero:
-        bits = torch.where(x == 0.0, torch.zeros_like(bits), bits)
+        bits = torch.where((bits & 0x7F800000) == 0, 0, bits)
     return bits
 
 
 def _f64_bits(x: torch.Tensor, normalize_zero: bool) -> torch.Tensor:
     """int64 bits of float64 values: NaNs canonical
     (0x7FF8000000000000), and -0.0 folded into 0.0 when
-    ``normalize_zero``."""
-    bits = torch.where(torch.isnan(x), 0x7FF8000000000000,
-                       x.view(torch.int64))
+    ``normalize_zero`` (by the bits, as the JAX package tests its
+    bit-pattern storage: float64 subnormals are kept)."""
+    bits = x.view(torch.int64)
+    bits = torch.where((bits & 0x7FFFFFFFFFFFFFFF) > 0x7FF0000000000000,
+                       0x7FF8000000000000, bits)
     if normalize_zero:
-        bits = torch.where(x == 0.0, torch.zeros_like(bits), bits)
+        bits = torch.where((bits & 0x7FFFFFFFFFFFFFFF) == 0, 0, bits)
     return bits
 
 
@@ -303,7 +310,9 @@ def _fixed_element_words(col_dtype: DType, data: torch.Tensor,
     if tid in (TypeId.DECIMAL128, TypeId.LIST, TypeId.STRUCT):
         raise dt.not_ported(f"{tid.value} hashing", "A2, decimal128 and "
                             "nested row hashes")
-    raise dt.not_ported(f"{tid.value} hashing", "A10, encoded columns")
+    # DICT32, RLE and FOR: the JAX package's TypeError (a join aligns
+    # dictionary codes, and decodes run and packed keys, before hashing)
+    raise TypeError(f"unsupported hash element type {col_dtype}")
 
 
 # ---------------------------------------------------------------------------

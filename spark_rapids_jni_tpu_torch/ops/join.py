@@ -13,7 +13,11 @@ A sort-probe join, as in the JAX package:
 The u64 hashes are held as int64 bits; XOR-ing the sign bit makes signed
 order the unsigned order, so torch's stable sort and searchsorted give the
 JAX package's order, ties in row order. Null keys never match (Spark's
-default; ``nulls_equal`` gives the null-safe ``<=>``). Masks push a filter
+default; ``nulls_equal`` gives the null-safe ``<=>``). Keys hash at their
+own widths, as the JAX package's op does: an INT32 key does not meet an
+INT64 key (the plan engine widens such pairs at its join boundary,
+plan/interpreter.py). A DICT32 key pair joins as two INT32 code columns
+on one dictionary (``align_codes``): the join never touches the strings. Masks push a filter
 into the inner join without compacting either side. The left outer, semi
 and anti joins are built on the inner join's maps, as in the JAX package.
 
@@ -34,7 +38,6 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..columnar import dtype as dt
 from ..columnar.column import Column, Table
 from ..columnar.dtype import TypeId
 from ..columnar.strings import padded_bytes
@@ -99,18 +102,17 @@ def _verify_width(col: Column) -> int:
     return col.dtype.itemsize
 
 
-def _widen_keys(left_keys, right_keys):
-    """Integral key pairs of different types hash as INT64 (the JAX
-    package's eager join boundary, plan/interpreter.py _join_eager): the
-    row hash hashes bytes, so an INT32 key would never meet an INT64 key
-    holding the same value."""
+def _align_dict_key_pairs(left_keys, right_keys):
+    """DICT32 key pairs as INT32 code columns comparable by value: codes of
+    one dictionary pass through, the right side of two dictionaries is
+    re-mapped into the left one (absent entries -> -1, no left code)."""
+    if not any(c.dtype.id is TypeId.DICT32 for c in left_keys):
+        return left_keys, right_keys
+    from ..columnar.dictionary import align_codes
     lout, rout = [], []
     for lc, rc in zip(left_keys, right_keys):
-        if (lc.dtype.is_integral and rc.dtype.is_integral
-                and lc.dtype.id is not rc.dtype.id):
-            lc, rc = (c if c.dtype.id is dt.TypeId.INT64 else
-                      Column(dt.INT64, c.size, data=c.data.to(torch.int64),
-                             validity=c.validity) for c in (lc, rc))
+        if lc.dtype.id is TypeId.DICT32 and rc.dtype.id is TypeId.DICT32:
+            lc, rc = align_codes(lc, rc)
         lout.append(lc)
         rout.append(rc)
     return lout, rout
@@ -187,7 +189,8 @@ def inner_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
     device, of the matching row pairs. ``left_mask``/``right_mask``
     (bool[n]) push a filter into the join: the same pairs as pre-filtering
     that side, with indices into the ORIGINAL tables."""
-    left_keys, right_keys = _widen_keys(list(left_keys), list(right_keys))
+    left_keys, right_keys = _align_dict_key_pairs(list(left_keys),
+                                                  list(right_keys))
     for lc, rc in zip(left_keys, right_keys):
         if (lc.dtype.id is TypeId.STRING) != (rc.dtype.id is TypeId.STRING):
             raise TypeError(f"join key types differ: {lc.dtype} and "

@@ -1,11 +1,15 @@
 """The CUDA kernels of this port: wrappers, plain versions, launch counts.
 
-Each kernel replaces one Pallas kernel of the JAX package's
+B1-B3 each replace one Pallas kernel of the JAX package's
 ops/pallas_kernels.py:
 
   B1 ``murmur3_fixed_rows``  csrc/row_hash.cu   build_murmur3_fixed_kernel
   B2 ``xxhash64_fixed_rows`` csrc/row_hash.cu   build_xxhash64_fixed_kernel
   B3 ``rowconv_fixed_words`` csrc/rowconv.cu    build_rowconv_fixed_kernel
+
+H1 ``segment_float_agg`` (csrc/segment_agg.cu) stands where the JAX
+package leaves float segment sums, minima and maxima to XLA: no torch op on
+the card sums a segment in row order with XLA:CPU's flushes.
 
 A wrapper launches its kernel when its input tensors lie on a CUDA device,
 and raises if the kernel cannot be built or launched. It computes the
@@ -38,7 +42,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("row_hash", "rowconv")
+SOURCES = ("row_hash", "rowconv", "segment_agg")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -59,6 +63,11 @@ _SIGNATURES = {
                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _VP,
                           _VP],
+    # (z, valid, starts, G, sum, min, max, stream)
+    "srjt_segment_float_agg": [_VP, _VP, _VP, ctypes.c_longlong, _VP, _VP,
+                               _VP, _VP],
+    # (x, n, out, stream)
+    "srjt_dadd_chain": [_VP, ctypes.c_longlong, _VP, _VP],
 }
 
 
@@ -169,7 +178,8 @@ def _schema_device(schema) -> torch.device:
 
 
 def reset_launches() -> None:
-    for fn in (murmur3_fixed_rows, xxhash64_fixed_rows, rowconv_fixed_words):
+    for fn in (murmur3_fixed_rows, xxhash64_fixed_rows, rowconv_fixed_words,
+               segment_float_agg):
         fn.launches = 0
 
 
@@ -837,9 +847,197 @@ def rowconv_fixed_words(cols: Sequence[torch.Tensor],
     return out
 
 
+# ---------------------------------------------------------------------------
+# H1: ordered segment float aggregate
+# ---------------------------------------------------------------------------
+# Float64 values are handled as their int64 bits wherever a flush, a NaN
+# test or a NaN payload is involved: the tests are on the exponent field,
+# as the kernel's are, whatever the backend's own denormal mode.
+
+_SIGN = -(1 << 63)
+_ABS = (1 << 63) - 1
+_EXP = 0x7FF0000000000000
+_QUIET = 0x0008000000000000
+_DEFAULT_NAN = -0x0008000000000000       # 0xFFF8000000000000, x86's
+_POS_INF = 0x7FF0000000000000
+_NEG_INF = -0x0010000000000000           # 0xFFF0000000000000
+_MIN_NORMAL = 2.0 ** -1022
+_PLAIN_BLOCK = 1 << 22   # values one gather of the plain ordered sum holds
+
+
+def _flush_bits(b: torch.Tensor) -> torch.Tensor:
+    """DAZ/FTZ on f64 bits: a zero exponent field leaves the sign only."""
+    return torch.where((b & _EXP) == 0, b & _SIGN, b)
+
+
+def _nan_bits(b: torch.Tensor) -> torch.Tensor:
+    return (b & _ABS) > _EXP
+
+
+def _order_key(b: torch.Tensor) -> torch.Tensor:
+    """Total-order int64 image of non-NaN f64 bits (-0.0 < +0.0); its own
+    inverse."""
+    return b ^ ((b >> 63) & _ABS)
+
+
+def _ordered_sums(xb: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """int64 bits of each segment's sequential sum of the flushed bits
+    ``xb``: positions are stepped one at a time, every segment still inside
+    its rows doing one IEEE add and one flush of the result. A NaN sum
+    takes x86's bits at the end: the last NaN input of the segment,
+    quieted, or the default NaN where inf + -inf made it."""
+    dev = xb.device
+    G = starts.shape[0] - 1
+    if xb.shape[0] == 0:
+        return torch.zeros(G, dtype=torch.int64, device=dev)
+    lo = starts[:-1]
+    lens = starts[1:] - lo
+    lens_h = lens.cpu()
+    by_len = torch.argsort(lens_h, descending=True, stable=True)
+    lens_desc = lens_h.index_select(0, by_len).tolist()
+    by_len = by_len.to(dev)
+    lo_s = lo.index_select(0, by_len)
+    x = xb.view(torch.float64)
+    acc = torch.zeros(G, dtype=torch.float64, device=dev)
+    steps = lens_desc[0] if lens_desc else 0
+    active, j0 = G, 0
+    while j0 < steps:
+        while active and lens_desc[active - 1] <= j0:
+            active -= 1
+        # the next positions of every active segment in one gather of at
+        # most _PLAIN_BLOCK values (positions past a segment's end are
+        # never read below)
+        block = max(1, min(256, _PLAIN_BLOCK // active))
+        cols = torch.arange(j0, j0 + block, device=dev)
+        m = x[(lo_s[:active, None] + cols).clamp(max=x.shape[0] - 1)]
+        a_j = active
+        for j in range(j0, min(j0 + block, steps)):
+            while a_j and lens_desc[a_j - 1] <= j:
+                a_j -= 1
+            s = acc[:a_j] + m[:a_j, j - j0]
+            acc[:a_j] = torch.where(s.abs() < _MIN_NORMAL, s * 0.0, s)
+        j0 += block
+    bits = torch.empty(G, dtype=torch.int64, device=dev)
+    bits[by_len] = acc.view(torch.int64)
+    seg = torch.repeat_interleave(torch.arange(G, device=dev), lens,
+                                  output_size=xb.shape[0])
+    has_nan, _, last_nan = _first_last(seg, _nan_bits(xb), G)
+    return torch.where(has_nan, xb[last_nan] | _QUIET,
+                       torch.where(_nan_bits(bits), _DEFAULT_NAN, bits))
+
+
+def _first_last(seg: torch.Tensor, hit: torch.Tensor, G: int):
+    """(has bool[G], first int64[G], last int64[G]): the first and last row
+    of each segment where ``hit``."""
+    n = seg.shape[0]
+    rows = torch.arange(n, dtype=torch.int64, device=seg.device)
+    first = torch.full((G,), n, dtype=torch.int64, device=seg.device)
+    first.scatter_reduce_(0, seg, torch.where(hit, rows, n), "amin")
+    last = torch.full((G,), -1, dtype=torch.int64, device=seg.device)
+    last.scatter_reduce_(0, seg, torch.where(hit, rows, -1), "amax")
+    return last >= 0, first.clamp(max=max(n - 1, 0)), last.clamp(min=0)
+
+
+def float_minmax_scatter(xb: torch.Tensor, valid: torch.Tensor,
+                         seg: torch.Tensor, G: int):
+    """(min, max) float64[G] of H1's contract for flushed f64 bits ``xb``
+    whose segment ids ``seg`` may come in any order, rows in table order:
+    scatter reductions of a total-order image over the valid non-NaN rows,
+    and the NaN rule (min: the first positive NaN, else the last negative
+    one; max: the first negative NaN, else the last positive one)."""
+    dev = xb.device
+    if xb.shape[0] == 0:
+        return (torch.full((G,), _POS_INF, dtype=torch.int64,
+                           device=dev).view(torch.float64),
+                torch.full((G,), _NEG_INF, dtype=torch.int64,
+                           device=dev).view(torch.float64))
+    nan = valid & _nan_bits(xb)
+    num = valid & ~nan
+    key = _order_key(xb)
+    kmin = torch.full((G,), _ABS, dtype=torch.int64, device=dev)
+    kmin.scatter_reduce_(0, seg, torch.where(num, key, _ABS), "amin")
+    kmax = torch.full((G,), _SIGN, dtype=torch.int64, device=dev)
+    kmax.scatter_reduce_(0, seg, torch.where(num, key, _SIGN), "amax")
+    anyv = torch.zeros(G, dtype=torch.int64, device=dev).index_add_(
+        0, seg, num.to(torch.int64)) > 0
+    has_p, first_p, last_p = _first_last(seg, nan & (xb >= 0), G)
+    has_n, first_n, last_n = _first_last(seg, nan & (xb < 0), G)
+
+    def pick(has_a, a, has_b, b, k, empty):
+        base = torch.where(anyv, _order_key(k), empty)
+        return torch.where(has_a, xb.index_select(0, a), torch.where(
+            has_b, xb.index_select(0, b), base)).view(torch.float64)
+
+    return (pick(has_p, first_p, has_n, last_n, kmin, _POS_INF),
+            pick(has_n, first_n, has_p, last_p, kmax, _NEG_INF))
+
+
+def segment_float_agg_plain(z: torch.Tensor, valid: torch.Tensor,
+                            starts: torch.Tensor):
+    """Plain PyTorch version of H1: (sum, min, max) float64[G] of the
+    segments [starts[g], starts[g+1]) of the sorted values ``z`` (float64)
+    where ``valid``. The sum steps over positions (``_ordered_sums``); min
+    and max are ``float_minmax_scatter``."""
+    G = starts.shape[0] - 1
+    xb = torch.where(valid, _flush_bits(z.view(torch.int64)), 0)
+    seg = torch.repeat_interleave(
+        torch.arange(G, device=z.device), starts[1:] - starts[:-1],
+        output_size=z.shape[0])
+    mins, maxs = float_minmax_scatter(xb, valid, seg, G)
+    return _ordered_sums(xb, starts).view(torch.float64), mins, maxs
+
+
+def segment_float_agg(z: torch.Tensor, valid: torch.Tensor,
+                      starts: torch.Tensor):
+    """H1: (sum, min, max) float64[G] of the sorted segments
+    [starts[g], starts[g+1]) of ``z`` (float64[n]) over the rows where
+    ``valid`` (bool[n]); ``starts`` int64[G+1] from 0 to n. The sum is the
+    sequential, flushed sum of XLA:CPU's segment_sum (masked rows add
+    +0.0); min and max give XLA:CPU's bits, NaN payloads included."""
+    G = starts.shape[0] - 1
+    if (z.dtype != torch.float64 or valid.dtype != torch.bool
+            or starts.dtype != torch.int64 or z.dim() != 1
+            or valid.shape != z.shape or starts.dim() != 1 or G < 0):
+        raise ValueError("segment_float_agg takes float64[n] values, "
+                         "bool[n] valid and int64[G+1] starts")
+    dev = _where([z, valid, starts])
+    if dev.type == "cpu" or G == 0 or z.shape[0] == 0:
+        return segment_float_agg_plain(z, valid, starts)
+    z, valid, starts = z.contiguous(), valid.contiguous(), \
+        starts.contiguous()
+    lib = _lib("segment_agg")
+    out = torch.empty((3, G), dtype=torch.float64, device=dev)
+    err = lib.srjt_segment_float_agg(
+        z.data_ptr(), valid.data_ptr(), starts.data_ptr(), G,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        _stream(dev))
+    _check(lib, err, "segment_float_agg")
+    segment_float_agg.launches += 1
+    return out[0], out[1], out[2]
+
+
+def dadd_chain_ms(n: int, device: torch.device) -> float:
+    """Device milliseconds of one thread's chain of ``n`` dependent f64
+    adds (the latency that bounds H1's longest segment), by CUDA events."""
+    lib = _lib("segment_agg")
+    x = torch.tensor([1.0, 1e-3], dtype=torch.float64, device=device)
+    out = torch.empty(1, dtype=torch.float64, device=device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    _check(lib, lib.srjt_dadd_chain(x.data_ptr(), 1000, out.data_ptr(),
+                                    _stream(device)), "dadd_chain")
+    start.record()
+    _check(lib, lib.srjt_dadd_chain(x.data_ptr(), n, out.data_ptr(),
+                                    _stream(device)), "dadd_chain")
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end)
+
+
 murmur3_fixed_rows.launches = 0
 xxhash64_fixed_rows.launches = 0
 rowconv_fixed_words.launches = 0
+segment_float_agg.launches = 0
 
 
 KERNELS: List[Tuple[str, str, str, str]] = [
@@ -853,4 +1051,8 @@ KERNELS: List[Tuple[str, str, str, str]] = [
     ("B3 rowconv_fixed_words", "rowconv_fixed_words",
      "spark_rapids_jni_tpu_torch/csrc/rowconv.cu",
      "spark_rapids_jni_tpu/ops/pallas_kernels.py:414"),
+    # no Pallas kernel: XLA's segment_sum/min/max in _segment_agg_fixed
+    ("H1 segment_float_agg", "segment_float_agg",
+     "spark_rapids_jni_tpu_torch/csrc/segment_agg.cu",
+     "spark_rapids_jni_tpu/ops/groupby.py:201"),
 ]

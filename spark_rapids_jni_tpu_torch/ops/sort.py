@@ -10,6 +10,10 @@ A STRING key gives one lane per 8 bytes of its zero-padded bytes
 (columnar/strings.padded_bytes), big-endian: the order of the padded
 bytes, the JAX package's (its lanes hold 4 bytes each). A string that ends
 in NUL bytes ties with its prefix and keeps its input order, as there.
+A DICT32 key sorts by its entries' ranks (one int32 gather in place of the
+byte lanes), a FOR key by its codes (one reference: code order is value
+order); an RLE key is decoded to rows first, as is an RLE or FOR column
+that a gather reorders (a permutation keeps neither runs nor packing).
 
 ``sort_lanes`` and ``select_topk_core`` are plan cores (plan/registry.py):
 the fused plan engine composes them, so the eager and fused paths order
@@ -22,6 +26,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..columnar import encodings as enc
 from ..columnar.column import Column, Table
 from ..columnar.dtype import TypeId
 from ..columnar.strings import padded_bytes, row_of_position
@@ -52,6 +57,17 @@ def _monotone_unsigned(col: Column) -> List[torch.Tensor]:
         bits = _f32_bits(data, normalize_zero=True).to(torch.int64)
         ukey = torch.where(bits < 0, ~bits, bits | (1 << 31))
         return [ukey & 0xFFFFFFFF]
+    if tid is TypeId.DICT32:
+        # the once-per-dictionary rank permutation; raw codes carry no order
+        ranks = col.children[1].data
+        nd = int(ranks.shape[0])
+        if nd == 0:  # an empty dictionary: every row is null
+            return [torch.zeros(col.size, dtype=torch.int64,
+                                device=data.device)]
+        return [ranks.index_select(0, data.to(torch.int64).clamp(
+            0, nd - 1)).to(torch.int64)]
+    if tid in (TypeId.FOR32, TypeId.FOR64):
+        return [enc.for_codes(col)]
     if tid is TypeId.UINT64:
         return [data ^ _SIGN64]
     if tid is TypeId.UINT32:
@@ -89,6 +105,8 @@ def sort_lanes(keys: Sequence[Column],
         nulls_first = list(ascending)
     lanes: List[torch.Tensor] = []
     for col, asc, nf in reversed(list(zip(keys, ascending, nulls_first))):
+        if enc.is_rle(col):
+            col = enc.decoded_rows(col)  # a per-row null lane is needed
         value_lanes = _monotone_unsigned(col)
         if not asc:
             value_lanes = [~v for v in value_lanes]
@@ -122,7 +140,11 @@ def lexsort(lanes: Sequence[torch.Tensor], n: int,
 
 
 def gather(col: Column, idx: torch.Tensor) -> Column:
-    """Rows ``idx`` (int64, in range) of a fixed-width or STRING column."""
+    """Rows ``idx`` (int64, in range) of a column. DICT32 gathers its codes
+    and keeps sharing its dictionary; RLE and FOR decode here (the declared
+    boundary every eager compaction and fused output trim goes through)."""
+    if enc.is_encoded(col):
+        return gather(enc.decoded_rows(col), idx)
     validity = (None if col.validity is None
                 else col.validity.index_select(0, idx))
     if col.dtype.id is TypeId.STRING:
@@ -131,7 +153,8 @@ def gather(col: Column, idx: torch.Tensor) -> Column:
                       validity=validity, offsets=offsets)
     col.dtype.require_stored()
     return Column(col.dtype, int(idx.shape[0]),
-                  data=col.data.index_select(0, idx), validity=validity)
+                  data=col.data.index_select(0, idx), validity=validity,
+                  children=col.children)
 
 
 def _gather_string_bytes(chars: torch.Tensor, offsets: torch.Tensor,

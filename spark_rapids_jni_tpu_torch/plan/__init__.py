@@ -34,6 +34,7 @@ _LAZY = {
     "ProgramCache": ".compile",
     "plan_metrics": ".compile",
     "execute_plan": ".executor",
+    "resolve_literals": ".executor",
     "unsupported_reason": ".executor",
     "run_eager": ".interpreter",
 }

@@ -38,6 +38,7 @@ import torch
 
 from ..columnar import dtype as dt
 from ..columnar.column import Column, Table
+from ..columnar.encodings import decoded_rows, encoding_cache_key
 from ..ops.groupby import (groupby_core, groupby_direct_small_core,
                            groupby_direct_wide_core)
 from ..ops.join import (join_build_sorted_core, join_probe_direct_core,
@@ -111,9 +112,13 @@ class CompiledPlan:
 
 def _shape_key(table: Table) -> Tuple:
     """Input signature of the cache key: per column its dtype, size and
-    whether it has a validity mask — what changes the program."""
+    whether it has a validity mask — what changes the program — and an
+    encoded column's ``encoding_cache_key`` (a DICT32 column's dictionary
+    fingerprint: a program resolved its literals against that
+    dictionary)."""
     return tuple((c.dtype.id.value, c.dtype.scale, c.size,
-                  c.validity is not None) for c in table.columns)
+                  c.validity is not None) + encoding_cache_key(c)
+                 for c in table.columns)
 
 
 def _head(live: Optional[torch.Tensor], n: int, overflow: torch.Tensor,
@@ -144,10 +149,14 @@ def _take(c: Column, idx: torch.Tensor) -> Column:
 
 
 def _slice_col(c: Column, k: int) -> Column:
-    if c.data is None:
+    if c.data is None and not c.children:
         return _unread(c.dtype, k)
+    if c.dtype.is_encoded:
+        # a static prefix is no slice of runs or packed bits: decode here
+        return _slice_col(decoded_rows(c), k)
     v = c.validity[:k] if c.validity is not None else None
-    return Column(c.dtype, k, data=c.data[:k], validity=v)
+    return Column(c.dtype, k, data=c.data[:k], validity=v,
+                  children=c.children)
 
 
 def _needed_columns(plan: PlanNode, decisions) -> Dict[int, set]:
@@ -282,7 +291,7 @@ class _DagState:
 
 
 def _key_values(col: Column) -> torch.Tensor:
-    """int64 join-key lane of an integer column."""
+    """int64 join-key lane of an integer or DICT32 (code) column."""
     return col.data.to(torch.int64)
 
 
@@ -290,7 +299,8 @@ def _gather_probe(rc: Column, r_idx: torch.Tensor, found: torch.Tensor,
                   how: str) -> Column:
     """Build-side payload gathered at the probe lanes. ``r_idx`` is in
     range even for misses; their rows hold garbage that the row mask
-    (inner) or the validity bits (left) hide."""
+    (inner) or the validity bits (left) hide. A DICT32 payload gathers its
+    codes and keeps sharing its dictionary."""
     data = rc.data.index_select(0, r_idx)
     validity = (rc.validity.index_select(0, r_idx)
                 if rc.validity is not None else None)
@@ -301,7 +311,7 @@ def _gather_probe(rc: Column, r_idx: torch.Tensor, found: torch.Tensor,
                                                     device=data.device))
         validity = found if validity is None else (validity & found)
     return Column(rc.dtype, int(r_idx.shape[0]), data=data,
-                  validity=validity)
+                  validity=validity, children=rc.children)
 
 
 def _make_dag_fn(plan: PlanNode, decisions, max_groups: int,
@@ -313,11 +323,14 @@ def _make_dag_fn(plan: PlanNode, decisions, max_groups: int,
     the overflow flag.
 
     ``decisions`` is the planner's PlanDecisions for THIS plan object (its
-    map keys on node identity)."""
+    map keys on node identity). ``aux`` holds one int32 code remap per
+    cross-dictionary join, in ``decisions.dict_joins`` order."""
 
     need = _needed_columns(plan, decisions)
+    aux_pos = {jid: i for i, jid in enumerate(decisions.dict_joins)}
 
-    def fn(tables: Tuple[Tuple[Column, ...], ...]):
+    def fn(tables: Tuple[Tuple[Column, ...], ...],
+           aux: Tuple[torch.Tensor, ...] = ()):
         dev = tables[0][0].device
         overflow = [torch.zeros((), dtype=torch.bool, device=dev)]
         # per-join build context for the FD reprobe of a GroupBy
@@ -330,11 +343,23 @@ def _make_dag_fn(plan: PlanNode, decisions, max_groups: int,
             lkey = ls.cols[node.left_on[0]]
             rkey = rs.cols[node.right_on[0]]
             pk = _key_values(lkey)
-            bk = _key_values(rkey)
             blive = rs.mask
             if rkey.validity is not None:
                 blive = (rkey.validity if blive is None
                          else blive & rkey.validity)
+            if dec.dict_remap:
+                # the build codes re-mapped into the probe's dictionary;
+                # an entry the probe's dictionary lacks (-1) never matches
+                remap = aux[aux_pos[id(node)]]
+                nd = int(remap.shape[0])
+                bk = (remap.index_select(0, rkey.data.to(torch.int64).clamp(
+                    0, nd - 1)).to(torch.int64) if nd
+                    else torch.full((rkey.size,), -1, dtype=torch.int64,
+                                    device=dev))
+                alive = bk >= 0
+                blive = alive if blive is None else blive & alive
+            else:
+                bk = _key_values(rkey)
             if dec.strategy == "direct":
                 r_idx, found, bad = join_probe_direct_core(
                     bk, blive, dec.lo, pk)

@@ -20,26 +20,40 @@ ProgramCache lowers the whole DAG into ONE program, and the same single
 head sync applies. The fallbacks run the eager interpreter on the plan as
 given, before the rewrite passes.
 
+String literals compared with DICT32 columns are rewritten to their
+dictionary codes before either engine sees the plan
+(``resolve_dict_literals``; an absent string becomes -1, which no code
+equals), so a fused program holds integer compares only. A DAG join of
+two DICT32 keys on different dictionaries gets the right side's code
+remap as an extra program input. DAG plans over RLE or FOR inputs run
+eagerly (the join lowering reads key lanes as plain data), as in the JAX
+package.
+
 Not ported: input donation (ROADMAP A7); the OOM ladder — retry, spill
 rollback, split and the reservation brackets (A11; a CUDA OOM propagates
-as ``torch.cuda.OutOfMemoryError``); dictionary-literal resolution (A10);
-the sharded and batched programs (A15, A16).
+as ``torch.cuda.OutOfMemoryError``); the sharded and batched programs
+(A15, A16).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..columnar import dtype as dt
+from ..columnar import encodings as enc
 from ..columnar.column import Column, Table
 from ..columnar.table_ops import gather_table, mask_indices_core
+from . import expr as ex
 from . import planner as _planner
 from .compile import CompiledPlan, ProgramCache, plan_metrics
 from .interpreter import run_eager
-from .nodes import PlanError, PlanNode, is_dag, num_inputs
+from .nodes import (Filter, GroupBy, Join, PlanError, PlanNode, Project,
+                    Scan, is_dag, linearize, num_inputs, walk)
 
 _default_cache = ProgramCache()
 
@@ -65,9 +79,142 @@ def unsupported_reason(plan: PlanNode, table: Table) -> Optional[str]:
 def _trim_prefix(cols, live: int) -> Table:
     out = []
     for c in cols:
+        # an encoded passthrough column decodes here: a prefix of runs or
+        # packed bits is no slice of its buffers
+        c = enc.decoded_rows(c)
         v = c.validity[:live] if c.validity is not None else None
-        out.append(Column(c.dtype, live, data=c.data[:live], validity=v))
+        out.append(Column(c.dtype, live, data=c.data[:live], validity=v,
+                          children=c.children))
     return Table(tuple(out))
+
+
+# ---------------------------------------------------------------------------
+# dictionary literal resolution
+# ---------------------------------------------------------------------------
+
+def _has_str_lit(e: ex.Expr) -> bool:
+    if isinstance(e, ex.Lit):
+        return isinstance(e.value, str)
+    if isinstance(e, ex.BinOp):
+        return _has_str_lit(e.left) or _has_str_lit(e.right)
+    if isinstance(e, (ex.Not, ex.Cast64)):
+        return _has_str_lit(e.operand)
+    return False
+
+
+def _resolve_pair(left: ex.Expr, right: ex.Expr, desc):
+    from ..columnar.dictionary import lookup_code
+
+    def code_lit(lit_e, col_e):
+        if not (isinstance(col_e, ex.Col) and col_e.index < len(desc)
+                and desc[col_e.index] is not None):
+            raise TypeError(
+                "a string literal in a plan expression can only be "
+                "compared (eq/ne) against a dictionary-encoded column")
+        return ex.Lit(int(lookup_code(desc[col_e.index], lit_e.value)))
+
+    if isinstance(left, ex.Lit) and isinstance(left.value, str):
+        left = code_lit(left, right)
+    if isinstance(right, ex.Lit) and isinstance(right.value, str):
+        right = code_lit(right, left)
+    return left, right
+
+
+def _resolve_expr(e: ex.Expr, desc) -> ex.Expr:
+    if isinstance(e, ex.Lit) and isinstance(e.value, str):
+        raise TypeError(
+            "string literal outside an eq/ne comparison with a "
+            "dictionary-encoded column")
+    if isinstance(e, ex.BinOp):
+        left, right = e.left, e.right
+        if e.op in ("eq", "ne"):
+            left, right = _resolve_pair(left, right, desc)
+        return ex.BinOp(e.op, _resolve_expr(left, desc),
+                        _resolve_expr(right, desc))
+    if isinstance(e, ex.Not):
+        return ex.Not(_resolve_expr(e.operand, desc))
+    if isinstance(e, ex.Cast64):
+        return ex.Cast64(_resolve_expr(e.operand, desc))
+    return e
+
+
+def _dict_desc(table: Table) -> List[Optional[Column]]:
+    return [c if c.dtype.id is dt.TypeId.DICT32 else None
+            for c in table.columns]
+
+
+def resolve_dict_literals(plan: PlanNode, table: Table) -> PlanNode:
+    """The linear plan with every string literal compared to a DICT32
+    column rewritten to its dictionary code (-1 when absent: the encoded
+    always-false). A plan without string literals comes back as it is
+    (the same object, the same fingerprint)."""
+    nodes = linearize(plan)
+    if not any((isinstance(n, Filter) and _has_str_lit(n.predicate))
+               or (isinstance(n, Project)
+                   and any(_has_str_lit(e) for e in n.exprs))
+               for n in nodes[1:]):
+        return plan
+    desc = _dict_desc(table)
+    new_plan: PlanNode = nodes[0]
+    for node in nodes[1:]:
+        if isinstance(node, Filter):
+            node = Filter(new_plan, _resolve_expr(node.predicate, desc))
+        elif isinstance(node, Project):
+            exprs = tuple(_resolve_expr(e, desc) for e in node.exprs)
+            desc = [desc[e.index] if isinstance(e, ex.Col) else None
+                    for e in exprs]
+            node = Project(new_plan, exprs)
+        else:
+            if isinstance(node, GroupBy):
+                desc = ([desc[i] for i in node.keys]
+                        + [None] * len(node.aggs))
+            node = dataclasses.replace(node, child=new_plan)
+        new_plan = node
+    return new_plan
+
+
+def resolve_dag_literals(plan: PlanNode, tables: Tuple[Table, ...]
+                         ) -> PlanNode:
+    """``resolve_dict_literals`` of a DAG plan: the dictionary columns are
+    tracked per branch and joined across Join outputs."""
+    if not any((isinstance(n, Filter) and _has_str_lit(n.predicate))
+               or (isinstance(n, Project)
+                   and any(_has_str_lit(e) for e in n.exprs))
+               for n in walk(plan)):
+        return plan
+
+    def rec(node):
+        if isinstance(node, Scan):
+            return node, _dict_desc(tables[node.input_index])
+        if isinstance(node, Join):
+            left, ldesc = rec(node.left)
+            right, rdesc = rec(node.right)
+            desc = ldesc if node.how in ("semi", "anti") else ldesc + rdesc
+            return Join(left, right, node.left_on, node.right_on,
+                        node.how), desc
+        child, desc = rec(node.child)
+        if isinstance(node, Filter):
+            return Filter(child, _resolve_expr(node.predicate, desc)), desc
+        if isinstance(node, Project):
+            exprs = tuple(_resolve_expr(e, desc) for e in node.exprs)
+            desc = [desc[e.index] if isinstance(e, ex.Col) else None
+                    for e in exprs]
+            return Project(child, exprs), desc
+        if isinstance(node, GroupBy):
+            desc = [desc[i] for i in node.keys] + [None] * len(node.aggs)
+            return GroupBy(child, node.keys, node.aggs), desc
+        return dataclasses.replace(node, child=child), desc
+
+    return rec(plan)[0]
+
+
+def resolve_literals(plan: PlanNode, table) -> PlanNode:
+    """The plan with its dictionary literals resolved against its input(s),
+    as ``execute_plan`` runs it (linear or DAG); the eager engine's
+    reference run takes the same plan."""
+    tables, dag = _inputs(plan, table)
+    return (resolve_dag_literals(plan, tables) if dag
+            else resolve_dict_literals(plan, tables[0]))
 
 
 def _inputs(plan: PlanNode, table) -> Tuple[Tuple[Table, ...], bool]:
@@ -93,8 +240,13 @@ def fused_program(plan: PlanNode, table: Union[Table, Sequence[Table]],
     sync."""
     cache = cache if cache is not None else _default_cache
     tables, dag = _inputs(plan, table)
+    plan = resolve_literals(plan, table)
     for t in tables:
         if _table_unsupported_reason(t) is not None:
+            return None, (), "unsupported-input"
+        if dag and any(c.dtype.is_encoded for c in t.columns):
+            # the join lowering reads key lanes as plain data; the eager
+            # interpreter decodes at its join boundary
             return None, (), "unsupported-input"
     if not dag:
         return (cache.get_or_compile(plan, tables[0]),
@@ -103,8 +255,18 @@ def fused_program(plan: PlanNode, table: Union[Table, Sequence[Table]],
     decisions = _planner.plan_decisions(opt, tables)
     if decisions.eager_reason is not None:
         return None, (), "planner-unsupported"
+    aux = []
+    for lsrc, rsrc in decisions.dict_joins.values():
+        from ..columnar.dictionary import code_remap_table, dict_values
+        lcol = tables[lsrc[0]].columns[lsrc[1]]
+        rcol = tables[rsrc[0]].columns[rsrc[1]]
+        remap = code_remap_table(lcol, rcol)
+        if remap is None:  # co-dictionary after all: identity remap
+            remap = np.arange(dict_values(rcol).size, dtype=np.int32)
+        aux.append(torch.from_numpy(remap).to(tables[0].device))
     prog = cache.get_or_compile_dag(opt, tables, decisions)
-    return prog, (tuple(tuple(t.columns) for t in tables),), None
+    return prog, (tuple(tuple(t.columns) for t in tables),
+                  tuple(aux)), None
 
 
 def execute_plan(plan: PlanNode, table: Union[Table, Sequence[Table]],
@@ -119,6 +281,7 @@ def execute_plan(plan: PlanNode, table: Union[Table, Sequence[Table]],
     tables, dag = _inputs(plan, table)
     eager_in = tables if dag else tables[0]
     prog, args, reason = fused_program(plan, table, cache)
+    plan = resolve_literals(plan, table)
     if prog is None:
         return run_eager(plan, eager_in, fallback_reason=reason)
     t0 = time.perf_counter()

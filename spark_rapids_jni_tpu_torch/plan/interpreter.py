@@ -11,11 +11,15 @@ of ops/groupby.py and sort through the lanes of ops/sort.py.
 * Eager Filter compacts at once (``filter_table``) where the fused path
   carries a mask — the same rows, because every downstream op is stable.
 * Eager joins go through the ops/join.py wrappers (xxhash64, kernel B2,
-  on the card), which widen an INT32/INT64 key pair to INT64 as the fused
-  lowering's int64 key lanes do. Their gather maps are put in (left-row,
-  right-row) order by two stable sorts: probe-row order for the unique
-  builds the fused path accepts, and a deterministic expansion order for
-  duplicate builds (the fused program overflows on those).
+  on the card). This is the join boundary, as in the JAX package: a
+  DICT32 key pair becomes INT32 codes on one dictionary (``align_codes``),
+  RLE and FOR keys decode, and an integral key pair of two widths widens
+  to INT64 (the fused lowering's key lanes are int64; the op itself
+  hashes raw widths). The gather maps are put in (left-row, right-row)
+  order by two stable sorts: probe-row order for the unique builds the
+  fused path accepts, and a deterministic expansion order for duplicate
+  builds (the fused program overflows on those). Encoded payloads come
+  out plain (a gather decodes them; a DICT32 payload keeps its codes).
 
 Fallback accounting lives here: ``run_eager(..., fallback_reason=...)``
 bumps ``plan_fallbacks``, the per-reason map and, for Join-bearing plans,
@@ -28,7 +32,10 @@ from typing import Optional, Sequence, Union
 
 import torch
 
+from ..columnar import dtype as dt
+from ..columnar import encodings as enc
 from ..columnar.column import Column, Table
+from ..columnar.dictionary import align_codes, is_dict
 from ..columnar.table_ops import filter_table, gather_table, slice_table
 from ..ops.groupby import groupby_aggregate
 from ..ops.join import inner_join, left_anti_join, left_join, left_semi_join
@@ -59,18 +66,43 @@ def _as_tables(table: TableOrTables) -> tuple:
 
 def _null_padding(c: Column, n: int) -> Column:
     """``n`` all-null rows shaped like ``c``: the LEFT-join payload when
-    the build side has 0 rows (nothing to gather from)."""
-    return Column(c.dtype, n,
-                  data=torch.zeros(n, dtype=c.data.dtype,
-                                   device=c.data.device),
+    the build side has 0 rows (nothing to gather from). An RLE or FOR
+    payload comes out plain, as a gather would give it."""
+    if c.offsets is not None:
+        return Column(c.dtype, n,
+                      data=torch.zeros(0, dtype=torch.uint8, device=c.device),
+                      validity=torch.zeros(n, dtype=torch.bool,
+                                           device=c.device),
+                      offsets=torch.zeros(n + 1, dtype=torch.int32,
+                                          device=c.device))
+    d = enc.logical_dtype(c) if c.dtype.is_encoded else c.dtype
+    return Column(d, n, data=torch.zeros(n, dtype=d.torch_dtype,
+                                         device=c.device),
                   validity=torch.zeros(n, dtype=torch.bool,
-                                       device=c.data.device))
+                                       device=c.device),
+                  children=() if c.dtype.is_encoded else c.children)
+
+
+def _join_keys(lc: Column, rc: Column):
+    """A key pair at the eager join boundary (see the module docstring)."""
+    if is_dict(lc) and is_dict(rc):
+        lc, rc = align_codes(lc, rc)
+    lc, rc = enc.decoded_rows(lc), enc.decoded_rows(rc)
+    if (lc.dtype.is_integral and rc.dtype.is_integral
+            and lc.dtype.id is not rc.dtype.id):
+        lc, rc = (c if c.dtype.id is dt.TypeId.INT64 else
+                  Column(dt.INT64, c.size, data=c.data.to(torch.int64),
+                         validity=c.validity) for c in (lc, rc))
+    return lc, rc
 
 
 def _join_eager(node: Join, lt: Table, rt: Table) -> Table:
     """One eager join (null keys never match)."""
-    lkeys = [lt.columns[i] for i in node.left_on]
-    rkeys = [rt.columns[i] for i in node.right_on]
+    lkeys, rkeys = [], []
+    for li, ri in zip(node.left_on, node.right_on):
+        lc, rc = _join_keys(lt.columns[li], rt.columns[ri])
+        lkeys.append(lc)
+        rkeys.append(rc)
     if node.how == "semi":
         return gather_table(lt, left_semi_join(lkeys, rkeys))
     if node.how == "anti":
@@ -98,10 +130,16 @@ def _join_eager(node: Join, lt: Table, rt: Table) -> Table:
             out.append(_null_padding(c, n))
             continue
         g = gather(c, safe)
+        if g.offsets is not None:  # STRING: no fused counterpart to pin
+            v = found if g.validity is None else (g.validity & found)
+            out.append(Column(g.dtype, g.size, data=g.data, validity=v,
+                              offsets=g.offsets))
+            continue
         data = torch.where(found, g.data, torch.zeros((), dtype=g.data.dtype,
                                                       device=g.data.device))
         v = found if g.validity is None else (g.validity & found)
-        out.append(Column(g.dtype, g.size, data=data, validity=v))
+        out.append(Column(g.dtype, g.size, data=data, validity=v,
+                          children=g.children))
     return Table(tuple(out))
 
 

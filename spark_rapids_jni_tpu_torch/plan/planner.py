@@ -39,7 +39,11 @@ output slot. (TPC-H q3 groups by (l_orderkey, o_orderdate,
 o_shippriority); the latter two are payload of the orders join keyed by
 l_orderkey, so the groupby collapses to one dense int key.)
 
-Dictionary-encoded join keys are not ported (ROADMAP A10) and raise.
+A join of two DICT32 keys is a sorted join over codes: when the two
+dictionaries differ, the planner traces each key back to its input column
+(``dict_joins``) so the executor can hand the program the right side's
+code remap; a key that mixes a dictionary and a plain column, or whose
+dictionary column is derived, runs eagerly.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..columnar import dtype as dt
 from ..columnar.column import ColumnStats, Table
+from ..columnar.dictionary import same_dictionary
 from ..utils import config
 from ..utils.shapes import bucket_size
 from . import expr as ex
@@ -75,9 +80,10 @@ _JOIN_SEL = {"inner": 0.7, "left": 1.0, "semi": 0.7, "anti": 0.3}
 class JoinDecision:
     strategy: str                 # "direct" | "sorted"
     lo: int = 0                   # direct: first build key value
+    dict_remap: bool = False      # sorted: a code remap input is present
 
     def key(self):
-        return ("J", self.strategy, self.lo)
+        return ("J", self.strategy, self.lo, self.dict_remap)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +131,9 @@ class PlanDecisions:
 
     by_node: Dict[int, object]
     cache_suffix: Tuple
+    # per cross-dictionary join: the (input, column) of both key columns
+    dict_joins: Dict[int, Tuple[Tuple[int, int], Tuple[int, int]]] = \
+        dataclasses.field(default_factory=dict)
     eager_reason: Optional[str] = None
 
     def of(self, node):
@@ -379,6 +388,8 @@ class _Planner:
         self.plan = plan
         self.tables = tables
         self.by_node: Dict[int, object] = {}
+        self.dict_joins: Dict[int, Tuple[Tuple[int, int],
+                                         Tuple[int, int]]] = {}
         self.suffix: List[Tuple] = []
         self.eager_reason: Optional[str] = None
         self._vid = 0
@@ -394,6 +405,25 @@ class _Planner:
     def fail(self, reason: str):
         if self.eager_reason is None:
             self.eager_reason = reason
+
+    def _origin(self, node, idx) -> Optional[Tuple[int, int]]:
+        """(input_index, column) feeding column ``idx`` of ``node``'s
+        output through bare passthroughs, or None when derived."""
+        if isinstance(node, Scan):
+            return (node.input_index, idx)
+        if isinstance(node, (Filter, Sort, Limit)):
+            return self._origin(node.child, idx)
+        if isinstance(node, Project):
+            e = node.exprs[idx]
+            if isinstance(e, ex.Col):
+                return self._origin(node.child, e.index)
+            return None
+        if isinstance(node, Join):
+            ln = output_ncols(node.left)
+            if node.how in ("semi", "anti") or idx < ln:
+                return self._origin(node.left, idx)
+            return self._origin(node.right, idx - ln)
+        return None  # a GroupBy rebases rows
 
     # -- per-node inference -------------------------------------------------
     def infer(self, node) -> Tuple[List[_ColInfo], int]:
@@ -492,8 +522,21 @@ class _Planner:
         lk = lcols[node.left_on[0]]
         rk = rcols[node.right_on[0]]
         if lk.tid is dt.TypeId.DICT32 or rk.tid is dt.TypeId.DICT32:
-            raise dt.not_ported("dictionary-encoded join keys",
-                                "A10, encoded columns")
+            if not (lk.tid is dt.TypeId.DICT32
+                    and rk.tid is dt.TypeId.DICT32):
+                self.fail("join key mixes dictionary and plain columns")
+                return JoinDecision("sorted")
+            lo_src = self._origin(node.left, node.left_on[0])
+            ro_src = self._origin(node.right, node.right_on[0])
+            if lo_src is None or ro_src is None:
+                self.fail("dictionary join key with derived origin")
+                return JoinDecision("sorted")
+            lcol = self.tables[lo_src[0]].columns[lo_src[1]]
+            rcol = self.tables[ro_src[0]].columns[ro_src[1]]
+            remap = not same_dictionary(lcol, rcol)
+            if remap:
+                self.dict_joins[id(node)] = (lo_src, ro_src)
+            return JoinDecision("sorted", dict_remap=remap)
         if not (lk.tid in _INT_IDS or lk.tid is dt.TypeId.INT64) or \
                 not (rk.tid in _INT_IDS or rk.tid is dt.TypeId.INT64):
             self.fail(f"non-integer join key ({lk.tid.value})")
@@ -599,7 +642,7 @@ class _Planner:
         if topk is not None:
             self.suffix.append(topk.key())
         return PlanDecisions(self.by_node, tuple(self.suffix),
-                             self.eager_reason)
+                             self.dict_joins, self.eager_reason)
 
 
 def plan_decisions(plan, tables: Tuple[Table, ...]) -> PlanDecisions:

@@ -272,3 +272,62 @@ def random_bytes_column(n: int, max_len: int, null_frequency: float = 0.0,
                   validity=None if valid is None
                   else torch.from_numpy(valid).to(dev),
                   offsets=torch.from_numpy(offs.astype(np.int32)).to(dev))
+
+
+# float bits a float aggregate has to carry through exactly: NaNs of both
+# signs and several payloads (one signaling), ±0, ±inf, subnormals, the
+# smallest normals and values whose sums underflow
+_F64_EDGE_BITS = np.array([
+    0x0000000000000000, 0x8000000000000000, 0x7FF0000000000000,
+    0xFFF0000000000000, 0x7FF8000000000000, 0x7FF8000000000042,
+    0xFFF8000000000001, 0x7FF0000000000001, 0x0000000000000001,
+    0x800000000000DEAD, 0x000FFFFFFFFFFFFF, 0x0010000000000000,
+    0x8010000000000000, 0x0018000000000000, 0x8014000000000000,
+    0x3FF8000000000000, 0xC002000000000000, 0x7FEFFFFFFFFFFFFF,
+], dtype=np.uint64)
+_F32_EDGE_BITS = np.array([
+    0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000,
+    0x7FC00005, 0xFF800123, 0x7F800001, 0x00000001, 0x80400000,
+    0x00800000, 0x80800000, 0x3FC00000, 0xC0100000, 0x7F7FFFFF,
+], dtype=np.uint32)
+
+
+def float_edge_table(n: int, seed: int = 0, device="cuda") -> Table:
+    """(INT32 key, FLOAT64, FLOAT32) with about 16 rows a key: values drawn
+    from the edge bits above and from normals scaled across the whole
+    exponent range (so sums underflow and overflow), 10% nulls, keys that
+    are all null in both value columns, one-row keys, and keys whose rows
+    are a subnormal of negative sign (flushed to -0.0) followed by a null
+    row (its +0.0 turns the sum to +0.0). The last value rows of a key come
+    in table order, as a stable sort keeps them."""
+    rng = np.random.default_rng(seed)
+    n_keys = max(1, n // 16)
+    key = rng.integers(0, n_keys, n).astype(np.int32)
+    f64 = (rng.standard_normal(n)
+           * 10.0 ** rng.integers(-320, 308, n)).view(np.uint64)
+    edge = rng.random(n) < 0.4
+    f64[edge] = _F64_EDGE_BITS[rng.integers(0, len(_F64_EDGE_BITS),
+                                            int(edge.sum()))]
+    f32 = rng.standard_normal(n).astype(np.float32).view(np.uint32)
+    edge = rng.random(n) < 0.4
+    f32[edge] = _F32_EDGE_BITS[rng.integers(0, len(_F32_EDGE_BITS),
+                                            int(edge.sum()))]
+    v64 = rng.random(n) > 0.1
+    v32 = rng.random(n) > 0.1
+    m = max(4, n // 1000)
+    if n >= 4 * m:
+        # one-row keys, all-null keys, then (-subnormal, null) pairs
+        key[:m] = n_keys + np.arange(m)
+        key[m:2 * m] = n_keys + m + np.arange(m) // 2
+        v64[m:2 * m] = v32[m:2 * m] = False
+        key[2 * m:4 * m] = n_keys + 2 * m + np.arange(2 * m) // 2
+        f64[2 * m:4 * m:2] = 0x800000000000DEAD
+        f32[2 * m:4 * m:2] = 0x80400000
+        v64[2 * m:4 * m] = v32[2 * m:4 * m] = True
+        v64[2 * m + 1:4 * m:2] = v32[2 * m + 1:4 * m:2] = False
+    return Table((
+        Column.from_numpy(key, dt.INT32, device=device),
+        Column.from_numpy(f64.view(np.float64), dt.FLOAT64, validity=v64,
+                          device=device),
+        Column.from_numpy(f32.view(np.float32), dt.FLOAT32, validity=v32,
+                          device=device)))

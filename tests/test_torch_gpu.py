@@ -391,3 +391,105 @@ def test_plan_engine_on_card_equals_eager_and_cpu(cuda, q):
     assert (snap["plan_executes"], snap["plan_fallbacks"]) == (1, 0), snap
     assert _same_answer(fused, run(*card, engine="eager"))
     assert _same_answer(fused, run(*gen("cpu"), engine="plan"))
+
+
+# ---------------------------------------------------------------------------
+# H1: the ordered segment float aggregate
+# ---------------------------------------------------------------------------
+
+def _h1_args(key, vcol):
+    """(z, valid, starts) of a value column grouped by an integer key."""
+    from spark_rapids_jni_tpu_torch.ops import groupby as G
+    from spark_rapids_jni_tpu_torch.ops.sort import sort_order
+    order = sort_order([key])
+    k = key.data.index_select(0, order)
+    seg = torch.cat([torch.zeros(1, dtype=torch.int64, device=k.device),
+                     torch.cumsum((k[1:] != k[:-1]).to(torch.int64), 0)])
+    G_ = int(seg[-1]) + 1
+    starts = torch.searchsorted(seg, torch.arange(G_ + 1, device=k.device))
+    z = G._f64_values(vcol).index_select(0, order)
+    return z, vcol.valid_mask().index_select(0, order), starts
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
+@pytest.mark.parametrize("col", [1, 2], ids=["f64", "f32"])
+def test_h1_matches_plain_on_edge_table(cuda, col):
+    t = datagen.float_edge_table(1 << 20, 0, device=cuda)
+    z, valid, starts = _h1_args(t.columns[0], t.columns[col])
+    before = K.segment_float_agg.launches
+    got = K.segment_float_agg(z, valid, starts)
+    torch.cuda.synchronize()
+    assert K.segment_float_agg.launches == before + 1
+    want = K.segment_float_agg_plain(z, valid, starts)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and _bits_equal(g, w)
+
+
+def test_h1_long_and_empty_segments(cuda):
+    """Two long segments, empty ones between, and a one-row tail."""
+    rng = np.random.default_rng(5)
+    n = 60_001
+    z = torch.from_numpy(rng.standard_normal(n) * 1e-300).to(cuda)
+    valid = torch.from_numpy(rng.random(n) > 0.2).to(cuda)
+    starts = torch.tensor([0, 0, 25_000, 25_000, 25_000, 60_000, n],
+                          dtype=torch.int64, device=cuda)
+    got = K.segment_float_agg(z, valid, starts)
+    want = K.segment_float_agg_plain(z, valid, starts)
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+
+
+def test_h1_groupby_on_card_equals_cpu(cuda):
+    t = datagen.float_edge_table(200_000, 1, device=cuda)
+    c = datagen.float_edge_table(200_000, 1, device="cpu")
+    aggs = [(1, "sum"), (1, "mean"), (1, "min"), (1, "max"), (2, "sum"),
+            (2, "mean"), (2, "min"), (2, "max"), (2, "count")]
+    got = groupby_aggregate(t, [0], aggs)
+    want = groupby_aggregate(c, [0], aggs)
+    assert got.num_rows == want.num_rows
+    for g, w in zip(got.columns, want.columns):
+        assert torch.equal(g.valid_mask().cpu(), w.valid_mask())
+        assert torch.equal(g.data.cpu().view(torch.uint8),
+                           w.data.view(torch.uint8))
+
+
+def test_c1_float32_subnormal_keys_on_card(cuda):
+    from spark_rapids_jni_tpu_torch.ops.sort import sort_order
+    v = np.array([1e-45, 0.0, -1e-45, -0.0, 1e-40, 1.0], np.float32)
+    k = Column.from_numpy(v, dt.FLOAT32, device=cuda)
+    h = H.xxhash64([k]).data.cpu().numpy()
+    assert (h[[0, 2, 4]] == 3614696996920510707).all()
+    assert sort_order([k]).cpu().tolist() == [0, 1, 2, 3, 4, 5]
+    assert inner_join([k], [k])[0].numel() == 26
+    one = Column.from_numpy(np.ones(6, np.int64), dt.INT64, device=cuda)
+    g = groupby_aggregate(Table((k, one)), [0], [(1, "count")])
+    assert g.columns[1].data.cpu().tolist() == [5, 1]
+
+
+def test_dict32_join_and_groupby_on_card_equal_cpu(cuda):
+    from spark_rapids_jni_tpu_torch.columnar import dictionary as D
+    rng = np.random.default_rng(9)
+    pool = [f"k{i:04d}".encode() * (i % 3 + 1) for i in range(300)]
+    n = 100_000
+    draws = rng.integers(0, 300, n)
+    vals = rng.integers(-1000, 1000, n)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        values = D.values_from_entries(pool, dev)
+        key = D.dict_column(torch.from_numpy(draws).to(dev), values,
+                            validity=torch.from_numpy(
+                                np.arange(n) % 17 != 0).to(dev))
+        dim = D.dict_column(torch.arange(300, device=dev), values)
+        t = Table((key, Column.from_numpy(vals, dt.INT64, device=dev)))
+        g = groupby_aggregate(t, [0], [(1, "sum"), (1, "min"),
+                                       (1, "count")])
+        li, ri = inner_join([key], [dim])
+        out[dev.type] = ([c.data.cpu() for c in g.columns],
+                         li.cpu(), ri.cpu())
+    (gc, lc, rc), (gp, lp, rp) = out["cuda"], out["cpu"]
+    assert all(torch.equal(a, b) for a, b in zip(gc, gp))
+    assert torch.equal(lc, lp) and torch.equal(rc, rp)
+    assert lc.numel() == int((np.arange(n) % 17 != 0).sum())

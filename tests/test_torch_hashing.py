@@ -27,8 +27,8 @@ from torch_parity import table_to_port
 
 
 def _mixed_table(n=4095, seed=0, with_nulls=True):
-    """The mixed schema of test_pallas_kernels.py, with -0.0 and NaN in
-    both float columns."""
+    """The mixed schema of test_pallas_kernels.py, with -0.0, NaN and
+    subnormals of both signs in both float columns."""
     rng = np.random.default_rng(seed)
     v = (lambda: rng.random(n) > 0.25) if with_nulls else (lambda: None)
     f32 = rng.standard_normal(n).astype(np.float32)
@@ -37,6 +37,8 @@ def _mixed_table(n=4095, seed=0, with_nulls=True):
         f[:6] = [0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf]
     f64[6] = np.frombuffer(np.uint64(0x7FF8000000000123).tobytes(),
                            np.float64)[0]  # a NaN with a payload
+    f32[7:10] = [1e-45, -1e-40, 1e-39]
+    f64[7:10] = [5e-324, -1e-310, 2e-308]
     cols = (
         JColumn.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32),
                            validity=v()),

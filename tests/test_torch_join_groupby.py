@@ -30,15 +30,23 @@ def _ints(r, n, lo, hi, dtype=np.int64, null_frac=0.0):
                               validity=v)
 
 
-def _floats(r, n, null_frac=0.0):
-    vals = r.integers(-3, 4, n).astype(np.float64)
+def _floats(r, n, null_frac=0.0, dtype=np.float64):
+    """Small integers, -0.0, NaNs of two payloads and subnormals of both
+    signs (FLOAT32 subnormal keys equal 0.0 in the JAX package, FLOAT64
+    ones are keys of their own)."""
+    vals = r.integers(-3, 4, n).astype(dtype)
     vals[r.random(n) < 0.1] = -0.0
     vals[r.random(n) < 0.1] = np.nan
-    nan2 = np.frombuffer(np.uint64(0x7FF8000000000042).tobytes(),
-                         np.float64)[0]
-    vals[r.random(n) < 0.05] = nan2
+    sub = [1e-45, -1e-40] if dtype == np.float32 else [5e-324, -1e-310]
+    vals[r.random(n) < 0.05] = sub[0]
+    vals[r.random(n) < 0.05] = sub[1]
+    if dtype == np.float64:
+        nan2 = np.frombuffer(np.uint64(0x7FF8000000000042).tobytes(),
+                             np.float64)[0]
+        vals[r.random(n) < 0.05] = nan2
     v = r.random(n) >= null_frac if null_frac else None
-    return JColumn.from_numpy(vals, jdt.FLOAT64, validity=v)
+    d = jdt.FLOAT64 if dtype == np.float64 else jdt.FLOAT32
+    return JColumn.from_numpy(vals, d, validity=v)
 
 
 def _join_both(lkeys, rkeys, **kw):
@@ -70,24 +78,40 @@ def test_inner_join_multi_key_floats():
     """Two-column keys with an INT32 and a FLOAT64 column: NaNs (any
     payload) join, -0.0 joins 0.0."""
     r = np.random.default_rng(1)
-    lkeys = [_ints(r, NL, 0, 4, np.int32), _floats(r, NL, 0.05)]
-    rkeys = [_ints(r, NR, 0, 4, np.int32), _floats(r, NR, 0.05)]
+    lkeys = [_ints(r, NL, 0, 4, np.int32), _floats(r, NL, 0.05),
+             _floats(r, NL, 0.05, np.float32)]
+    rkeys = [_ints(r, NR, 0, 4, np.int32), _floats(r, NR, 0.05),
+             _floats(r, NR, 0.05, np.float32)]
     _join_both(lkeys, rkeys, left_mask=r.random(NL) > 0.5)
 
 
 def test_inner_join_widens_int32_to_int64():
-    """An INT32 key meets the INT64 key that holds the same value (the JAX
-    package widens at its eager join boundary, plan/interpreter.py)."""
+    """The op hashes raw widths, as the JAX package's op does: an INT32
+    key meets no INT64 key, and with ``nulls_equal`` only the null rows
+    meet. The plan engine's eager join boundary widens the pair to INT64
+    (both packages' plan/interpreter.py), so a Join of mixed widths meets
+    equal values."""
+    from spark_rapids_jni_tpu import plan as JP
+    from spark_rapids_jni_tpu_torch import plan as PP
+    from torch_parity import plan_to_port, tables_to_port
+    l32 = JColumn.from_pylist([1, 2, None, 3], jdt.INT32)
+    r64 = JColumn.from_pylist([3, 1, 1, None], jdt.INT64)
+    for nulls_equal, pairs in ((False, []), (True, [(2, 3)])):
+        want = JJ.inner_join([l32], [r64], nulls_equal=nulls_equal)
+        got = J.inner_join([to_port(l32)], [to_port(r64)],
+                           nulls_equal=nulls_equal)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert list(zip(got[0].tolist(), got[1].tolist())) == pairs
     r = np.random.default_rng(2)
-    l32 = _ints(r, NL, 0, 60, np.int32, null_frac=0.1)
-    r64 = _ints(r, NR, 0, 80)
-    wide = JColumn(jdt.INT64, l32.size, data=l32.data.astype(np.int64),
-                   validity=l32.validity)
-    want = JJ.inner_join([wide], [r64])
-    got = J.inner_join([to_port(l32)], [to_port(r64)])
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    assert got[0].numel() > 100
+    tables = [JTable((_ints(r, NL, 0, 60, np.int32, null_frac=0.1),)),
+              JTable((_ints(r, NR, 0, 80),))]
+    plan = JP.Join(JP.Scan(1, input_index=0), JP.Scan(1, input_index=1),
+                   (0,), (0,), "inner")
+    want = JP.run_eager(plan, tables)
+    got = PP.run_eager(plan_to_port(plan), tables_to_port(tables))
+    assert_table_equal(want, got)
+    assert got.num_rows > 100
 
 
 def test_inner_join_empty_side():
@@ -107,15 +131,17 @@ def _gb_table(seed, n=600):
         _ints(r, n, -100, 100, np.int16),
         JColumn.from_numpy(r.integers(0, 2**32, n).astype(np.uint32),
                            validity=r.random(n) > 0.1),
+        _floats(r, n, 0.05, np.float32),
     ))
 
 
 AGGS = [(2, "sum"), (2, "count"), (2, "min"), (2, "max"), (3, "sum"),
-        (3, "min"), (3, "max"), (4, "sum"), (4, "max"), (0, "count")]
+        (3, "min"), (3, "max"), (4, "sum"), (4, "max"), (0, "count"),
+        (1, "sum"), (1, "mean"), (1, "max"), (5, "sum"), (5, "min")]
 
 
-@pytest.mark.parametrize("keys", [[0], [1], [0, 1]], ids=["int", "float",
-                                                          "int_float"])
+@pytest.mark.parametrize("keys", [[0], [1], [0, 1], [5]],
+                         ids=["int", "float", "int_float", "float32"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_groupby_aggregate_matches(keys, masked):
     jt = _gb_table(4)
@@ -130,6 +156,7 @@ def test_groupby_aggregate_matches(keys, masked):
 
 
 def test_groupby_all_masked_and_unported_aggs():
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
     jt = _gb_table(6)
     pt = table_to_port(jt)
     none = np.zeros(jt.num_rows, dtype=bool)
@@ -137,10 +164,15 @@ def test_groupby_all_masked_and_unported_aggs():
         JG.groupby_aggregate(jt, [0], [(2, "sum")], row_mask=none),
         G.groupby_aggregate(pt, [0], [(2, "sum")],
                             row_mask=torch.from_numpy(none)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        G.groupby_aggregate(pt, [0], [(1, "sum")])
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        G.groupby_aggregate(pt, [0], [(1, "mean")])
+    # float sum and mean: the JAX package's summation order and flushes
+    assert_table_equal(
+        JG.groupby_aggregate(jt, [0], [(1, "sum"), (1, "mean")]),
+        G.groupby_aggregate(pt, [0], [(1, "sum"), (1, "mean")]))
+    # unsigned 64-bit aggregates stay queued with decimals
+    u64 = Table((pt.columns[0], Column.from_numpy(
+        np.arange(jt.num_rows, dtype=np.uint64), device="cpu")))
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        G.groupby_aggregate(u64, [0], [(1, "sum")])
     # an integer mean is the exact int64 sum over the count, in float64
     assert_table_equal(
         JG.groupby_aggregate(jt, [0], [(2, "mean"), (3, "mean")]),
@@ -157,4 +189,7 @@ def test_sort_table_matches(ascending):
         assert_table_equal(want, got)
     want = JS.sort_table(jt, [4, 3], ascending)
     assert_table_equal(want, S.sort_table(table_to_port(jt), [4, 3],
+                                          ascending))
+    want = JS.sort_table(jt, [5, 0], ascending)
+    assert_table_equal(want, S.sort_table(table_to_port(jt), [5, 0],
                                           ascending))

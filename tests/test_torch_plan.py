@@ -40,7 +40,6 @@ from spark_rapids_jni_tpu.plan.nodes import \
 from spark_rapids_jni_tpu.utils import config as jconfig
 from spark_rapids_jni_tpu_torch import plan as P
 from spark_rapids_jni_tpu_torch import tpch
-from spark_rapids_jni_tpu_torch.columnar import dtype as dt
 from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
 from spark_rapids_jni_tpu_torch.ops.groupby import groupby_direct_small_core
 from spark_rapids_jni_tpu_torch.plan import expr as pex
@@ -51,7 +50,7 @@ from tests.test_plan import PLANS, _table
 from tests.test_plan_join import NB, _c, _join_plan, _probe_build
 from torch_parity import (assert_col_equal, assert_table_equal,
                           expr_to_port, metric_counts, plan_to_port,
-                          tables_to_port)
+                          tables_to_port, to_port)
 
 LINEAR_ROWS = 1000
 
@@ -366,31 +365,79 @@ def test_program_cache_hits_on_same_shape(linear_tables):
         assert torch.equal(x.data, y.data)
 
 
-def _dict32_join():
-    codes = Column(dt.DType(dt.TypeId.DICT32), 4,
-                   data=torch.arange(4, dtype=torch.int32))
-    t = Table((codes,))
-    return lambda: P.execute_plan(
-        P.Join(P.Scan(1, input_index=0), P.Scan(1, input_index=1),
-               (0,), (0,), "inner"), [t, t])
+def _jdict(strings, entries=None):
+    """A JAX-package DICT32 column of ``strings`` (None = null), on the
+    dictionary of ``entries`` when given."""
+    from spark_rapids_jni_tpu.columnar import dictionary as jd
+    if entries is None:
+        return jd.encode_strings(JColumn.from_pylist(strings, jdt.STRING))
+    values = jd.values_from_entries([e.encode() for e in entries])
+    codes = np.array([entries.index(v) if v is not None else 0
+                      for v in strings], np.int32)
+    valid = np.array([v is not None for v in strings])
+    return jd.dict_column(jnp.asarray(codes), values,
+                          validity=jnp.asarray(valid))
 
 
+def _string_literal():
+    """A string literal against a DICT32 column: resolved to its code, on
+    both engines, as in the JAX package."""
+    jt = JTable((_jdict(["x", "y", None, "x", "zz", "y"]),
+                 JColumn.from_numpy(np.arange(6, dtype=np.int64))))
+    for lit_value in ("x", "absent"):
+        plan = Filter(Scan(2), col(0) == lit(lit_value))
+        want = j_execute(plan, jt, cache=JCache())
+        pt = tables_to_port(jt)
+        assert_table_equal(want, P.execute_plan(plan_to_port(plan), pt,
+                                                cache=ProgramCache()))
+        pplan = plan_to_port(plan)
+        assert_table_equal(want, P.run_eager(P.resolve_literals(pplan, pt),
+                                             pt))
+
+
+def _dictionary_join_key():
+    """A DAG join of two DICT32 keys on different dictionaries: the build
+    codes re-mapped into the probe's dictionary inside the fused program."""
+    probe = JTable((_jdict(["a", "b", None, "c", "a", "d"],
+                           ["a", "b", "c", "d"]),
+                    JColumn.from_numpy(np.arange(6, dtype=np.int64))))
+    build = JTable((_jdict(["c", "a", "e"], ["e", "c", "a"]),
+                    JColumn.from_numpy(np.array([30, 10, 50], np.int64))))
+    plan = Join(Scan(2, input_index=0), Scan(2, input_index=1), (0,), (0,),
+                "inner")
+    want = j_execute(plan, [probe, build], cache=JCache())
+    _hold(plan, [probe, build], want)
+    assert want.num_rows == 3
+
+
+def _dictionary_operand():
+    jc = _jdict(["p", "q", None, "p"])
+    e = jex.col(0) == jex.lit(1)
+    want = jex.eval_expr(e, [jc])
+    got = pex.eval_expr(expr_to_port(e), [to_port(jc)])
+    np.testing.assert_array_equal(np.asarray(want.data), got.data.numpy())
+    np.testing.assert_array_equal(np.asarray(want.validity),
+                                  got.validity.numpy())
+
+
+def _float_mean():
+    jt = JTable((JColumn.from_numpy(np.array([0, 1, 0], np.int64)),
+                 JColumn.from_numpy(np.array([0.5, 1e-310, -2.25]))))
+    plan = GroupBy(Scan(2), (0,), ((1, "mean"), (1, "sum")))
+    assert_table_equal(j_eager(plan, jt),
+                       P.run_eager(plan_to_port(plan), tables_to_port(jt)))
+
+
+# each entry: (ROADMAP item, a call that raises NotImplementedError naming
+# it), or (None, a parity check) for an entry that is ported since
 _NOT_PORTED = {
-    "string_literal": ("A10", lambda: pex.eval_expr(
-        pex.col(0) == pex.lit("x"),
-        [Column.from_numpy(np.arange(3), device="cpu")])),
-    "dictionary_join_key": ("A10", _dict32_join()),
-    "dictionary_operand": ("A10", lambda: pex.eval_expr(
-        pex.col(0) == pex.lit(1),
-        [Column(dt.DType(dt.TypeId.DICT32), 2,
-                data=torch.zeros(2, dtype=torch.int32))])),
+    "string_literal": (None, _string_literal),
+    "dictionary_join_key": (None, _dictionary_join_key),
+    "dictionary_operand": (None, _dictionary_operand),
     "donate_input": ("A7", lambda: P.execute_plan(
         P.Scan(1), Table((Column.from_numpy(np.arange(3), device="cpu"),)),
         donate_input=True)),
-    "float_mean": ("A4", lambda: P.run_eager(
-        P.GroupBy(P.Scan(2), (0,), ((1, "mean"),)),
-        Table((Column.from_numpy(np.arange(3), device="cpu"),
-               Column.from_numpy(np.arange(3.0), device="cpu"))))),
+    "float_mean": (None, _float_mean),
     "tpch_mesh": ("A15", lambda: tpch.run_q6(
         tpch.generate_q1_lineitem(16, 0, device="cpu"), mesh=object())),
     "tpch_sharded": ("A15", lambda: tpch.run_q1(
@@ -400,7 +447,13 @@ _NOT_PORTED = {
 
 @pytest.mark.parametrize("case", sorted(_NOT_PORTED))
 def test_not_ported_names_its_roadmap_item(case):
+    """An unported option raises naming its ROADMAP item; an entry ported
+    since (string literals, dictionary keys and operands: A10; float
+    means: A4) runs and equals the JAX package."""
     item, call = _NOT_PORTED[case]
+    if item is None:
+        call()
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         call()
 

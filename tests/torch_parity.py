@@ -6,7 +6,10 @@ its own constructors and to the port through the JAX package's wire format
 stats included. Plans cross with ``plan_to_port``, which rebuilds a JAX
 plan node by node from the port's constructors. Comparisons are bit-exact:
 every value on the port's path is an integer or a bit pattern; a STRING
-column compares its characters and its offsets.
+column compares its characters and its offsets. An encoded column (DICT32,
+RLE, FOR) crosses child by child, and a child shared by several JAX
+columns (a dictionary, a run-lengths buffer) is shared by their port
+columns too.
 """
 
 import dataclasses
@@ -20,8 +23,10 @@ from spark_rapids_jni_tpu import bridge
 from spark_rapids_jni_tpu.columnar.column import Table as JTable
 from spark_rapids_jni_tpu.plan import expr as jex
 from spark_rapids_jni_tpu.plan import nodes as jnodes
+from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
 from spark_rapids_jni_tpu_torch.columnar import interop
-from spark_rapids_jni_tpu_torch.columnar.column import ColumnStats, Table
+from spark_rapids_jni_tpu_torch.columnar.column import (Column, ColumnStats,
+                                                        Table)
 from spark_rapids_jni_tpu_torch.plan import expr as pex
 from spark_rapids_jni_tpu_torch.plan import nodes as pnodes
 
@@ -47,9 +52,34 @@ def quick_jax_reference():
         jax.config.update("jax_disable_most_optimizations", was)
 
 
-def to_port(col, device="cpu"):
+_ENCODED = ("dict32", "rle", "for32", "for64")
+
+
+def _encoded_to_port(col, device, memo):
+    """``memo``: id of a JAX child -> (that child, its port column), so a
+    child shared on the JAX side is one port column too (the JAX child is
+    held so that its id is not reused)."""
+    kids = []
+    for c in col.children:
+        hit = memo.get(id(c))
+        if hit is None:
+            hit = memo[id(c)] = (c, to_port(c, device))
+        kids.append(hit[1])
+    d = pdt.DType(pdt.TypeId(col.dtype.id.value), col.dtype.scale)
+    data = (None if col.data is None
+            else torch.from_numpy(np.array(col.data)).to(device))
+    validity = (None if col.validity is None else torch.from_numpy(
+        np.array(col.validity).astype(bool)).to(device))
+    return Column(d, col.size, data=data, validity=validity,
+                  children=tuple(kids))
+
+
+def to_port(col, device="cpu", memo=None):
     """JAX-package Column -> port Column, through the wire format, with
-    its advisory stats."""
+    its advisory stats; encoded columns child by child (``memo`` shares
+    children across the columns of one conversion)."""
+    if col.dtype.id.value in _ENCODED:
+        return _encoded_to_port(col, device, {} if memo is None else memo)
     out = interop.wire_to_col(bridge.col_to_wire(col), device)
     st = col.stats()
     if st is not None:
@@ -57,13 +87,16 @@ def to_port(col, device="cpu"):
     return out
 
 
-def table_to_port(table: JTable, device="cpu") -> Table:
-    return Table(tuple(to_port(c, device) for c in table.columns))
+def table_to_port(table: JTable, device="cpu", memo=None) -> Table:
+    memo = {} if memo is None else memo
+    return Table(tuple(to_port(c, device, memo) for c in table.columns))
 
 
 def col_bits(col) -> np.ndarray:
     """Raw value bytes of a column of either package, as uint8."""
     if hasattr(col.data, "device") and isinstance(col.data, torch.Tensor):
+        if col.data.numel() == 0:
+            return np.zeros(0, np.uint8)
         return col.data.detach().cpu().contiguous().view(torch.uint8).numpy()
     return np.ascontiguousarray(np.asarray(col.data)).view(np.uint8)
 
@@ -80,9 +113,19 @@ def assert_col_equal(jcol, pcol, where="", presence=True):
     ``presence``, validity present on both or neither. The engines of
     either package agree on the validity bits, not on their presence (a
     direct-slot groupby's sums carry none), so a comparison across
-    engines passes ``presence=False``."""
+    engines passes ``presence=False``. An encoded column compares its
+    scale (a FOR width) and every child the same way: dictionary values
+    and ranks, run values and lengths, the FOR header."""
     assert jcol.dtype.id.value == pcol.dtype.id.value, where
     assert jcol.size == pcol.size, where
+    if pcol.dtype.id.value in _ENCODED:
+        assert jcol.dtype.scale == pcol.dtype.scale, where
+        assert len(jcol.children) == len(pcol.children), where
+        for i, (jc, pc) in enumerate(zip(jcol.children, pcol.children)):
+            assert_col_equal(jc, pc, f"{where} child {i}", presence)
+        if pcol.data is None:
+            assert jcol.data is None and pcol.validity is None, where
+            return
     assert not presence or (jcol.validity is None) == (
         pcol.validity is None), f"{where}: validity presence differs"
     np.testing.assert_array_equal(np.asarray(jcol.valid_mask()),
@@ -143,7 +186,8 @@ def tables_to_port(tables, device="cpu"):
     """One JAX Table or a sequence of them -> the port's."""
     if isinstance(tables, JTable):
         return table_to_port(tables, device)
-    return tuple(table_to_port(t, device) for t in tables)
+    memo = {}
+    return tuple(table_to_port(t, device, memo) for t in tables)
 
 
 METRIC_KEYS = ("plan_executes", "plan_fallbacks", "plan_join_fallbacks",
