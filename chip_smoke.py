@@ -76,10 +76,14 @@ run exits non-zero:
      dictionary (== S4's pairs), S9 a fused Filter -> GroupBy with a
      string literal over the DICT32 table (== eager, no fallback, no host
      sync), S10 the codes RLE-encoded as key with a FOR32 value (== the
-     plain columns), and H1's worst case, two groups of ~30M (== numpy);
-     H1 against its plain version at S5's shape (timed there against its
-     bound and torch.segment_reduce) and on a 1M-row edge table of NaN
-     payloads, ±0, ±inf and subnormals; encode_strings at 1M rows.
+     plain columns), and H1's worst case, two groups of ~30M (== numpy;
+     timed against its chain bound and torch.segment_reduce); H1 against
+     its plain version at S5's shape (timed there against its bound and
+     torch.segment_reduce, with ns per row of the longest segment and the
+     chain share) and on a 1M-row edge table of NaN payloads, ±0, ±inf and
+     subnormals, its count of chunks folded on the flushed path against
+     the rule (kernels.flushed_chunks_plain) at each; encode_strings at
+     1M rows.
 
 Prints JSON lines (timings, then the {"kernels": [...]} line, whose
 entries give each kernel's launches by path) and, last,
@@ -1264,6 +1268,15 @@ def _h1_args(key, z):
             torch.searchsorted(k, ids))
 
 
+def h1_counted(z, valid, starts):
+    """H1's (sum, min, max) and its count of chunks folded on the flushed
+    path (the plain version's rule on the CPU)."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    cnt = torch.zeros(1, dtype=torch.int64, device=z.device)
+    out = K.segment_float_agg(z, valid, starts, flushed=cnt)
+    return out, int(cnt)
+
+
 def h1_entry(card, z, valid, starts, launches):
     """H1 at one shape: held bit for bit against its plain version, then
     its time by CUDA events, the plain version's, the bound (the larger of
@@ -1272,27 +1285,32 @@ def h1_entry(card, z, valid, starts, launches):
     as a yardstick that does not give the same bits."""
     from spark_rapids_jni_tpu_torch.ops import kernels as K
     n, G = z.shape[0], starts.shape[0] - 1
-    got = K.segment_float_agg(z, valid, starts)
+    got, flushed = h1_counted(z, valid, starts)
     want = K.segment_float_agg_plain(z, valid, starts)
     if not all(torch.equal(g.view(torch.int64), w.view(torch.int64))
                for g, w in zip(got, want)):
         raise AssertionError(f"H1 at {n} rows, {G} segments: differs "
                              f"from its plain version")
+    rule = K.flushed_chunks_plain(z, valid, starts)
+    if flushed != rule:
+        raise AssertionError(f"H1 at {n} rows flushed {flushed} chunks, "
+                             f"its rule {rule}")
     lens = starts[1:] - starts[:-1]
     longest = int(lens.max())
     entry = {"name": "H1 segment_float_agg", "route": "cuda",
              "source": K.KERNELS[3][2], "replaces": K.KERNELS[3][3],
              "launches": launches, "rows": n, "segments": G,
              "longest_segment": longest, "bit_exact": True,
-             "max_abs_err": 0, **card}
+             "max_abs_err": 0, "flushed_chunks": flushed, **card}
     if z.device.type != "cuda":  # a CPU rehearsal times nothing
         return entry
     add_ns = K.dadd_chain_ms(10_000_000, z.device) * 1e6 / 1e7
     nbytes = n * 9 + (G + 1) * 8 + 3 * G * 8
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     chain_ms = longest * add_ns / 1e6
+    ms = cuda_ms(lambda: K.segment_float_agg(z, valid, starts), reps=5)
     entry.update(
-        ms=cuda_ms(lambda: K.segment_float_agg(z, valid, starts), reps=5),
+        ms=ms, ns_per_row=ms * 1e6 / longest, chain_share=chain_ms / ms,
         plain_ms=wall(lambda: K.segment_float_agg_plain(z, valid, starts),
                       z.device)[1],
         bound_ms=max(byte_ms, chain_ms),
@@ -1450,11 +1468,15 @@ def encoded_phase(dev, card, table, edge_rows=1 << 20):
                                   GB._f64_values(edge[c]))
         evalid = edge[c].valid_mask().index_select(
             0, torch.sort(edge[0].data.to(torch.int64), stable=True).indices)
-        got = K.segment_float_agg(ez, evalid, estarts)
+        got, flushed = h1_counted(ez, evalid, estarts)
         want = K.segment_float_agg_plain(ez, evalid, estarts)
-        checks[f"H1_edge_table_{edge[c].dtype.id.value}_equals_plain"] = all(
+        label = f"H1_edge_table_{edge[c].dtype.id.value}"
+        checks[f"{label}_equals_plain"] = all(
             torch.equal(g.view(torch.int64), w.view(torch.int64))
             for g, w in zip(got, want))
+        checks[f"{label}_flushed_chunks_follow_the_rule"] = (
+            flushed == K.flushed_chunks_plain(ez, evalid, estarts))
+        entry[f"flushed_chunks_edge_{edge[c].dtype.id.value}"] = flushed
     del edge
     small = datagen.string_rows_table(1_000_000, 3, device=dev)[4]
     enc = D.encode_strings(small)
@@ -1475,12 +1497,18 @@ def encoded_phase(dev, card, table, edge_rows=1 << 20):
 
     if cuda:
         two_args = _h1_args(table[3].data.to(torch.int64), table[2].data)
-        longest = int((two_args[2][1:] - two_args[2][:-1]).max())
+        lens = two_args[2][1:] - two_args[2][:-1]
+        longest = int(lens.max())
+        h1_ms = cuda_ms(lambda: K.segment_float_agg(*two_args), reps=3,
+                        warm=1)
+        chain_ms = longest * entry["dadd_latency_ns"] / 1e6
         lines["H1_two_groups"].update(
-            h1_kernel_ms=cuda_ms(lambda: K.segment_float_agg(*two_args),
-                                 reps=3, warm=1),
-            longest_segment=longest,
-            chain_bound_ms=longest * entry["dadd_latency_ns"] / 1e6)
+            h1_kernel_ms=h1_ms, longest_segment=longest,
+            chain_bound_ms=chain_ms, ns_per_row=h1_ms * 1e6 / longest,
+            chain_share=chain_ms / h1_ms,
+            library_ms=cuda_ms(lambda: torch.segment_reduce(
+                two_args[0], "sum", lengths=lens), reps=3, warm=1),
+            library_call="torch.segment_reduce(z, 'sum'), not bit-equal")
         del two_args
         for name, fn in stages.items():
             warm = sorted(wall(fn, dev)[1] for _ in range(5))

@@ -63,9 +63,10 @@ _SIGNATURES = {
                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _VP,
                           _VP],
-    # (z, valid, starts, G, sum, min, max, stream)
+    # (z, valid, starts, G, sum, min, max, flushed-chunk count or null,
+    #  stream)
     "srjt_segment_float_agg": [_VP, _VP, _VP, ctypes.c_longlong, _VP, _VP,
-                               _VP, _VP],
+                               _VP, _VP, _VP],
     # (x, n, out, stream)
     "srjt_dadd_chain": [_VP, ctypes.c_longlong, _VP, _VP],
 }
@@ -987,21 +988,54 @@ def segment_float_agg_plain(z: torch.Tensor, valid: torch.Tensor,
     return _ordered_sums(xb, starts).view(torch.float64), mins, maxs
 
 
+H1_CHUNK_ROWS = 256      # csrc kChunk: rows of one ring slot
+H1_TINY = 2.0 ** -969    # csrc kTinyHi: below it a nonzero input is tiny
+_TINY_BITS = (1023 - 969) << 52
+
+
+def flushed_chunks_plain(z: torch.Tensor, valid: torch.Tensor,
+                         starts: torch.Tensor) -> int:
+    """How many chunks H1 folds with the flush after every add: the chunks
+    of H1_CHUNK_ROWS rows from each segment's start that hold a valid
+    input whose flushed value is nonzero and below H1_TINY in magnitude.
+    Every other chunk folds with plain adds (csrc/segment_agg.cu says why
+    both give the same bits)."""
+    n = z.shape[0]
+    xb = torch.where(valid, _flush_bits(z.view(torch.int64)), 0) & _ABS
+    tiny = (xb != 0) & (xb < _TINY_BITS)
+    seg = torch.repeat_interleave(
+        torch.arange(starts.shape[0] - 1, device=z.device),
+        starts[1:] - starts[:-1], output_size=n)
+    lo = starts[:-1].index_select(0, seg)
+    rows = torch.arange(n, device=z.device)
+    first = lo + (rows - lo) // H1_CHUNK_ROWS * H1_CHUNK_ROWS
+    return int(torch.unique(first[tiny]).numel())
+
+
 def segment_float_agg(z: torch.Tensor, valid: torch.Tensor,
-                      starts: torch.Tensor):
+                      starts: torch.Tensor,
+                      flushed: Optional[torch.Tensor] = None):
     """H1: (sum, min, max) float64[G] of the sorted segments
     [starts[g], starts[g+1]) of ``z`` (float64[n]) over the rows where
     ``valid`` (bool[n]); ``starts`` int64[G+1] from 0 to n. The sum is the
     sequential, flushed sum of XLA:CPU's segment_sum (masked rows add
-    +0.0); min and max give XLA:CPU's bits, NaN payloads included."""
+    +0.0); min and max give XLA:CPU's bits, NaN payloads included.
+    ``flushed``, an int64[1] tensor beside the inputs or None (the main
+    path), gains the count of chunks folded on the flushed path (on the
+    CPU: ``flushed_chunks_plain``'s)."""
     G = starts.shape[0] - 1
     if (z.dtype != torch.float64 or valid.dtype != torch.bool
             or starts.dtype != torch.int64 or z.dim() != 1
             or valid.shape != z.shape or starts.dim() != 1 or G < 0):
         raise ValueError("segment_float_agg takes float64[n] values, "
                          "bool[n] valid and int64[G+1] starts")
-    dev = _where([z, valid, starts])
+    if flushed is not None and (flushed.dtype != torch.int64
+                                or flushed.shape != (1,)):
+        raise ValueError("segment_float_agg counts into an int64[1] tensor")
+    dev = _where([z, valid, starts, flushed])
     if dev.type == "cpu" or G == 0 or z.shape[0] == 0:
+        if flushed is not None:
+            flushed += flushed_chunks_plain(z, valid, starts)
         return segment_float_agg_plain(z, valid, starts)
     z, valid, starts = z.contiguous(), valid.contiguous(), \
         starts.contiguous()
@@ -1010,7 +1044,7 @@ def segment_float_agg(z: torch.Tensor, valid: torch.Tensor,
     err = lib.srjt_segment_float_agg(
         z.data_ptr(), valid.data_ptr(), starts.data_ptr(), G,
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        _stream(dev))
+        None if flushed is None else flushed.data_ptr(), _stream(dev))
     _check(lib, err, "segment_float_agg")
     segment_float_agg.launches += 1
     return out[0], out[1], out[2]

@@ -331,3 +331,70 @@ def float_edge_table(n: int, seed: int = 0, device="cuda") -> Table:
                           device=device),
         Column.from_numpy(f32.view(np.float32), dt.FLOAT32, validity=v32,
                           device=device)))
+
+
+# rows whose sequential sum passes through a subnormal partial sum (t =
+# 2^-1022, the smallest normal): each starts from a sum of exactly ±0
+_T = 2.0 ** -1022
+SUBNORMAL_SUM_PATTERNS = {
+    # 2t, then 0.5t (subnormal), then 1.5t; the flushed sum: 2t, 0, t
+    "back_to_normal": (2 * _T, -1.5 * _T, _T),
+    # 2t, 0.5t (subnormal), -1.5t, then +0.0; the flushed sum ends at -0.0
+    "back_to_zero": (2 * _T, -1.5 * _T, -2 * _T, 1.5 * _T),
+    # ends on 0.5t (subnormal); the flushed sum ends at +0.0
+    "ends_subnormal": (2 * _T, -1.5 * _T),
+}
+SUBNORMAL_SUM_LENGTHS = (2, 3, 4, 31, 33, 40, 255, 257, 300, 513, 700, 1500)
+
+
+def subnormal_sum_table(n_segments: int = 72, seed: int = 0,
+                        device="cuda") -> Table:
+    """(INT32 key, FLOAT64 value) whose groups' sequential sums pass
+    through subnormal partial sums, so that the flushed sum of the
+    reference differs from an unflushed one: each group of a length from
+    ``SUBNORMAL_SUM_LENGTHS`` holds one of ``SUBNORMAL_SUM_PATTERNS`` (or,
+    one group in six, none), at its first row, across a 32-row or a
+    256-row boundary, or ending at its last row, sign flipped in half of
+    the groups. The other rows bring the sum back to exactly ±0: pairs
+    (v, -v) of normals drawn across the exponent range, +0.0 rows and
+    masked rows (their values tiny, huge or NaN). Groups are contiguous,
+    their keys a permutation."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    vals, valid, keys = [], [], []
+    perm = rng.permutation(n_segments)
+    kinds = list(SUBNORMAL_SUM_PATTERNS)
+    for g in range(n_segments):
+        n = SUBNORMAL_SUM_LENGTHS[g % len(SUBNORMAL_SUM_LENGTHS)]
+        kind = None if g % 6 == 5 else kinds[g % len(kinds)]
+        pat = np.array(SUBNORMAL_SUM_PATTERNS[kind] if kind else (),
+                       dtype=np.float64) * (-1.0 if g % 2 else 1.0)
+        if kind == "ends_subnormal" or len(pat) > n:
+            at = max(0, n - len(pat))
+        else:
+            at = [0, 30, 31, 254, 255, n - len(pat)][g % 6]
+            at = min(at, n - len(pat))
+        v = np.zeros(n)
+        ok = np.ones(n, dtype=bool)
+        for lo, hi in ((0, at), (at + len(pat), n)):
+            i = lo
+            while i < hi:
+                r = rng.random()
+                if r < 0.6 and i + 1 < hi:  # a pair that cancels exactly
+                    x = rng.standard_normal() * 2.0 ** rng.integers(-960,
+                                                                    960)
+                    v[i], v[i + 1] = x, -x
+                    i += 2
+                    continue
+                if r < 0.8:  # a masked row adds +0.0 in its place
+                    ok[i] = False
+                    v[i] = rng.choice([2 * _T, 1e300, np.nan, -_T / 4])
+                i += 1
+        v[at:at + len(pat)] = pat[:n]
+        vals.append(v)
+        valid.append(ok)
+        keys.append(np.full(n, perm[g], dtype=np.int32))
+    return Table((
+        Column.from_numpy(np.concatenate(keys), dt.INT32, device=dev),
+        Column.from_numpy(np.concatenate(vals), dt.FLOAT64,
+                          validity=np.concatenate(valid), device=dev)))

@@ -223,3 +223,140 @@ def test_c1_float32_subnormal_keys(op):
                                   ).columns[1].data.numpy()
         assert got.tolist() == [5, 1]
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# H1's flush rule: plain adds for a chunk with no tiny input, the flush
+# after every add for a chunk with one (csrc/segment_agg.cu)
+# ---------------------------------------------------------------------------
+
+def _subnormal_table(seed):
+    """``datagen.subnormal_sum_table`` as a JAX table and a port table."""
+    t = datagen.subnormal_sum_table(seed=seed, device="cpu")
+    jt = JTable((JColumn.from_numpy(t[0].to_numpy(), jdt.INT32),
+                 JColumn.from_numpy(t[1].to_numpy(), jdt.FLOAT64,
+                                    validity=t[1].validity.numpy())))
+    return jt, t
+
+
+def test_subnormal_partial_sums_match_reference():
+    """Groups whose sums pass through subnormal partial sums (at a group's
+    first row, across 32- and 256-row boundaries, at its last row; back to
+    a normal, back to ±0, or subnormal to the end) equal the JAX package's
+    flushed sums bit for bit."""
+    jt, t = _subnormal_table(0)
+    aggs = [(1, "sum"), (1, "mean"), (1, "count")]
+    want = JG.groupby_aggregate(jt, [0], aggs)
+    got = G.groupby_aggregate(t, [0], aggs)
+    assert got.num_rows == want.num_rows == 72
+    assert_table_equal(want, got)
+
+
+def _flushed_fold(x, tiny_rule):
+    """Python fold of flushed f64 bits ``x``: chunks of H1_CHUNK_ROWS rows;
+    a chunk folds with plain IEEE adds (numpy keeps subnormals) unless
+    ``tiny_rule`` says it holds a tiny input, then with the flush after
+    every add. Returns (bits of the sum, chunks flushed)."""
+    acc, flushed = np.float64(0.0), 0
+    xs = x.view(np.float64)
+    for lo in range(0, len(x), K.H1_CHUNK_ROWS):
+        chunk = xs[lo:lo + K.H1_CHUNK_ROWS]
+        dirty = tiny_rule(chunk)
+        flushed += dirty
+        for v in chunk:
+            acc = acc + v
+            if dirty and 0 < abs(acc) < 2.0 ** -1022:
+                acc = np.copysign(0.0, acc)
+    return int(np.array([acc]).view(np.int64)[0]), flushed
+
+
+def _is_tiny(chunk):
+    a = np.abs(chunk)
+    return bool(((a > 0) & (a < K.H1_TINY)).any())
+
+
+def _rule_draw(rng, n):
+    """Values whose sums hit subnormal partial sums often: chunks of tiny
+    values (±1, 1.25, 1.5, 2 or 3 times 2^-1022, whose running sum walks
+    near 0 and through 0.5 and 0.25 times 2^-1022), and chunks of values at
+    and just above the threshold (exponents -969..-962, three mantissa
+    bits), most in pairs (v, -v)."""
+    t = 2.0 ** -1022
+    rows = K.H1_CHUNK_ROWS
+    out = []
+    while len(out) < n:
+        if rng.random() < 0.5:
+            out += list(rng.choice([-1.0, 1.0], rows)
+                        * rng.choice([1.0, 1.25, 1.5, 2.0, 3.0], rows) * t)
+            continue
+        end = len(out) + rows
+        while len(out) < end:
+            v = (rng.choice([-1.0, 1.0]) * (1 + rng.integers(0, 8) / 8)
+                 * 2.0 ** int(rng.integers(-969, -961)))
+            out += [v, -v] if rng.random() < 0.8 else [v]
+    return np.array(out[:n])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_flush_rule_model_equals_plain(seed):
+    """A model of H1's rule on draws that hit subnormal partial sums often
+    equals the plain version (the flushed sum of the contract) bit for bit,
+    counts the chunks ``flushed_chunks_plain`` counts, and differs from an
+    unflushed fold: the rule is what keeps the bits."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 700, 24)
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    n = int(starts[-1])
+    z = _rule_draw(rng, n)
+    valid = rng.random(n) > 0.05
+    x = np.where(valid, z, 0.0).view(np.int64)
+    zt, vt, st = (torch.from_numpy(z), torch.from_numpy(valid),
+                  torch.from_numpy(starts))
+    cnt = torch.zeros(1, dtype=torch.int64)
+    sums, _, _ = K.segment_float_agg(zt, vt, st, flushed=cnt)
+    want = sums.view(torch.int64).numpy()
+    rule, total, unflushed_differs, hits = [], 0, 0, 0
+    for g in range(len(lens)):
+        seg = x[starts[g]:starts[g + 1]]
+        bits, f = _flushed_fold(seg, _is_tiny)
+        rule.append(bits)
+        total += f
+        unflushed_differs += _flushed_fold(seg, lambda c: False)[0] != bits
+        part = np.abs(np.cumsum(seg.view(np.float64)))
+        hits += int(((part > 0) & (part < 2.0 ** -1022)).sum())
+    assert rule == want.tolist()
+    assert int(cnt) == total == K.flushed_chunks_plain(zt, vt, st) > 0
+    assert hits >= 40 and unflushed_differs >= 2
+
+
+def test_flush_rule_threshold():
+    """One step of the unflushed chain from a partial sum that is not
+    subnormal, adding an input of magnitude at least 2^-969 (H1_TINY), never
+    makes a nonzero subnormal: a million near-cancelling pairs across the
+    threshold. At 2^-970 one can."""
+    rng = np.random.default_rng(11)
+    m = 1_000_000
+    # s: exponent fields 1..90 (2^-1022 .. 2^-933), any mantissa, any sign
+    s_bits = ((rng.integers(1, 91, m) << 52)
+              | rng.integers(0, 1 << 52, m)).astype(np.int64)
+    # x: -s moved a few ulps and kept at or above 2^-969
+    x_bits = np.maximum(s_bits + rng.integers(-3, 4, m),
+                        np.int64((1023 - 969) << 52))
+    s = s_bits.view(np.float64) * rng.choice([-1.0, 1.0], m)
+    x = -np.sign(s) * x_bits.view(np.float64)
+    r = np.abs(s + x)
+    assert not ((r > 0) & (r < 2.0 ** -1022)).any()
+    assert (r == 0).sum() > 1000            # the draws do cancel
+    near = np.float64(2.0 ** -970)
+    assert -(near - 2.0 ** -1023) + near == 2.0 ** -1023  # subnormal
+
+
+def test_h1_constants_mirror_the_kernel():
+    """H1_CHUNK_ROWS and H1_TINY are csrc/segment_agg.cu's kChunk and
+    kTinyHi (the high word of 2^-969)."""
+    import re
+    src = (K._CSRC / "segment_agg.cu").read_text()
+    assert int(re.search(r"constexpr int kChunk = (\d+);", src)[1]) == \
+        K.H1_CHUNK_ROWS
+    hi = int(re.search(r"kTinyHi = (0x[0-9A-Fa-f]+)u;", src)[1], 16)
+    assert np.array([K.H1_TINY]).view(np.int64)[0] == hi << 32

@@ -442,6 +442,51 @@ def test_h1_long_and_empty_segments(cuda):
         assert _bits_equal(g, w)
 
 
+def _h1_counted(z, valid, starts):
+    """H1 with its flushed-chunk count, held bit for bit against plain and
+    the count against ``flushed_chunks_plain``; returns the count."""
+    cnt = torch.zeros(1, dtype=torch.int64, device=z.device)
+    got = K.segment_float_agg(z, valid, starts, flushed=cnt)
+    want = K.segment_float_agg_plain(z, valid, starts)
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+    assert int(cnt) == K.flushed_chunks_plain(z, valid, starts)
+    return int(cnt)
+
+
+def test_h1_flushed_path_on_subnormal_partial_sums(cuda):
+    """Sums through subnormal partial sums take the flushed path and keep
+    the reference's bits."""
+    t = datagen.subnormal_sum_table(seed=0, device=cuda)
+    z, valid, starts = _h1_args(t.columns[0], t.columns[1])
+    assert _h1_counted(z, valid, starts) > 0
+
+
+def test_h1_normal_draw_takes_no_flushed_chunk(cuda):
+    rng = np.random.default_rng(8)
+    n = 1_000_003
+    z = torch.from_numpy(rng.standard_normal(n)).to(cuda)
+    valid = torch.from_numpy(rng.random(n) > 0.1).to(cuda)
+    cuts = np.sort(rng.integers(0, n, 99))
+    starts = torch.from_numpy(np.concatenate([[0], cuts, [n]])).to(cuda)
+    assert _h1_counted(z, valid, starts) == 0
+
+
+def test_h1_segments_longer_than_the_ring_odd_starts(cuda):
+    """Segments of many ring slots (4 x 256 rows) with starts that are not
+    16-byte aligned, tiny inputs in a few chunks; the inputs are views one
+    row into their tensors."""
+    rng = np.random.default_rng(9)
+    n = 200_001
+    z = rng.standard_normal(n + 1)
+    z[rng.integers(0, n, 40)] = 2.0 ** -1021
+    valid = rng.random(n + 1) > 0.1
+    starts = torch.tensor([0, 1, 3, 1_030, 1_031, 9_999, 77_777, 150_001,
+                           n], dtype=torch.int64, device=cuda)
+    assert _h1_counted(torch.from_numpy(z).to(cuda)[1:],
+                       torch.from_numpy(valid).to(cuda)[1:], starts) > 0
+
+
 def test_h1_groupby_on_card_equals_cpu(cuda):
     t = datagen.float_edge_table(200_000, 1, device=cuda)
     c = datagen.float_edge_table(200_000, 1, device="cpu")
