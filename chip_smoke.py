@@ -291,6 +291,10 @@ def main():
     entries.append(h1)
     del strings
     phase_end("encoded")
+
+    # ---- phase 9: the memory and fault domains ----------------------------
+    paths["memory_sf10_governed"] = memory_phase(dev, card, SF10_ROWS)
+    phase_end("memory_sf10")
     for entry, (_, wrapper, _, _) in zip(entries, K.KERNELS):
         entry["launches_by_path"] = {p: c[wrapper] for p, c in paths.items()}
     jline({"phase_seconds": PHASE_SECONDS})
@@ -1697,6 +1701,319 @@ def batch_boundary_times(card, table):
                              "from the host rule")
     jline({"phase": "batch_boundary_time", **card, "rows": table.num_rows,
            "boundaries": got["device_search"][0], **ms})
+
+
+MEMORY_TASK = 9  # the RmmSpark task id phase 9 runs as
+
+
+def _dedicated(pool_bytes):
+    """Install RmmSpark with ``pool_bytes`` and dedicate this thread to
+    MEMORY_TASK; returns the undo."""
+    from spark_rapids_jni_tpu_torch.memory import RmmSpark
+    RmmSpark.set_event_handler(pool_bytes=pool_bytes)
+    RmmSpark.current_thread_is_dedicated_to_task(MEMORY_TASK)
+
+    def undo():
+        try:
+            RmmSpark.remove_current_thread_association()
+            RmmSpark.task_done(MEMORY_TASK)
+        finally:
+            RmmSpark.clear_event_handler()
+    return undo
+
+
+def memory_phase(dev, card, rows):
+    """Phase 9 (``memory_sf10``): the memory and fault domains at SF10.
+    Returns the kernel launches of the governed eager pass (9b)."""
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.memory import RmmSpark
+
+    li = tpch.generate_q1_lineitem(rows, 0, dev)
+    want = numpy_q1(tpch.q1_arrays(rows, 0))
+    ref = split_rung(dev, card, li, want)
+    launches, s_tables = governed_ops(dev, card, rows)
+    if dev.type == "cuda":
+        spill_rung(dev, card, li, ref, s_tables)
+    if RmmSpark.is_installed():
+        raise AssertionError("phase 9 left RmmSpark installed")
+    return launches
+
+
+def split_rung(dev, card, li, want):
+    """9a: fused q1 under a pool of 0.75 x its 2x reservation envelope: the
+    reservation escalates to TpuSplitAndRetryOOM through the adaptor and
+    the ladder splits the scan in two. Returns the ungoverned result."""
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.memory import RmmSpark
+    from spark_rapids_jni_tpu_torch.plan import plan_metrics
+
+    ref, ung_first = wall(lambda: tpch.run_q1(li), dev)
+    ung_warm = sorted(wall(lambda: tpch.run_q1(li), dev)[1]
+                      for _ in range(3))
+    pool = int(0.75 * 2 * li.device_nbytes())
+    undo = _dedicated(pool)
+    try:
+        plan_metrics.reset()
+        got, gov_first = wall(lambda: tpch.run_q1(li), dev)
+        snap = plan_metrics.snapshot()
+        used = RmmSpark.pool_used()
+        split_retries = RmmSpark.get_and_reset_num_split_retry(MEMORY_TASK)
+        gov_warm = sorted(wall(lambda: tpch.run_q1(li), dev)[1]
+                          for _ in range(3))
+        used_after = RmmSpark.pool_used()
+    finally:
+        undo()
+    line = {"phase": "memory_sf10", **card, "part": "a_split_rung",
+            "rows": li.num_rows, "input_bytes": li.device_nbytes(),
+            "envelope_bytes": 2 * li.device_nbytes(), "pool_bytes": pool,
+            "plan_oom_splits": snap["plan_oom_splits"],
+            "plan_oom_pieces": snap["plan_oom_pieces"],
+            "plan_oom_retries": snap["plan_oom_retries"],
+            "plan_fallbacks": snap["plan_fallbacks"],
+            "num_split_retry": split_retries,
+            "pool_used_after": [used, used_after],
+            "governed_first_ms": gov_first,
+            "governed_warm_median_ms": gov_warm[1],
+            "ungoverned_first_ms": ung_first,
+            "ungoverned_warm_median_ms": ung_warm[1],
+            "equals_ungoverned": _tables_equal(got, ref),
+            "ungoverned_equals_numpy": _equals_numpy(ref, want),
+            "equals_numpy": _equals_numpy(got, want)}
+    jline(line)
+    if (line["plan_oom_splits"] < 1 or line["plan_oom_pieces"] != 2
+            or line["plan_fallbacks"] or split_retries < 1
+            or (used, used_after) != (0, 0)
+            or not (line["equals_ungoverned"] and line["equals_numpy"]
+                    and line["ungoverned_equals_numpy"])):
+        raise AssertionError(f"9a split rung: {line}")
+    log("check 9a: fused q1 split into 2 pieces by the pool, == unsplit == "
+        "numpy, pool drained")
+    return ref
+
+
+def _shuffle_and_q3(tables, before_op=lambda: None):
+    """The main path's eager stages: shuffle write (B1 partition route +
+    B3 rows), shuffle read, q3's eager joins (B2) and groupby;
+    ``before_op()`` runs before each of the seven top-level calls."""
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+    from spark_rapids_jni_tpu_torch.parallel.exchange import partition_ids
+    written, read = {}, {}
+    for tn, tab in tables.items():
+        before_op()
+        written[tn] = (partition_ids(tab, [0], PARTITIONS),
+                       R.convert_to_rows(tab))
+    for tn, tab in tables.items():
+        before_op()
+        read[tn] = R.convert_from_rows(written[tn][1][0],
+                                       [c.dtype for c in tab])
+    before_op()
+    top = tpch.run_q3(read["customer"], read["orders"], read["lineitem"],
+                      engine="eager")
+    return written, read, top
+
+
+def _same_outputs(a, b) -> bool:
+    (wa, ra, ta), (wb, rb, tb) = a, b
+    for tn in wa:
+        if not torch.equal(wa[tn][0], wb[tn][0]):
+            return False
+        for x, y in zip(wa[tn][1], wb[tn][1]):
+            if not (torch.equal(x.offsets, y.offsets) and torch.equal(
+                    x.children[0].data, y.children[0].data)):
+                return False
+        if not _tables_equal(ra[tn], rb[tn]):
+            return False
+    return _tables_equal(ta, tb)
+
+
+def governed_ops(dev, card, rows):
+    """9b: the eager main path (shuffle write and read, q3's eager joins)
+    ungoverned, governed, and governed with the reservation audit on.
+    Returns (the governed pass's kernel launches, the q3 tables)."""
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.memory import RmmSpark, hbm
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    cust, orders, lineitem = tpch.generate_q3_tables(rows, 0, dev)
+    tables = {"customer": cust, "orders": orders, "lineitem": lineitem}
+    want = numpy_q3(tpch.q3_arrays(rows, 0))
+    free, free_ms = wall(lambda: _shuffle_and_q3(tables), dev)
+    free_warm = wall(lambda: _shuffle_and_q3(tables), dev)[1]
+    pool = 64 << 30  # fits every estimate of the path
+    undo = _dedicated(pool)
+    try:
+        K.reset_launches()
+        gov, gov_ms = wall(lambda: _shuffle_and_q3(tables), dev)
+        launches = _kernel_counts()
+        gov_warm = wall(lambda: _shuffle_and_q3(tables), dev)[1]
+        max_reserved = RmmSpark.get_and_reset_max_device_reserved(
+            MEMORY_TASK)
+        hbm.reset()
+        # the audit's peak delta sees only growth above the peak at a
+        # bracket's entry: the peak is reset before each top-level call
+        reset = (torch.cuda.reset_peak_memory_stats if dev.type == "cuda"
+                 else (lambda: None))
+        with config.override("rmm.validate_hbm", True):
+            audited, audit_ms = wall(
+                lambda: _shuffle_and_q3(tables, reset), dev)
+        report = hbm.report()
+        used = RmmSpark.pool_used()
+    finally:
+        undo()
+        hbm.reset()
+    got = [c.to_numpy() for c in gov[2].columns]
+    line = {"phase": "memory_sf10", **card, "part": "b_governed_ops",
+            "rows": rows, "pool_bytes": pool,
+            "ungoverned_first_ms": free_ms, "ungoverned_warm_ms": free_warm,
+            "governed_first_ms": gov_ms, "governed_warm_ms": gov_warm,
+            "governed_audited_ms": audit_ms,
+            "max_device_reserved": max_reserved, "pool_used_after": used,
+            "launches": launches, "hbm_report": report,
+            "governed_equals_ungoverned": _same_outputs(gov, free),
+            "audited_equals_ungoverned": _same_outputs(audited, free),
+            "q3_equals_numpy": all(np.array_equal(g, w)
+                                   for g, w in zip(got, want))}
+    jline(line)
+    failed = [k for k in ("governed_equals_ungoverned",
+                          "audited_equals_ungoverned", "q3_equals_numpy")
+              if not line[k]]
+    if dev.type == "cuda":
+        failed += [w for w in ROW_KERNELS if launches[w] < 1]
+    if used:
+        failed.append(f"pool_used {used}")
+    if dev.type == "cuda" and (report["validated"] != report["brackets"]
+                               or report["brackets"] < 1):
+        failed.append(f"hbm audit {report}")
+    if failed:
+        raise AssertionError(f"9b governed ops: {failed}")
+    log(f"check 9b: governed shuffle and q3 == ungoverned == numpy, B1/B2/B3 "
+        f"launched, {report['validated']} of {report['brackets']} brackets "
+        f"validated, {report['underestimates']} under-estimates")
+    return launches, [cust, orders, lineitem]
+
+
+def spill_rung(dev, card, li, ref, s_tables):
+    """9c: a real CUDA OOM recovered by spill rollback, then a hopeless cap
+    shed as a typed TpuRetryOOM. ``s_tables`` (the q3 tables, plus a
+    second q1 lineitem here) become the spillable set S; the caller holds
+    no other reference to them."""
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.memory import transport
+    from spark_rapids_jni_tpu_torch.plan import plan_metrics
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    s_tables.append(tpch.generate_q1_lineitem(li.num_rows, 1, dev))
+    torch.cuda.synchronize()
+    # q1's own need: its peak over what is allocated when it starts
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tpch.run_q1(li)
+    torch.cuda.synchronize()
+    need = torch.cuda.max_memory_allocated() - base
+    # device copies to hold the promoted tables against: S must leave
+    # the card for q1 to fit, the copies stay (the cap counts them)
+    copies = [[(c.data.clone(), None if c.validity is None
+                else c.validity.clone()) for c in t.columns]
+              for t in s_tables]
+    store = transport.SpillStore()
+    spillable = [store.register(t) for t in s_tables]
+    s_bytes = store.device_bytes()
+    del s_tables[:]
+    rollbacks = []
+    orig_rollback = transport.rollback_all_stores
+
+    def timed_rollback():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        freed = orig_rollback()
+        rollbacks.append(((time.perf_counter() - t) * 1e3, freed))
+        return freed
+
+    line = {"phase": "memory_sf10", **card, "part": "c_spill_rung",
+            "s_bytes": s_bytes, "q1_need_bytes": need}
+    transport.rollback_all_stores = timed_rollback
+    try:
+        torch.cuda.empty_cache()
+        cap = torch.cuda.memory_reserved() - s_bytes + int(1.1 * need) \
+            + (512 << 20)
+        if cap >= torch.cuda.memory_reserved() + need:
+            raise AssertionError(f"S ({s_bytes} B) too small against q1's "
+                                 f"need ({need} B)")
+        line["cap_bytes"] = cap
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        plan_metrics.reset()
+        got, ms = wall(lambda: tpch.run_q1(li), dev)
+        snap = plan_metrics.snapshot()
+        line.update({
+            "recovered_ms": ms,
+            "plan_oom_retries": snap["plan_oom_retries"],
+            "plan_oom_spill_bytes": snap["plan_oom_spill_bytes"],
+            "plan_oom_splits": snap["plan_oom_splits"],
+            "spill_ms": rollbacks[0][0] if rollbacks else None,
+            "spill_gb_per_s": (s_bytes / rollbacks[0][0] / 1e6
+                               if rollbacks else None),
+            "equals_reference": _tables_equal(got, ref)})
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        back = [st.get() for st in spillable]
+        torch.cuda.synchronize()
+        line["promote_ms"] = (time.perf_counter() - t) * 1e3
+        line["promoted_bit_identical"] = all(
+            torch.equal(c.data.view(torch.uint8), d.view(torch.uint8))
+            and (v is None) == (c.validity is None)
+            and (v is None or torch.equal(c.validity, v))
+            for b, cs in zip(back, copies)
+            for c, (d, v) in zip(b.columns, cs))
+        del back, copies
+        for st in spillable:
+            store.unregister(st)
+        del spillable, store
+        torch.cuda.empty_cache()
+        # a cap under q1's own need: the ladder retries, then sheds typed
+        cap2 = torch.cuda.memory_reserved() + need // 2
+        line["hopeless_cap_bytes"] = cap2
+        torch.cuda.set_per_process_memory_fraction(cap2 / total)
+        plan_metrics.reset()
+        with config.override("plan.oom_retry_budget", 2):
+            try:
+                tpch.run_q1(li)
+                shed = None
+            except Exception as e:  # noqa: BLE001 - checked below
+                shed = e
+        line["shed"] = None if shed is None else type(shed).__name__
+        line["shed_message"] = None if shed is None else str(shed)
+        line["shed_cause"] = (None if shed is None or shed.__cause__ is None
+                              else type(shed.__cause__).__name__)
+        line["shed_retries"] = plan_metrics.snapshot()["plan_oom_retries"]
+        del shed
+    finally:
+        transport.rollback_all_stores = orig_rollback
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    again = tpch.run_q1(li)
+    line["after_equals_reference"] = _tables_equal(again, ref)
+    jline(line)
+    failed = []
+    if (line["plan_oom_retries"], line["plan_oom_spill_bytes"]) != (
+            1, s_bytes):
+        failed.append("the first attempt did not spill S once")
+    for k in ("equals_reference", "promoted_bit_identical",
+              "after_equals_reference"):
+        if not line[k]:
+            failed.append(k)
+    if (line["shed"], line["shed_message"], line["shed_cause"],
+            line["shed_retries"]) != ("TpuRetryOOM",
+                                      "gave up after 2 retries",
+                                      "TpuRetryOOM", 2):
+        failed.append("the hopeless cap did not shed as TpuRetryOOM")
+    if failed:
+        raise AssertionError(f"9c spill rung: {failed}: {line}")
+    log("check 9c: a real CUDA OOM recovered by spilling S, == reference; "
+        "S promoted bit-identical; a hopeless cap shed as TpuRetryOOM")
 
 
 def numpy_q1(a, cutoff=2400):

@@ -51,7 +51,9 @@ from ..columnar import encodings as enc
 from ..columnar.column import Column, Table
 from ..columnar.dtype import TypeId
 from ..columnar.strings import padded_bytes
+from ..memory.reservation import device_reservation, release_barrier
 from ..plan.registry import plan_core
+from ..utils.tracing import func_range
 from . import kernels
 from .hashing import spark_key_values
 from .sort import gather, lexsort, sort_lanes, sort_order
@@ -453,6 +455,7 @@ def _rle_groupby(table: Table, key_indices, aggs, row_mask):
     return Table(tuple(_shrink(c, true_segments) for c in out_cols))
 
 
+@func_range()
 def groupby_aggregate(table: Table, key_indices: Sequence[int],
                       aggs: Sequence[Tuple[int, str]],
                       row_mask=None) -> Table:
@@ -464,6 +467,15 @@ def groupby_aggregate(table: Table, key_indices: Sequence[int],
     of ``groupby_aggregate(filter_table(table, row_mask), ...)`` with no
     compaction — masked rows sort after every live row into dead groups
     that the final slice drops."""
+    # peak ~ input + sorted/gathered intermediates (reservation bracketing)
+    with device_reservation(2 * table.device_nbytes()) as took:
+        return release_barrier(
+            _groupby_aggregate(table, key_indices, aggs, row_mask), took)
+
+
+def _groupby_aggregate(table: Table, key_indices: Sequence[int],
+                       aggs: Sequence[Tuple[int, str]],
+                       row_mask=None) -> Table:
     for ci, op in aggs:
         _agg_out_dtype(_value_dtype(table.columns[ci]), op)
     for fast in (_dict_code_groupby, _rle_groupby):

@@ -23,6 +23,11 @@ and anti joins are built on the inner join's maps, as in the JAX package.
 
 The JAX package sizes its expansion speculatively to save a host sync on
 the TPU; here the candidate total is read once and the expansion is exact.
+Each phase runs under a device reservation (memory/reservation.py) with
+the JAX package's estimates: the candidate phase reserves twice the key
+bytes, the expansion that plus the bucketed pair count times the per-pair
+transient bytes. The JAX package's third bracket covers its speculative
+expansion, which this join does not run.
 
 The fused plan engine's cores (plan/registry.py) do not hash:
 ``join_build_sorted_core`` + ``join_probe_sorted_core`` (a sorted unique
@@ -41,7 +46,11 @@ import torch
 from ..columnar.column import Column, Table
 from ..columnar.dtype import TypeId
 from ..columnar.strings import padded_bytes
+from ..memory.reservation import (device_reservation, release_barrier,
+                                  reservations_active)
 from ..plan.registry import plan_core
+from ..utils.shapes import bucket_size
+from ..utils.tracing import func_range
 from .hashing import _s64, spark_key_values, xxhash64
 from .sort import lexsort
 
@@ -154,11 +163,11 @@ def _candidate_counts(left_keys, right_keys, nulls_equal,
 
 
 def _expand_and_verify(left_keys, right_keys, nulls_equal, order, lo, cnt,
-                       left_mask=None, right_mask=None):
+                       total, left_mask=None, right_mask=None):
     """Phase 2: every candidate pair (left rows in order, each with its
     right candidates in sorted-hash order), kept where the keys are
-    exactly equal and both rows pass their masks."""
-    total = int(cnt.sum())  # host sync: the candidate-pair count
+    exactly equal and both rows pass their masks. ``total``: the
+    candidate-pair count, ``cnt.sum()``."""
     dev = cnt.device
     nl = cnt.shape[0]
     l_idx = torch.repeat_interleave(
@@ -182,6 +191,7 @@ def _expand_and_verify(left_keys, right_keys, nulls_equal, order, lo, cnt,
     return l_idx[keep], r_idx[keep]
 
 
+@func_range()
 def inner_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
                nulls_equal: bool = False, left_mask=None, right_mask=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -200,10 +210,26 @@ def inner_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
             c.dtype.require_stored()
     left_mask = _check_mask(left_mask, left_keys, "left")
     right_mask = _check_mask(right_mask, right_keys, "right")
-    order, lo, cnt = _candidate_counts(left_keys, right_keys, nulls_equal,
-                                       left_mask, right_mask)
-    return _expand_and_verify(left_keys, right_keys, nulls_equal, order, lo,
-                              cnt, left_mask, right_mask)
+    in_bytes = sum(c.device_nbytes() for c in (*left_keys, *right_keys))
+    # per-pair transient bytes of the expansion/verify/compaction chain
+    # (the JAX package's estimate): 48 B of index lanes, a byte per mask
+    # gathered, and the key bytes _col_equal gathers per candidate. Only
+    # a governed thread needs it (a STRING key's width costs a read).
+    per_pair = 0
+    if reservations_active():
+        per_pair = 48 + (left_mask is not None) + (right_mask is not None)
+        per_pair += sum(_verify_width(lc) + _verify_width(rc)
+                        for lc, rc in zip(left_keys, right_keys))
+    with device_reservation(2 * in_bytes) as took:
+        order, lo, cnt = release_barrier(_candidate_counts(
+            left_keys, right_keys, nulls_equal, left_mask, right_mask), took)
+    total = int(cnt.sum())  # host sync: the candidate-pair count
+    # reserve at the BUCKETED pair count, as the JAX package does
+    with device_reservation(2 * in_bytes
+                            + bucket_size(total) * per_pair) as took:
+        return release_barrier(_expand_and_verify(
+            left_keys, right_keys, nulls_equal, order, lo, cnt, total,
+            left_mask, right_mask), took)
 
 
 def _matched(l_idx: torch.Tensor, n_left: int) -> torch.Tensor:

@@ -47,6 +47,8 @@ from ..columnar.column import Column, Table
 from ..columnar.dtype import DType, TypeId
 from ..columnar.strings import (densify_offsets, pad_width, padded_bytes,
                                 row_of_position)
+from ..memory.reservation import device_reservation, release_barrier
+from ..utils.tracing import func_range
 from . import kernels
 from .kernels import PART_HI, PART_LO, PART_U8, PART_U16, PART_U32, PART_VALID
 
@@ -265,6 +267,7 @@ def _blob_rows_column(blob: torch.Tensor, offsets: torch.Tensor) -> Column:
     return Column.list_of(child, offsets)
 
 
+@func_range()
 def convert_to_rows(table: Table,
                     max_batch_bytes: int = MAX_BATCH_BYTES) -> List[Column]:
     """Columnar -> JCUDF rows (row_conversion.cu:1990).
@@ -274,6 +277,20 @@ def convert_to_rows(table: Table,
     boundaries of the JAX package's rule."""
     info = compute_column_information([c.dtype for c in table.columns])
     n = table.num_rows
+    # peak ~ input + the padded string matrices + the bucket-padded blob
+    # and its index arrays: the JAX package's estimate, unchanged
+    # (reservation bracketing; see memory/reservation.py)
+    blob_est = n * info.size_per_row + sum(
+        c.data.numel() for c in table.columns
+        if c.dtype.id is TypeId.STRING)
+    est = 2 * table.device_nbytes() + (2 + 8) * pad_width(blob_est, 1 << 16)
+    with device_reservation(est) as took:
+        return release_barrier(_convert_to_rows(table, info, n,
+                                                max_batch_bytes), took)
+
+
+def _convert_to_rows(table: Table, info: ColumnInfo, n: int,
+                     max_batch_bytes: int) -> List[Column]:
     if info.variable_width_column_starts:
         return _convert_to_rows_strings(table, info, max_batch_bytes)
     row_size = _round_up(info.size_per_row, JCUDF_ROW_ALIGNMENT)
@@ -533,6 +550,7 @@ def _extract_string_bytes(blob: torch.Tensor, row_starts: torch.Tensor,
     return blob.index_select(0, src)
 
 
+@func_range()
 def convert_from_rows(rows: Column, dtypes: Sequence[DType]) -> Table:
     """JCUDF rows -> columnar (row_conversion.cu:2145). ``rows`` is a
     LIST<INT8> column as convert_to_rows returns. A column with no null
@@ -541,6 +559,11 @@ def convert_from_rows(rows: Column, dtypes: Sequence[DType]) -> Table:
     columns' byte totals."""
     if rows.dtype.id is not TypeId.LIST:
         raise ValueError("expected a LIST<INT8> row column")
+    with device_reservation(2 * rows.device_nbytes()) as took:
+        return release_barrier(_convert_from_rows(rows, dtypes), took)
+
+
+def _convert_from_rows(rows: Column, dtypes: Sequence[DType]) -> Table:
     info = compute_column_information(dtypes)
     n = rows.size
     words = _row_words(rows, info)

@@ -30,7 +30,9 @@ from ..columnar import encodings as enc
 from ..columnar.column import Column, Table
 from ..columnar.dtype import TypeId
 from ..columnar.strings import padded_bytes, row_of_position
+from ..memory.reservation import device_reservation, release_barrier
 from ..plan.registry import plan_core
+from ..utils.tracing import func_range
 from .hashing import _f32_bits, _f64_bits
 
 _SIGN64 = -(1 << 63)
@@ -204,9 +206,14 @@ def select_topk_core(lanes: Sequence[torch.Tensor], live: torch.Tensor,
     return torch.stack(picks)
 
 
+@func_range()
 def sort_table(table: Table, key_indices: Sequence[int],
                ascending: Optional[Sequence[bool]] = None,
                nulls_first: Optional[Sequence[bool]] = None) -> Table:
-    keys = [table.columns[i] for i in key_indices]
-    order = sort_order(keys, ascending, nulls_first)
-    return Table(tuple(gather(c, order) for c in table.columns))
+    # peak working set ~ input + gathered output (reservation bracketing,
+    # reference contract: SparkResourceAdaptorJni.cpp:1731 do_allocate)
+    with device_reservation(2 * table.device_nbytes()) as took:
+        keys = [table.columns[i] for i in key_indices]
+        order = sort_order(keys, ascending, nulls_first)
+        out = Table(tuple(gather(c, order) for c in table.columns))
+        return release_barrier(out, took)

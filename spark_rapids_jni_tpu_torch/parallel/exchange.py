@@ -26,3 +26,10 @@ def partition_ids(table: Table, key_indices: Sequence[int],
     h = murmur_hash3_32(Table(tuple(table.columns[i] for i in key_indices)))
     return ((h.data.to(torch.int64) & 0xFFFFFFFF) % num_partitions).to(
         torch.int32)
+
+
+def program_state() -> dict:
+    """The exchange's cached programs, for a stall's diagnostics bundle
+    (faultinj/watchdog.py). The all-to-all exchange is not ported (A15),
+    so the port caches none."""
+    return {"exchange_cache": 0, "counts_cache": 0}

@@ -24,7 +24,7 @@ the "program" is the function itself, run as torch ops. ``ProgramCache``
 keeps the lowered function per (fingerprint, input shape signature, group
 budget, planner decisions), as the JAX package keys its executables, and
 the static facts of its output (``out_info``) that the first run
-discovers. Capturing the function as a CUDA graph is queued (ROADMAP A7).
+discovers. Capturing the function as a CUDA graph is queued (ROADMAP A7.1).
 """
 
 from __future__ import annotations
@@ -58,7 +58,8 @@ class PlanMetrics:
 
     _COUNTERS = ("plan_compiles", "plan_cache_hits", "plan_cache_misses",
                  "plan_executes", "plan_fallbacks", "plan_join_fallbacks",
-                 "plan_overflows")
+                 "plan_overflows", "plan_oom_retries", "plan_oom_splits",
+                 "plan_oom_pieces", "plan_oom_spill_bytes")
     _TIMES = ("compile_s", "execute_s")
 
     def __init__(self):

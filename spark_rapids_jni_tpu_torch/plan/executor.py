@@ -1,5 +1,5 @@
-"""Plan execution: one fused program, one host sync (the JAX package's
-plan/executor.py without its memory and fault-domain layers).
+"""Plan execution: one guarded dispatch around one fused program, one
+host sync (the JAX package's plan/executor.py).
 
 Host traffic per fused query is exactly one sync: the read of the
 program's 2-element ``head`` (live row count, overflow flag). Trimming to
@@ -7,18 +7,38 @@ the live rows follows it — a prefix slice when the live rows are a prefix
 (after GroupBy/Sort/top-k), else a gather at the mask's True rows
 (``mask_indices_core``, which needs no further sync).
 
-Fallbacks go through ``run_eager`` (plan/interpreter.py) with a declared
-reason: unsupported input (empty, not fixed-width, decimal), a planner
-gate (a DAG plan the strategy selector cannot fuse), and a device re-check
-that tripped (``plan_overflows``: group budget, duplicate or non-dense
-build key, span). Inputs are never donated, so the eager replay always has
-them.
+Each fused run goes through the memory and fault domains, as in the JAX
+package: ``guarded_dispatch("plan_execute", ...)`` (injection point,
+fault classification, transient retry, watchdog), inside it a device
+reservation of twice the input bytes (taken only when an RmmSpark handler
+is installed and the thread works on a task; a taken bracket synchronizes
+before it is released), and around it the degradation ladder — retry the
+same program -> spill rollback (every SpillStore-registered table leaves
+the card) -> split (halved pieces through the ProgramCache, merged
+exactly: plan/split.py) -> eager (a named gate: ``oom-split-unmergeable``,
+``oom-split-degenerate``) -> typed shed (the OOM propagates as
+``TpuRetryOOM``/``TpuSplitAndRetryOOM``). A real CUDA out-of-memory error
+inside the program, the head read or the trim classifies as
+RESOURCE_EXHAUSTED and enters the same ladder; none escapes it raw.
+Ungoverned, the ladder adds no sync and no device work. The counters are
+``plan_oom_retries``, ``plan_oom_splits``, ``plan_oom_pieces`` and
+``plan_oom_spill_bytes``.
+
+Fallbacks go through ``run_eager`` (plan/interpreter.py), under the same
+``plan_execute`` guard, with a declared reason: unsupported input (empty,
+not fixed-width, decimal), a planner gate (a DAG plan the strategy
+selector cannot fuse), a device re-check that tripped
+(``plan_overflows``: group budget, duplicate or non-dense build key,
+span) and the two split gates. Inputs are never donated, so the eager
+replay always has them.
 
 DAG plans (Join nodes, several input tables) take the same path: the
 planner (plan/planner.py) rewrites and annotates the plan, the
 ProgramCache lowers the whole DAG into ONE program, and the same single
-head sync applies. The fallbacks run the eager interpreter on the plan as
-given, before the rewrite passes.
+head sync applies; their ladder has no split rung (the probe side's row
+order spans the build side, so a split demand runs eagerly). The
+fallbacks run the eager interpreter on the plan as given, before the
+rewrite passes.
 
 String literals compared with DICT32 columns are rewritten to their
 dictionary codes before either engine sees the plan
@@ -29,10 +49,8 @@ remap as an extra program input. DAG plans over RLE or FOR inputs run
 eagerly (the join lowering reads key lanes as plain data), as in the JAX
 package.
 
-Not ported: input donation (ROADMAP A7); the OOM ladder — retry, spill
-rollback, split and the reservation brackets (A11; a CUDA OOM propagates
-as ``torch.cuda.OutOfMemoryError``); the sharded and batched programs
-(A15, A16).
+Not ported: input donation (ROADMAP A7.3); the sharded and batched
+programs (A15, A16).
 """
 
 from __future__ import annotations
@@ -48,14 +66,65 @@ from ..columnar import dtype as dt
 from ..columnar import encodings as enc
 from ..columnar.column import Column, Table
 from ..columnar.table_ops import gather_table, mask_indices_core
+from ..faultinj.guard import guarded_dispatch
+from ..memory.exceptions import TpuSplitAndRetryOOM
+from ..memory.reservation import device_reservation, release_barrier
+from ..memory.retry import with_retry
+from ..utils import config
 from . import expr as ex
 from . import planner as _planner
+from . import split as _split
 from .compile import CompiledPlan, ProgramCache, plan_metrics
 from .interpreter import run_eager
 from .nodes import (Filter, GroupBy, Join, PlanError, PlanNode, Project,
                     Scan, is_dag, linearize, num_inputs, walk)
 
 _default_cache = ProgramCache()
+
+
+class _OverflowSignal(Exception):
+    """Internal: the fused program's device re-check tripped (group
+    budget, join shape) — the output is garbage; recompute eagerly."""
+
+
+def _eager_fallback(plan: PlanNode, table, reason: str) -> Table:
+    """Declared engine fallback -> eager interpreter, under the SAME
+    guarded ``plan_execute`` surface as the fused dispatch: the op entry
+    points it runs are fault-injector-instrumented, and an unguarded walk
+    would leak their injected faults raw instead of classifying them. The
+    interpreter is pure over immutable tables, so the guard's re-run is
+    safe."""
+    return guarded_dispatch(
+        "plan_execute",
+        lambda: run_eager(plan, table, fallback_reason=reason))
+
+
+def _pool_cap_check(want_bytes: int) -> None:
+    """injectionType 6 "shrink" mode (faultinj/injector.py): a standing
+    injected pool cap at the plan_execute surface ONLY — a reservation
+    envelope that doesn't fit demands a split, so storms can force the
+    ladder's split rung deterministically while the eager fallback (which
+    never takes this surface) still completes."""
+    from ..faultinj import injector as _inj
+    cap = _inj.oom_pool_cap("plan_execute")
+    if cap is not None and want_bytes > cap:
+        raise TpuSplitAndRetryOOM(
+            f"injected shrinking pool: reservation envelope {want_bytes} "
+            f"bytes exceeds the {cap}-byte cap")
+
+
+def _rollback_spill() -> None:
+    """The ladder's spill-rollback rung: release every SpillStore-
+    registered table, then account the retry (plan_oom_retries) and the
+    freed bytes (plan_oom_spill_bytes)."""
+    from ..memory import transport
+    freed = transport.rollback_all_stores()
+    plan_metrics.inc("plan_oom_retries")
+    plan_metrics.inc("plan_oom_spill_bytes", freed)
+
+
+def _oom_budget() -> int:
+    return int(config.get("plan.oom_retry_budget"))
 
 
 def _table_unsupported_reason(table: Table) -> Optional[str]:
@@ -269,34 +338,118 @@ def fused_program(plan: PlanNode, table: Union[Table, Sequence[Table]],
                   tuple(aux)), None
 
 
+def _run_fused(prog: CompiledPlan, args: tuple, nbytes: int) -> Table:
+    """One governed run of a fused program: reservation (2x the input
+    bytes, the envelope of the eager sort/join brackets), the program, the
+    head read (THE host sync of the query) and the trim, under the
+    ``plan_execute`` guard. Raises ``_OverflowSignal`` when a device
+    re-check tripped."""
+    def once() -> Table:
+        t0 = time.perf_counter()
+        _pool_cap_check(2 * nbytes)
+        with device_reservation(2 * nbytes) as took:
+            cols, mask, head = release_barrier(prog(*args), took)
+        live, overflow = head.tolist()
+        plan_metrics.add_time("execute_s", time.perf_counter() - t0)
+        plan_metrics.inc("plan_executes")
+        if overflow:
+            raise _OverflowSignal()
+        if mask is None:
+            return Table(tuple(cols))
+        if prog.out_info["prefix"]:
+            return _trim_prefix(cols, live)
+        return gather_table(Table(tuple(cols)),
+                            mask_indices_core(mask, live).to(torch.int64))
+    return guarded_dispatch("plan_execute", once)
+
+
+def _execute_dag(plan: PlanNode, tables: Tuple[Table, ...],
+                 cache: ProgramCache) -> Table:
+    """A DAG plan's ladder: retry and spill rollback re-dispatch the SAME
+    program; a split demand gates to eager (join pieces can't merge
+    bit-identically)."""
+    prog, args, reason = fused_program(plan, tables, cache)
+    if prog is None:
+        return _eager_fallback(plan, tables, reason)
+    nbytes = sum(t.device_nbytes() for t in tables)
+    try:
+        return with_retry(lambda _: _run_fused(prog, args, nbytes), None,
+                          rollback=_rollback_spill,
+                          max_retries=_oom_budget())[0]
+    except TpuSplitAndRetryOOM:
+        return _eager_fallback(plan, tables, "oom-split-unmergeable")
+    except _OverflowSignal:
+        # a device re-check failed: the fused output is garbage, so the
+        # query is recomputed eagerly from the untouched inputs
+        plan_metrics.inc("plan_overflows")
+        return _eager_fallback(plan, tables, "overflow")
+
+
 def execute_plan(plan: PlanNode, table: Union[Table, Sequence[Table]],
                  donate_input: bool = False,
                  cache: Optional[ProgramCache] = None) -> Table:
     """Run ``plan`` over ``table`` as one fused program, or eagerly where
-    it cannot be fused (a labeled fallback). DAG plans (Join nodes) take a
-    sequence of tables indexed by ``Scan.input_index``. Every op runs on
-    the tables' device."""
+    it cannot be fused (a labeled fallback), through the degradation
+    ladder of the module docstring. DAG plans (Join nodes) take a sequence
+    of tables indexed by ``Scan.input_index``. Every op runs on the
+    tables' device."""
     if donate_input:
-        raise dt.not_ported("input donation", "A7, fused executor")
+        raise dt.not_ported("input donation", "A7.3, fused executor")
+    cache = cache if cache is not None else _default_cache
     tables, dag = _inputs(plan, table)
-    eager_in = tables if dag else tables[0]
-    prog, args, reason = fused_program(plan, table, cache)
     plan = resolve_literals(plan, table)
-    if prog is None:
-        return run_eager(plan, eager_in, fallback_reason=reason)
-    t0 = time.perf_counter()
-    cols, mask, head = prog(*args)
-    live, overflow = head.tolist()      # THE host sync of the query
-    plan_metrics.add_time("execute_s", time.perf_counter() - t0)
-    plan_metrics.inc("plan_executes")
-    if overflow:
-        # a device re-check failed: the fused output is garbage, so the
-        # query is recomputed eagerly from the untouched inputs
+    if dag:
+        return _execute_dag(plan, tables, cache)
+    table = tables[0]
+    if _table_unsupported_reason(table) is not None:
+        return _eager_fallback(plan, table, "unsupported-input")
+    prog = cache.get_or_compile(plan, table)
+
+    # the degradation ladder: retry (same program) -> spill-rollback ->
+    # split (halved pieces through the ProgramCache) -> eager (named
+    # gate) -> typed shed (the OOM propagates)
+    unmergeable = _split.split_unmergeable_reason(plan, table)
+    state = {"spec": None}
+
+    def attempt(item):
+        tag, t = item
+        pr = prog if tag == "whole" else cache.get_or_compile(
+            state["spec"].piece_plan, t)
+        return _run_fused(pr, (tuple(t.columns),), t.device_nbytes())
+
+    def do_split(item):
+        if state["spec"] is None:
+            state["spec"] = _split.prepare(plan)
+        _tag, t = item
+        pieces = _split.split_table(t)
+        if len(pieces) >= 2:
+            plan_metrics.inc("plan_oom_splits")
+        return [("piece", p) for p in pieces]
+
+    try:
+        results = with_retry(
+            attempt, ("whole", table),
+            split=None if unmergeable is not None else do_split,
+            rollback=_rollback_spill, max_retries=_oom_budget())
+    except TpuSplitAndRetryOOM:
+        if unmergeable is None:
+            raise  # split depth/retry budget exhausted: typed shed
+        # named gate: this plan's pieces can't merge bit-identically
+        return _eager_fallback(plan, table, "oom-split-unmergeable")
+    except _OverflowSignal:
+        # true group count exceeded the static budget: fused output is
+        # truncated garbage — recompute eagerly
         plan_metrics.inc("plan_overflows")
-        return run_eager(plan, eager_in, fallback_reason="overflow")
-    if mask is None:
-        return Table(tuple(cols))
-    if prog.out_info["prefix"]:
-        return _trim_prefix(cols, live)
-    return gather_table(Table(tuple(cols)),
-                        mask_indices_core(mask, live).to(torch.int64))
+        return _eager_fallback(plan, table, "overflow")
+
+    if state["spec"] is None:
+        return results[0]
+    plan_metrics.inc("plan_oom_pieces", len(results))
+    try:
+        return _split.merge_pieces(state["spec"], results, table.num_rows,
+                                   int(config.get("plan.max_groups")))
+    except _split.SplitMergeOverflow:
+        plan_metrics.inc("plan_overflows")
+        return _eager_fallback(plan, table, "overflow")
+    except _split.SplitMergeError:
+        return _eager_fallback(plan, table, "oom-split-degenerate")

@@ -54,7 +54,12 @@ FALLBACK_REASONS = frozenset({
                                # or decimal input
     "planner-unsupported",     # planner strategy gate on a DAG plan
     "overflow",                # a device re-check tripped (group budget,
-                               # duplicate or non-dense build key, span)
+                               # duplicate or non-dense build key, span,
+                               # split merge)
+    "oom-split-unmergeable",   # split demanded but pieces can't merge
+                               # bit-identically (plan/split.py gate)
+    "oom-split-degenerate",    # split merge hit a degenerate input
+                               # (every piece aggregated to zero groups)
 })
 
 

@@ -1,7 +1,8 @@
-"""The plan engine's knobs: the ``plan.*`` entries of the JAX package's
-utils/config.py that this port reads, with the same names, defaults and
-environment variables. Each resolves programmatic override ->
-environment variable -> default.
+"""The port's knobs: the entries of the JAX package's utils/config.py
+that this port reads (``plan.*``, ``trace.enabled``, ``rmm.*``,
+``native.so_override``, ``faultinj.*``, ``watchdog.*``, ``spill.*``), with
+the same names, defaults and environment variables. Each resolves
+programmatic override -> environment variable -> default.
 
     from spark_rapids_jni_tpu_torch.utils import config
     config.get("plan.max_groups")
@@ -16,6 +17,10 @@ import os
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict
+
+
+def _parse_bool(s: str) -> bool:
+    return s not in ("0", "", "false", "False", "no")
 
 
 @dataclass(frozen=True)
@@ -51,9 +56,95 @@ _REGISTRY: Dict[str, _Entry] = {
         "SRJT_PLAN_GROUPBY_CHUNK", 1024, int,
         "rows per block of the direct_small groupby: each block scatters "
         "into its own row of slot accumulators"),
+    "plan.oom_retry_budget": _Entry(
+        "SRJT_PLAN_OOM_RETRY_BUDGET", 100, int,
+        "retry-OOM protocol at the fused plan_execute surface: rollbacks "
+        "plus splits per execute_plan call before the OOM is terminal "
+        "(with_retry's max_retries)"),
+    "trace.enabled": _Entry(
+        "SPARK_RAPIDS_TPU_TRACE", False, _parse_bool,
+        "profiler ranges on ops (torch.profiler.record_function; ref: "
+        "ai.rapids.cudf.nvtx.enabled)"),
+    # ---- memory (memory/) -------------------------------------------------
+    "rmm.watchdog_period_s": _Entry(
+        "SRJT_RMM_WATCHDOG_PERIOD_S", 0.1, float,
+        "deadlock watchdog poll period "
+        "(ref: ai.rapids.cudf.spark.rmmWatchdogPollingPeriod, 100ms)"),
+    "rmm.pool_bytes": _Entry(
+        "SRJT_RMM_POOL_BYTES", 0, int,
+        "default device reservation pool size; 0 = caller must pass one"),
+    "rmm.validate_hbm": _Entry(
+        "SRJT_RMM_VALIDATE_HBM", False, _parse_bool,
+        "audit taken reservations against the CUDA caching allocator's "
+        "allocated-bytes current/peak counters (memory/hbm.py report)"),
+    "rmm.max_split_depth": _Entry(
+        "SRJT_RMM_MAX_SPLIT_DEPTH", 8, int,
+        "retry-OOM protocol: how many times one input may be halved under "
+        "TpuSplitAndRetryOOM before with_retry declares the demand "
+        "unsatisfiable (memory/retry.py)"),
+    "native.so_override": _Entry(
+        "SRJT_NATIVE_SO_OVERRIDE", "", str,
+        "load a prebuilt resource-adaptor .so instead of building one"),
+    # ---- fault domains (faultinj/) ----------------------------------------
+    "faultinj.config": _Entry(
+        "FAULT_INJECTOR_CONFIG_PATH", "", str,
+        "fault-injection JSON config path (ref: cufaultinj LD_PRELOAD arg)"),
+    "faultinj.max_transient_retries": _Entry(
+        "SRJT_FAULT_MAX_TRANSIENT", 5, int,
+        "in-place retries per dispatch for TRANSIENT faults before "
+        "FaultStormError"),
+    "faultinj.backoff_base_s": _Entry(
+        "SRJT_FAULT_BACKOFF_BASE_S", 0.005, float,
+        "transient-fault backoff base; attempt k sleeps "
+        "uniform(0, min(max, base*2^k))"),
+    "faultinj.backoff_max_s": _Entry(
+        "SRJT_FAULT_BACKOFF_MAX_S", 0.25, float,
+        "transient-fault backoff cap per sleep"),
+    "faultinj.max_poison_redispatch": _Entry(
+        "SRJT_FAULT_MAX_POISON", 2, int,
+        "re-dispatches of a poisoned program (DeviceTrap/DeviceAssert) "
+        "before ProgramPoisonedError"),
+    "watchdog.enabled": _Entry(
+        "SRJT_WATCHDOG_ENABLED", True, _parse_bool,
+        "hang watchdog: monitor in-flight guarded dispatches against their "
+        "deadlines (faultinj/watchdog.py)"),
+    "watchdog.poll_period_s": _Entry(
+        "SRJT_WATCHDOG_POLL_PERIOD_S", 0.05, float,
+        "watchdog scan period for stalled dispatches"),
+    "watchdog.default_budget_s": _Entry(
+        "SRJT_WATCHDOG_DEFAULT_BUDGET_S", 0.0, float,
+        "implicit per-dispatch deadline when the caller carries none; "
+        "0 = only explicit Deadline contexts are enforced"),
+    "watchdog.diagnostics_dir": _Entry(
+        "SRJT_WATCHDOG_DIAG_DIR", "", str,
+        "directory for per-stall diagnostics bundles (JSON); '' keeps "
+        "bundles only in the in-memory ring"),
+    "watchdog.max_stall_retries": _Entry(
+        "SRJT_WATCHDOG_MAX_STALL_RETRIES", 1, int,
+        "re-dispatches of a STALL-classified failure while budget remains"),
+    "watchdog.lost_after_s": _Entry(
+        "SRJT_WATCHDOG_LOST_AFTER_S", 5.0, float,
+        "grace after a cooperative cancel before a non-responding thread "
+        "is declared lost"),
+    # ---- spill (memory/transport.py) --------------------------------------
+    "spill.disk_dir": _Entry(
+        "SRJT_SPILL_DISK_DIR", "", str,
+        "disk spill tier directory for SpillStore ('' disables): host "
+        "tables past spill.host_limit_bytes demote to checksummed files"),
+    "spill.host_limit_bytes": _Entry(
+        "SRJT_SPILL_HOST_LIMIT_BYTES", 0, int,
+        "host-tier byte budget for spilled tables before demotion to the "
+        "disk tier; 0 = unlimited"),
+    "spill.verify_fingerprints": _Entry(
+        "SRJT_SPILL_VERIFY", True, _parse_bool,
+        "crc32-fingerprint spilled tables and verify at promote; a "
+        "mismatch quarantines the table and raises CorruptionError"),
 }
 _overrides: Dict[str, Any] = {}
 _lock = threading.Lock()
+# bumped on every mutation: a hot path caches a resolved flag and
+# revalidates it with one unlocked integer read (utils/tracing.py)
+_epoch = 0
 
 
 def get(key: str) -> Any:
@@ -68,15 +159,39 @@ def get(key: str) -> Any:
     return e.default
 
 
+def set(key: str, value: Any) -> None:  # noqa: A001 - the JAX package's name
+    """Process-wide override (until ``unset``)."""
+    if key not in _REGISTRY:
+        raise KeyError(f"unknown config key {key!r}")
+    global _epoch
+    with _lock:
+        _overrides[key] = value
+        _epoch += 1
+
+
+def unset(key: str) -> None:
+    global _epoch
+    with _lock:
+        _overrides.pop(key, None)
+        _epoch += 1
+
+
+def epoch() -> int:
+    """Mutation counter (unlocked read; monotonic under the lock)."""
+    return _epoch
+
+
 @contextlib.contextmanager
 def override(key: str, value: Any):
     """Scoped override (tests)."""
     if key not in _REGISTRY:
         raise KeyError(f"unknown config key {key!r}")
+    global _epoch
     with _lock:
         had = key in _overrides
         old = _overrides.get(key)
         _overrides[key] = value
+        _epoch += 1
     try:
         yield
     finally:
@@ -85,3 +200,4 @@ def override(key: str, value: Any):
                 _overrides[key] = old
             else:
                 _overrides.pop(key, None)
+            _epoch += 1

@@ -538,3 +538,71 @@ def test_dict32_join_and_groupby_on_card_equal_cpu(cuda):
     assert all(torch.equal(a, b) for a, b in zip(gc, gp))
     assert torch.equal(lc, lp) and torch.equal(rc, rp)
     assert lc.numel() == int((np.arange(n) % 17 != 0).sum())
+
+
+# ---------------------------------------------------------------------------
+# the memory and fault domains on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def task_thread():
+    """An installed RmmSpark with this thread dedicated to task 1."""
+    from spark_rapids_jni_tpu_torch.memory import RmmSpark
+    RmmSpark.set_event_handler(pool_bytes=8 << 30, watchdog_period_s=0.01)
+    RmmSpark.current_thread_is_dedicated_to_task(1)
+    try:
+        yield RmmSpark
+    finally:
+        RmmSpark.remove_current_thread_association()
+        RmmSpark.task_done(1)
+        RmmSpark.clear_event_handler()
+
+
+@pytest.mark.parametrize("took", [True, False])
+def test_release_barrier_waits_only_for_a_taken_bracket(cuda, took):
+    from spark_rapids_jni_tpu_torch.memory import release_barrier
+    out = torch.ones(4, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of queued work
+    out += 1
+    assert release_barrier(out, took) is out
+    assert torch.cuda.current_stream(cuda).query() is took
+    torch.cuda.synchronize()
+
+
+def test_hbm_audit_validates_every_taken_bracket(cuda, task_thread):
+    from spark_rapids_jni_tpu_torch.memory import hbm
+    from spark_rapids_jni_tpu_torch.ops.sort import sort_table
+    from spark_rapids_jni_tpu_torch.utils import config
+    hbm.reset()
+    t = _mixed(1 << 20, cuda)
+    with config.override("rmm.validate_hbm", True):
+        sort_table(t, [0, 1])
+        groupby_aggregate(t, [6], [(1, "sum"), (9, "count")])
+        R.convert_from_rows(R.convert_to_rows(t)[0],
+                            [c.dtype for c in t.columns])
+    rep = hbm.report()
+    assert rep["brackets"] == 4 and rep["validated"] == 4
+    assert rep["worst"] and all(r > 0 for _, r, _ in rep["worst"])
+    assert task_thread.pool_used() == 0
+    hbm.reset()
+
+
+def test_guarded_cuda_oom_is_typed_and_leaves_the_card_usable(cuda):
+    from spark_rapids_jni_tpu_torch.faultinj.guard import guarded_dispatch
+    from spark_rapids_jni_tpu_torch.memory import TpuRetryOOM
+    idx = torch.cuda.current_device()
+    total = torch.cuda.get_device_properties(idx).total_memory
+    torch.cuda.empty_cache()
+    cap = (torch.cuda.memory_reserved(idx) + (256 << 20)) / total
+    torch.cuda.set_per_process_memory_fraction(cap, idx)
+    try:
+        with pytest.raises(TpuRetryOOM) as ei:
+            guarded_dispatch("plan_execute",
+                             lambda: torch.empty(1 << 30, device=cuda))
+        assert isinstance(ei.value.__cause__, torch.cuda.OutOfMemoryError)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, idx)
+        torch.cuda.empty_cache()
+    big = torch.ones(1 << 30, dtype=torch.uint8, device=cuda)
+    assert int(big.sum()) == 1 << 30
