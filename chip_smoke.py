@@ -83,7 +83,30 @@ run exits non-zero:
      chain share) and on a 1M-row edge table of NaN payloads, ±0, ±inf and
      subnormals, its count of chunks folded on the flushed path against
      the rule (kernels.flushed_chunks_plain) at each; encode_strings at
-     1M rows.
+     1M rows;
+  9. ``memory_sf10``: the memory and fault domains at SF10 (RmmSpark
+     reservations, the executor's OOM split rung, the governed shuffle and
+     q3 stage with its reservation audit, a real CUDA OOM recovered by
+     spill rollback);
+ 10. ``parquet_sf10``: the Parquet read path. Writes file A (the q1/q6
+     lineitem, 60M rows) and file B (phase 7's string table, its key as
+     dictionary codes, the last row's key a needle) with the port's
+     parquet-mr-style writer (utils/datagen_parquet.py); reads both with
+     ``read_parquet(path, device="cuda")`` on the device tier (the
+     default) with the launch counts set to 0, runs the read tables
+     through q1, q6, the shuffle write (B1, B3) and, the key read as
+     DICT32, S6-S9 (H1, B2), and reads the counts; then holds every column
+     of both tiers against the generated tables and each stage against
+     the same stage over them, requires every column to take the device
+     tier, checks iter_chunks against read_all, pushdown on the needle
+     (every other row group pruned, the answer unchanged with pushdown
+     off), a flipped bit at ``parquet_page`` (recovered and counted) and
+     one column chunk decoded in a sandbox worker; times each file on
+     each tier (first and warm median of 3, the read split into host
+     extract, run walk, copy, device decode and reservation, peak device
+     memory, one read under torch.profiler) beside a pinned copy of file
+     A's bytes; and prunes file A's footer with ``read_and_filter`` (the
+     plugin's ParquetFooter), whole and split at its midpoint.
 
 Prints JSON lines (timings, then the {"kernels": [...]} line, whose
 entries give each kernel's launches by path) and, last,
@@ -107,6 +130,9 @@ PARTITIONS = 200            # spark.sql.shuffle.partitions default
 
 
 STRING_ROWS = 60_000_000    # phase 7: TPC-H SF10's lineitem count
+# phase 10: a key value only file B's last row group holds (its bytes sort
+# after every string of the generator's alphabet)
+NEEDLE = "~phase-10-needle"
 # the kernels of the SF10 main path and of phase 7 (H1 runs in phase 8)
 ROW_KERNELS = ("murmur3_fixed_rows", "xxhash64_fixed_rows",
                "rowconv_fixed_words")
@@ -295,6 +321,10 @@ def main():
     # ---- phase 9: the memory and fault domains ----------------------------
     paths["memory_sf10_governed"] = memory_phase(dev, card, SF10_ROWS)
     phase_end("memory_sf10")
+
+    # ---- phase 10: the Parquet read path ----------------------------------
+    paths["parquet_sf10"] = parquet_phase(dev, card, SF10_ROWS)
+    phase_end("parquet_sf10")
     for entry, (_, wrapper, _, _) in zip(entries, K.KERNELS):
         entry["launches_by_path"] = {p: c[wrapper] for p, c in paths.items()}
     jline({"phase_seconds": PHASE_SECONDS})
@@ -1327,6 +1357,21 @@ def h1_entry(card, z, valid, starts, launches):
     return entry
 
 
+# the aggregates of S3/S6 and S5/S7 over the string table (key column 4)
+S3_AGGS = [(0, "sum"), (0, "count"), (1, "min"), (1, "max")]
+S5_AGGS = [(2, "sum"), (2, "mean"), (2, "min"), (2, "max"), (2, "count")]
+
+
+def plan_s9(needle):
+    """S9: a fused Filter -> GroupBy over the string table, with a string
+    literal on the DICT32 key."""
+    from spark_rapids_jni_tpu_torch.plan import Filter, GroupBy, Scan, col, lit
+    return GroupBy(Filter(Scan(5), (col(1) < lit(50))
+                          & (col(4) != lit(needle))),
+                   (4,), ((2, "sum"), (2, "mean"), (2, "min"), (2, "max"),
+                          (0, "sum"), (0, "count")))
+
+
 def encoded_phase(dev, card, table, edge_rows=1 << 20):
     """Phase 8: float aggregates (kernel H1) and encoded columns over the
     string table ``table`` (phase 7's), stages S5-S10 and H1's two-group
@@ -1341,9 +1386,7 @@ def encoded_phase(dev, card, table, edge_rows=1 << 20):
     from spark_rapids_jni_tpu_torch.ops import groupby as GB
     from spark_rapids_jni_tpu_torch.ops import kernels as K
     from spark_rapids_jni_tpu_torch.ops.join import inner_join
-    from spark_rapids_jni_tpu_torch.plan import (Filter, GroupBy, Scan, col,
-                                                 execute_plan, lit,
-                                                 plan_metrics,
+    from spark_rapids_jni_tpu_torch.plan import (execute_plan, plan_metrics,
                                                  resolve_literals, run_eager)
     from spark_rapids_jni_tpu_torch.plan.expr import Lit
     from spark_rapids_jni_tpu_torch.utils import datagen
@@ -1364,15 +1407,10 @@ def encoded_phase(dev, card, table, edge_rows=1 << 20):
                 E.for_encode(table[1])))
     encode_s = time.perf_counter() - t
     tr_plain = Table((Column(dt.INT32, rows, data=codes), table[1]))
-    s3_aggs = [(0, "sum"), (0, "count"), (1, "min"), (1, "max")]
-    s5_aggs = [(2, "sum"), (2, "mean"), (2, "min"), (2, "max"),
-               (2, "count")]
+    s3_aggs, s5_aggs = S3_AGGS, S5_AGGS
     s10_aggs = [(1, "min"), (1, "max"), (1, "sum"), (1, "count")]
     needle = keys[min(7, ng - 1)].decode()
-    plan9 = GroupBy(Filter(Scan(5), (col(1) < lit(50))
-                           & (col(4) != lit(needle))),
-                    (4,), ((2, "sum"), (2, "mean"), (2, "min"), (2, "max"),
-                           (0, "sum"), (0, "count")))
+    plan9 = plan_s9(needle)
     jline({"phase": "encoded_table", **card, "rows": rows,
            "dictionary_entries": ng,
            "dict_key_device_bytes": dkey.device_nbytes(),
@@ -2014,6 +2052,410 @@ def spill_rung(dev, card, li, ref, s_tables):
         raise AssertionError(f"9c spill rung: {failed}: {line}")
     log("check 9c: a real CUDA OOM recovered by spilling S, == reference; "
         "S promoted bit-identical; a hopeless cap shed as TpuRetryOOM")
+
+
+def strings_arrays(rows):
+    """Phase 7's string table as numpy arrays, from the generator's own
+    draws (``datagen.string_rows_table(rows, 0)``): the four fixed-width
+    columns, and the key as its distinct strings in byte order with each
+    row's code among them."""
+    rng = np.random.default_rng(0)
+    fixed = {"c0": rng.integers(-2**31, 2**31, rows),
+             "c1": rng.integers(0, 100, rows).astype(np.int32),
+             "c2": rng.standard_normal(rows),
+             "c3": rng.integers(0, 2, rows).astype(np.uint8)}
+    keys, gid = string_key_draws(rows)
+    return fixed, keys, gid
+
+
+def _read(path, dev, tier, encoded=False, timings=None, **kw):
+    """(table, routes, wall ms) of one read_all on one tier."""
+    from spark_rapids_jni_tpu_torch.parquet import ParquetReader
+    from spark_rapids_jni_tpu_torch.utils import config
+    with config.override("parquet.device_decode", tier), \
+            config.override("parquet.encoded_strings", encoded):
+        _sync(dev)
+        t = time.perf_counter()
+        with ParquetReader(path, device=dev, timings=timings, **kw) as r:
+            table = r.read_all()
+        _sync(dev)
+        return table, r.routes, (time.perf_counter() - t) * 1e3
+
+
+def _read_profile(fn):
+    """One fn() call under torch.profiler: its CUDA kernel launches and
+    copies, the device's busy time and idle share, and the aten ops that
+    hold the device (inclusive device ms, top 6)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t) * 1e3
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = sum(1 for e in ev if e.name.startswith(("Memcpy", "Memset")))
+    busy_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    avg = prof.key_averages()
+    ops = sorted((e for e in avg if e.key.startswith("aten::")
+                  and e.device_time_total > 0),
+                 key=lambda e: -e.device_time_total)[:6]
+    kernels = {}
+    for e in ev:
+        kernels[e.name[:80]] = kernels.get(e.name[:80], 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    return {"device_kernel_launches": len(ev) - copies,
+            "device_copies_and_memsets": copies, "wall_ms": span_ms,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / span_ms,
+            "top_aten_ops_inclusive_device_ms": {
+                e.key: e.device_time_total / 1e3 for e in ops},
+            "top_device_kernels_ms": dict(sorted(
+                kernels.items(), key=lambda kv: -kv[1])[:6])}
+
+
+def parquet_phase(dev, card, rows):
+    """Phase 10: the Parquet read path (``parquet_sf10``). Writes file A
+    (the q1/q6 lineitem) and file B (phase 7's string table, its key as
+    dictionary codes, the last row's key a needle) with the port's
+    parquet-mr-style writer; reads both through ``read_parquet`` on the
+    device tier (the default on the card) with the launch counts set to 0
+    and runs the read tables through q1, q6, the shuffle write (B1, B3)
+    and, with the key read as DICT32, S6-S9 (H1, B2); reads the counts;
+    then holds every column of both tiers against the generated tables
+    and every stage against the same stage over them, checks that every
+    column took the device tier, iter_chunks, pushdown, the page-checksum
+    re-read and a sandboxed decode, and on the card times each read.
+    Returns the launches of the counted run."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="parquet_sf10_")
+    try:
+        return _parquet_phase(dev, card, rows, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        from spark_rapids_jni_tpu_torch.faultinj import injector, sandbox
+        injector.uninstall()
+        sandbox.shutdown_all()
+
+
+def _parquet_phase(dev, card, rows, tmp):
+    import os
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.columnar import dictionary as D
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.table_ops import concat_tables
+    from spark_rapids_jni_tpu_torch.faultinj import guard, injector, sandbox
+    from spark_rapids_jni_tpu_torch.ops import groupby as GB
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+    from spark_rapids_jni_tpu_torch.ops.join import inner_join
+    from spark_rapids_jni_tpu_torch.parallel.exchange import partition_ids
+    from spark_rapids_jni_tpu_torch.parquet import ParquetReader
+    from spark_rapids_jni_tpu_torch.parquet.reader import (reader_metrics,
+                                                           route_metrics)
+    from spark_rapids_jni_tpu_torch.plan import (Filter, Scan, col,
+                                                 execute_plan, lit)
+    from spark_rapids_jni_tpu_torch.utils import config
+    from spark_rapids_jni_tpu_torch.utils import datagen_parquet as W
+
+    cuda = dev.type == "cuda"
+    device_tier = "auto" if cuda else "device"  # auto: the card's default
+
+    # 1. the files
+    a = tpch.q1_arrays(rows, 0)
+    path_a = os.path.join(tmp, "lineitem_q1.parquet")
+    t = time.perf_counter()
+    info_a = W.write_parquet(path_a, [W.ParquetColumn(k, values=v)
+                                      for k, v in a.items()])
+    write_a_s = time.perf_counter() - t
+    fixed, keys, gid = strings_arrays(rows)
+    entries = list(keys) + [NEEDLE.encode()]
+    codes = gid.astype(np.int32)
+    codes[-1] = len(keys)  # the needle: the last row only
+    cols_b = [W.ParquetColumn(k, values=v.astype(bool) if k == "c3" else v)
+              for k, v in fixed.items()]
+    cols_b.append(W.string_codes("key", codes, entries))
+    path_b = os.path.join(tmp, "strings.parquet")
+    t = time.perf_counter()
+    info_b = W.write_parquet(path_b, cols_b)
+    write_b_s = time.perf_counter() - t
+    for name, info, secs in (("A", info_a, write_a_s),
+                             ("B", info_b, write_b_s)):
+        jline({"phase": "parquet_sf10", "part": "file", **card, "file": name,
+               "rows": rows, "bytes": info["bytes"],
+               "row_groups": len(info["row_groups"]),
+               "rows_per_group": info["row_groups"][0],
+               "encodings_first_group": {k: v[0] for k, v in
+                                         info["encodings"].items()},
+               "write_s": secs, "write_gb_per_s": info["bytes"] / secs / 1e9})
+
+    # the generated tables, on the device
+    li_gen = Table(tuple(Column.from_numpy(v, device=dev) for v in a.values()))
+    dkey_gen = D.dict_column(torch.from_numpy(codes).to(dev),
+                             D.values_from_entries(entries, dev))
+    fixed_gen = (Column.from_numpy(fixed["c0"], device=dev),
+                 Column.from_numpy(fixed["c1"], device=dev),
+                 Column.from_numpy(fixed["c2"], device=dev),
+                 Column.from_numpy(fixed["c3"], dt.BOOL8, device=dev))
+    sb_gen = Table(fixed_gen + (D.materialize(dkey_gen),))
+    td_gen = Table(fixed_gen + (dkey_gen,))
+    ng = len(entries)
+    plan9 = plan_s9(keys[min(7, len(keys) - 1)].decode())
+
+    def dict_stages(td):
+        dkey = td[4]
+        dim = D.dict_column(torch.arange(D.dict_values(dkey).size,
+                                         device=dev), D.dict_values(dkey))
+        return {"S6_dict_aggregate": GB.groupby_aggregate(td, [4], S3_AGGS),
+                "S7_dict_float_aggregate": GB.groupby_aggregate(td, [4],
+                                                                S5_AGGS),
+                "S8_dict_join": inner_join([dkey], [dim]),
+                "S9_fused_dict_plan": execute_plan(plan9, td)}
+
+    def shuffle_write(li):
+        return partition_ids(li, [0], PARTITIONS), R.convert_to_rows(li)
+
+    # 2-4. the counted run: reads on the device tier, then the stages
+    K.reset_launches()
+    route_metrics.reset()
+    first = {}
+    li_dev, routes_a, first["A_device"] = _read(path_a, dev, device_tier)
+    with ParquetReader(path_a, device=dev) as r:
+        with config.override("parquet.device_decode", device_tier):
+            chunks = list(r.iter_chunks())
+    q1 = tpch.run_q1(li_dev)
+    q6 = tpch.run_q6(li_dev)
+    written = shuffle_write(li_dev)
+    td_dev, routes_bd, first["B_device_dict32"] = _read(
+        path_b, dev, device_tier, encoded=True)
+    stages = dict_stages(td_dev)
+    _sync(dev)
+    launches = _kernel_counts()
+    counted_routes = route_metrics.snapshot()
+    log(f"parquet launches: {launches}")
+    for wrapper in ("murmur3_fixed_rows", "rowconv_fixed_words",
+                    "segment_float_agg", "xxhash64_fixed_rows"):
+        if cuda and launches[wrapper] < 1:
+            raise AssertionError(f"phase 10 never launched {wrapper}")
+
+    # the other tier and the STRING read of file B
+    li_host, routes_ah, first["A_host"] = _read(path_a, dev, "native")
+    sb_dev, routes_b, first["B_device"] = _read(path_b, dev, device_tier)
+    sb_host, _, first["B_host"] = _read(path_b, dev, "native")
+    routes = {"A": routes_a, "B": routes_b, "B_dict32": routes_bd}
+    jline({"phase": "parquet_sf10", "part": "routes", **card,
+           "columns": {f: {c: [r["tier"], r["encodings"]]
+                           for c, r in rs.items()}
+                       for f, rs in routes.items()},
+           "route_metrics_counted_run": counted_routes})
+
+    checks = {
+        "A_device_equals_generated": _same_cols(li_dev, li_gen),
+        "A_host_equals_generated": _same_cols(li_host, li_gen),
+        "B_device_equals_generated": _same_cols(sb_dev, sb_gen),
+        "B_host_equals_generated": _same_cols(sb_host, sb_gen),
+        "B_dict32_equals_generated": _same_cols(td_dev, td_gen),
+        "B_dict32_codes_and_dictionary_equal_generated": (
+            D.is_dict(td_dev[4])
+            and torch.equal(td_dev[4].data, dkey_gen.data)
+            and D._entries(D.dict_values(td_dev[4])) == tuple(entries)),
+        "every_column_took_the_device_tier": all(
+            r["tier"] == "device" for rs in routes.values()
+            for r in rs.values()) and len(routes_a) == 7
+        and len(routes_b) == 5
+        # file A, each chunk of its chunked read, file B as DICT32
+        and counted_routes["device_columns"] == 7 + 7 * len(chunks) + 5,
+        "host_tier_by_config_only": all(
+            r["why"] == "host_columns_by_config" for r in routes_ah.values()),
+        "iter_chunks_equals_read_all": (
+            len(chunks) >= 1 and _same_cols(concat_tables(chunks), li_dev)),
+        "q1_equals_generated": _tables_equal(q1, tpch.run_q1(li_gen)),
+        "q6_equals_generated": q6 == tpch.run_q6(li_gen),
+    }
+    ref_pids, ref_rows = shuffle_write(li_gen)
+    checks["B1_partition_ids_equal_generated"] = torch.equal(written[0],
+                                                             ref_pids)
+    checks["B3_rows_equal_generated"] = len(written[1]) == len(ref_rows) \
+        and all(torch.equal(x.children[0].data, y.children[0].data)
+                and torch.equal(x.offsets, y.offsets)
+                for x, y in zip(written[1], ref_rows))
+    ref_stages = dict_stages(td_gen)
+    for name in ("S6_dict_aggregate", "S7_dict_float_aggregate",
+                 "S9_fused_dict_plan"):
+        checks[f"{name}_equals_generated"] = _same_cols(stages[name],
+                                                        ref_stages[name])
+    checks["S8_dict_join_equals_generated"] = all(
+        torch.equal(x, y) for x, y in zip(stages["S8_dict_join"],
+                                          ref_stages["S8_dict_join"]))
+    checks["S6_groups"] = stages["S6_dict_aggregate"].num_rows == ng
+    del stages, ref_stages, written, ref_pids, ref_rows, chunks, q1
+    del li_host, sb_host, sb_dev
+
+    # the footer filter (the plugin's ParquetFooter): file A's footer
+    # pruned to two columns, whole and split at the file's midpoint
+    from spark_rapids_jni_tpu_torch.parquet import (SchemaBuilder,
+                                                    read_and_filter)
+    from spark_rapids_jni_tpu_torch.utils.nativeload import so_path
+    with open(path_a, "rb") as f:
+        data = f.read()
+    flen = int.from_bytes(data[-8:-4], "little")
+    footer = data[-8 - flen:-8]
+    schema = SchemaBuilder().add_value("l_quantity").add_value(
+        "l_shipdate").build()
+    half = len(data) // 2
+    with read_and_filter(footer, 0, len(data), schema) as whole, \
+            read_and_filter(footer, 0, half, schema) as first_half, \
+            read_and_filter(footer, half, len(data) - half, schema) as rest:
+        pruned = (whole.num_rows(), whole.num_columns(),
+                  len(whole.serialize_thrift_file()),
+                  first_half.num_rows(), rest.num_rows())
+    del data
+    jline({"phase": "parquet_sf10", "part": "footer", **card,
+           "footer_bytes": flen, "pruned_rows": pruned[0],
+           "pruned_columns": pruned[1], "serialized_bytes": pruned[2],
+           "split_rows": [pruned[3], pruned[4]],
+           "native_libraries": {n: so_path(n).is_file() for n in
+                                ("libsparkpq.so", "libsparkpqd.so")}})
+    checks["footer_filter_prunes_and_splits"] = (
+        pruned[:2] == (rows, 2) and pruned[3] + pruned[4] == rows
+        and (len(info_a["row_groups"]) == 1 or 0 < pruned[3] < rows)
+        and all(so_path(n).is_file() for n in ("libsparkpq.so",
+                                                "libsparkpqd.so")))
+
+    # 5. pushdown: key == the needle, which only the last group holds
+    pred = Filter(Scan(2), col(1) == lit(NEEDLE))
+    n_groups_b = len(info_b["row_groups"])
+    reader_metrics.reset()
+    pushed, _, push_ms = _read(path_b, dev, device_tier, encoded=True,
+                               columns=["c0", "key"],
+                               predicate=pred.predicate)
+    push = reader_metrics.snapshot()
+    with config.override("parquet.predicate_pushdown", False):
+        full, _, full_ms = _read(path_b, dev, device_tier, encoded=True,
+                                 columns=["c0", "key"],
+                                 predicate=pred.predicate)
+    out_p = execute_plan(pred, pushed)
+    out_f = execute_plan(pred, full)
+    jline({"phase": "parquet_sf10", "part": "pushdown", **card,
+           "predicate": f"key == {NEEDLE!r}", "row_groups": n_groups_b,
+           "reader_metrics": push, "rows_read": pushed.num_rows,
+           "pushdown_read_ms": push_ms, "full_read_ms": full_ms})
+    checks["pushdown_prunes_every_other_group"] = (
+        push["row_groups_skipped"] == n_groups_b - 1
+        and push["membership_skips"] == n_groups_b - 1
+        and pushed.num_rows == info_b["row_groups"][-1])
+    checks["pushdown_answer_unchanged"] = (
+        _same_cols(out_p, out_f) and out_p.num_rows == 1
+        and out_p[0].to_pylist() == [int(fixed["c0"][-1])])
+    del pushed, full, out_p, out_f
+
+    # 6. fault domains: one flipped bit, and a sandboxed decode
+    cfg = os.path.join(tmp, "flip.json")
+    with open(cfg, "w") as f:
+        json.dump({"xlaRuntimeFaults": {"parquet_page": {
+            "percent": 100, "injectionType": 3,
+            "interceptionCount": 1}}}, f)
+    guard.metrics.reset()
+    route_metrics.reset()
+    injector.install(cfg, seed=3)
+    try:
+        flipped, _, _ = _read(path_a, dev, device_tier,
+                              columns=["l_quantity"])
+    finally:
+        injector.uninstall()
+    fm = guard.metrics.snapshot()
+    checks["crc_flip_recovered_bit_identical"] = _same_col(flipped[0],
+                                                           li_gen[0])
+    checks["crc_flip_counted"] = (
+        fm["corruption_detected"] == 1
+        and route_metrics.snapshot()["host_columns_corruption"] == 1)
+    # one column chunk (the first row group's) decoded in a worker
+    first_rows = info_a["row_groups"][0]
+
+    def first_chunk():
+        with ParquetReader(path_a, columns=["l_quantity"], device=dev) as r:
+            return next(r.iter_chunks(byte_budget=1))
+
+    with config.override("parquet.device_decode", "native"):
+        in_process = first_chunk()
+        with config.override("sandbox.enabled", True):
+            boxed, boxed_ms = wall(first_chunk, dev)
+    pid = sandbox.get_worker().pid()
+    sandbox.shutdown_all()
+    checks["sandboxed_decode_equals_in_process"] = (
+        pid is not None and boxed.num_rows == first_rows
+        and _same_cols(boxed, in_process)
+        and torch.equal(boxed[0].data, li_gen[0].data[:first_rows])
+        and guard.metrics.snapshot()["crash_detected"] == 0)
+    jline({"phase": "parquet_sf10", "part": "faults", **card,
+           "corruption_detected": fm["corruption_detected"],
+           "sandbox_worker_pid": pid, "sandboxed_read_ms": boxed_ms})
+    del flipped, boxed, in_process
+
+    jline({"phase": "parquet_sf10", "part": "checks", **card, **checks})
+    failed = [k for k, ok in checks.items() if ok is not True]
+    if failed:
+        raise AssertionError(f"phase 10: {failed}")
+    log("check phase 10: files A and B == the generated tables on both "
+        "tiers, every column on the device tier, q1/q6/B1/B3/S6-S9 == the "
+        "same over the generated tables, the footer filter prunes and "
+        "splits, pushdown prunes, the flip is recovered and counted, the "
+        "sandboxed decode is equal")
+
+    # 7. times, on the card
+    if cuda:
+        li_bytes = {"A": info_a["bytes"], "B": info_b["bytes"]}
+        for file, path, tier, key in (("A", path_a, device_tier, "A_device"),
+                                      ("A", path_a, "native", "A_host"),
+                                      ("B", path_b, device_tier, "B_device"),
+                                      ("B", path_b, "native", "B_host")):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            warm, parts = [], []
+            for _ in range(3):
+                tim = {}
+                table, _, ms = _read(path, dev, tier, timings=tim)
+                warm.append(ms)
+                parts.append(tim)
+                del table
+            peak = torch.cuda.max_memory_allocated() - base
+            prof = (_read_profile(lambda: _read(path, dev, tier))
+                    if tier == device_tier else None)
+            mid = sorted(range(3), key=warm.__getitem__)[1]
+            split = {k: v for k, v in parts[mid].items()
+                     if not k.startswith("walk_ms:")}
+            walk = {k[len("walk_ms:"):]: v for k, v in parts[mid].items()
+                    if k.startswith("walk_ms:")}
+            jline({"phase": "parquet_sf10", "part": "read_time", **card,
+                   "file": file,
+                   "tier": "device" if tier == device_tier else "host",
+                   "rows": rows, "file_bytes": li_bytes[file],
+                   "first_ms": first[key], "warm_ms": sorted(warm),
+                   "warm_median_ms": warm[mid],
+                   "file_gb_per_s": li_bytes[file] / warm[mid] / 1e6,
+                   "split_ms_of_the_median_read": split,
+                   "host_run_walk_ms_by_column": walk,
+                   "peak_device_bytes_over_the_read": peak,
+                   "profile_of_one_read": prof})
+        # yardstick: file A's encoded bytes to the card, pinned and pageable
+        raw = np.fromfile(path_a, dtype=np.uint8)
+        pinned = torch.from_numpy(raw).pin_memory()
+        pageable = torch.from_numpy(raw)
+        yard = {}
+        for name, src in (("pinned", pinned), ("pageable", pageable)):
+            ms = sorted(wall(lambda: src.to(dev, non_blocking=True), dev)[1]
+                        for _ in range(3))
+            yard[f"{name}_h2d_ms"] = ms[1]
+            yard[f"{name}_gb_per_s"] = raw.nbytes / ms[1] / 1e6
+        jline({"phase": "parquet_sf10", "part": "h2d_yardstick", **card,
+               "bytes": int(raw.nbytes), **yard})
+        del raw, pinned, pageable
+    return launches
 
 
 def numpy_q1(a, cutoff=2400):

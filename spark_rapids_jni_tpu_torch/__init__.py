@@ -17,9 +17,17 @@ the kernels the JAX package wrote in Pallas:
   * plan/      - the plan engine: plan IR, eager interpreter, cost-shaped
                  planner, and the fused executor (one program of torch ops
                  per query, one host sync); its knobs are utils/config.py.
+  * parquet/   - the Parquet read path: footer filter, chunked reader
+                 with pushdown, the device-tier decode in torch ops and
+                 the native host tier (native/parquet_*.cpp, built with
+                 g++ at first use into build/torch_native/).
+  * memory/, faultinj/ - RmmSpark reservations and the OOM ladder; the
+                 fault guard, injector, watchdog, and the crash-containment
+                 sandbox with its circuit breakers.
   * tpch.py    - TPC-H q1, q3, q5 and q6: tables and both engines.
-  * utils/     - the plan knobs, shape bucketing and seeded data
-                 (datagen.py).
+  * utils/     - the knobs (config.py), shape bucketing, seeded data
+                 (datagen.py) and a parquet-mr-style writer for tests
+                 (datagen_parquet.py).
   * csrc/      - CUDA sources, built with nvcc for sm_90a at first use
                  into build/torch_kernels/.
 

@@ -50,6 +50,17 @@ def dict_ranks(col: Column) -> Column:
 # dictionary construction
 # ---------------------------------------------------------------------------
 
+def _host_chars(values: Column) -> np.ndarray:
+    """Host copy of a dictionary's characters, memoized on the shared
+    values column (seeded by ``values_from_host``)."""
+    cached = getattr(values, "_host_chars", None)
+    if cached is None:
+        cached = values.data.cpu().numpy()
+        cached.flags.writeable = False
+        values._host_chars = cached
+    return cached
+
+
 def _entries(values: Column) -> Tuple[bytes, ...]:
     """Host tuple of the entries' bytes, memoized on the shared values
     column."""
@@ -57,7 +68,7 @@ def _entries(values: Column) -> Tuple[bytes, ...]:
     if cached is not None:
         return cached
     offs = values.host_offsets()
-    blob = values.data.cpu().numpy().tobytes() if values.size else b""
+    blob = _host_chars(values).tobytes() if values.size else b""
     out = tuple(blob[int(offs[i]):int(offs[i + 1])]
                 for i in range(values.size))
     values._dict_entries = out
@@ -88,6 +99,23 @@ def values_from_entries(entries: Sequence[bytes], device="cuda") -> Column:
                     data=torch.from_numpy(data).to(dev),
                     offsets=torch.from_numpy(offsets).to(dev))
     values._dict_entries = tuple(bytes(e) for e in entries)
+    return values
+
+
+def values_from_host(chars: np.ndarray, offsets: np.ndarray,
+                     device="cuda") -> Column:
+    """STRING values column of a dictionary page's flat characters and
+    int32 offsets, on ``device``. The host arrays become its host mirrors
+    (frozen: the caller hands them over), so its entries and fingerprint
+    cost no device readback."""
+    dev = resolve_device(device)
+    values = Column(dt.STRING, int(offsets.shape[0]) - 1,
+                    data=torch.from_numpy(chars).to(dev),
+                    offsets=torch.from_numpy(offsets).to(dev))
+    chars.flags.writeable = False
+    offsets.flags.writeable = False
+    values._host_chars = chars
+    values._host_offsets = offsets
     return values
 
 
@@ -180,7 +208,7 @@ def dictionary_fingerprint(col: Column) -> int:
     if cached is None:
         h = zlib.crc32(values.host_offsets().astype(np.int64).tobytes())
         if values.size:
-            data = values.data.cpu().numpy()
+            data = _host_chars(values)
             if data.size:
                 h = zlib.crc32(data.tobytes(), h)
         cached = (h ^ values.size) & 0xFFFFFFFF

@@ -15,9 +15,9 @@ transiting payload (the ``memory/integrity.py`` hooks at the
 spill/unspill/disk surfaces) so the checksum detectors are provable end to
 end; type 4 injects a ``delayMs`` sleep or (``delayMs < 0``) a permanent
 hang at the call site so the deadline/watchdog subsystem (``watchdog.py``)
-is provable the same way; type 5 (worker crash) is parsed and sampled but
-consumed only by the sandbox, which is not ported yet (ROADMAP A11b); type
-6 injects retry/split OOMs or a standing pool cap (``oom_pool_cap``).
+is provable the same way; type 5 kills the sandbox worker that hosts a
+native dispatch (``sandbox.py``, behind per-surface circuit breakers in
+``breaker.py``); type 6 injects retry/split OOMs or a standing pool cap (``oom_pool_cap``).
 """
 
 from .injector import (
@@ -47,7 +47,7 @@ from .watchdog import (
     StallCancelledError,
 )
 from .sandbox import QuarantinedInputError, WorkerCrashError
-from . import watchdog
+from . import breaker, sandbox, watchdog
 
 __all__ = [
     "CancelToken",
@@ -72,5 +72,7 @@ __all__ = [
     "metrics",
     "oom_pool_cap",
     "uninstall",
+    "breaker",
+    "sandbox",
     "watchdog",
 ]

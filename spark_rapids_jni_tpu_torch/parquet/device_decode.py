@@ -1,0 +1,847 @@
+"""Parquet decode on the device: the device tier (the JAX package's
+parquet/device_decode.py, in torch ops on the reader's device).
+
+The host tier (native/parquet_decode.cpp) decodes pages fully on the host
+and ships full-width columns. This tier splits the work the way the
+reference's GPU decode does: the host only parses page headers and
+decompresses (``pqd_extract_pages``), each column chunk's ENCODED page
+bytes cross to the device in one copy, and the decode itself runs as
+torch ops there:
+
+- **RLE/bit-packed hybrid expansion** (definition levels and dictionary
+  indices): run headers are walked on the host (a few bytes per run);
+  expansion is branch-free device algebra: each entry finds its run by a
+  search over the run starts, then extracts its bits from a 5-byte window
+  (any alignment of a width <= 32), shifts and masks. All values in
+  int64: shifts and ORs there give bit 63 right, where torch's uint64
+  lacks most arithmetic on CUDA.
+- **PLAIN fixed-width**: each value's bytes gathered from the blob and
+  viewed as int32/int64/float32/float64. FLOAT64 is a view of the bytes,
+  never a value cast, so NaN payloads survive.
+- **Dictionary gather**: expanded indices index the device dictionary;
+  BYTE_ARRAY dictionaries gather string bytes by spans (one output-sizing
+  sync, the reference's), or stay DICT32 (``parquet.encoded_strings``).
+- **Null scatter**: validity = def == max_def; each page's stored
+  (non-null) values land in their rows by a cumulative count of valid
+  rows that restarts at every page.
+
+Where the JAX package runs ~30 small ops per data page (a 60M-row column
+in 20,000-row pages is ~3,000 pages), every step here runs once over a
+whole column chunk: the pages' runs are walked on the host and expanded
+in one pass, and the null scatter is one segmented cumulative count. The
+values are the JAX package's bit for bit; its TPU workarounds (bucketed
+shapes for the compile cache, uint64 lane emulation, FLOAT64 as uint64
+bits) are gone.
+
+Coverage (everything else decodes on the host tier, chosen per column
+from the page inventory by ``pages_supported``, the reference's routing
+contract): flat columns; PLAIN fixed-width (INT32/INT64/FLOAT/DOUBLE/
+BOOLEAN); PLAIN_DICTIONARY/RLE_DICTIONARY over fixed-width or BYTE_ARRAY
+dictionaries; v1 and v2 data pages; any codec the native tier
+decompresses. One-level LISTs wait for nested columns (ROADMAP A1).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+import time
+from dataclasses import dataclass
+from itertools import accumulate
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..columnar import dtype as dt
+from ..columnar.column import Column
+from ..columnar.dtype import TypeId
+
+_ENC_PLAIN, _ENC_PLAIN_DICT, _ENC_RLE, _ENC_RLE_DICT = 0, 2, 3, 8
+
+# parquet physical types (mirrors reader.py)
+_PT_BOOLEAN, _PT_INT32, _PT_INT64, _PT_INT96 = 0, 1, 2, 3
+_PT_FLOAT, _PT_DOUBLE, _PT_BYTE_ARRAY, _PT_FLBA = 4, 5, 6, 7
+
+
+class _PageMeta(ctypes.Structure):
+    _fields_ = [
+        ("ptype", ctypes.c_int),
+        ("encoding", ctypes.c_int),
+        ("num_values", ctypes.c_longlong),
+        ("rep_off", ctypes.c_longlong),
+        ("rep_len", ctypes.c_longlong),
+        ("def_off", ctypes.c_longlong),
+        ("def_len", ctypes.c_longlong),
+        ("val_off", ctypes.c_longlong),
+        ("val_len", ctypes.c_longlong),
+    ]
+
+
+@dataclass
+class _Page:
+    ptype: int
+    encoding: int
+    num_values: int
+    rep_off: int
+    rep_len: int
+    def_off: int
+    def_len: int
+    val_off: int
+    val_len: int
+
+
+def extract_pages(lib, handle, rg: int, leaf_idx: int,
+                  chunk: np.ndarray) -> Tuple[np.ndarray, List[_Page]]:
+    """Host step: page headers + decompression only. Returns the
+    decompressed page blob and per-page metadata."""
+    c = ctypes
+    blob_p = c.POINTER(c.c_uint8)()
+    blob_len = c.c_longlong()
+    pages_p = c.POINTER(_PageMeta)()
+    n_pages = c.c_longlong()
+    err = c.c_char_p()
+    if chunk.size == 0:
+        chunk = np.zeros(1, dtype=np.uint8)
+    rc = lib.pqd_extract_pages(
+        handle, rg, leaf_idx,
+        chunk.ctypes.data_as(c.POINTER(c.c_uint8)), len(chunk),
+        c.byref(blob_p), c.byref(blob_len), c.byref(pages_p),
+        c.byref(n_pages), c.byref(err))
+    if rc != 0:
+        msg = err.value.decode() if err.value else "unknown"
+        lib.pqd_free(err)
+        raise RuntimeError(f"extract_pages failed: {msg}")
+    try:
+        blob = (np.ctypeslib.as_array(blob_p, shape=(blob_len.value,)).copy()
+                if blob_len.value else np.zeros(0, np.uint8))
+        pages = [
+            _Page(p.ptype, p.encoding, p.num_values, p.rep_off, p.rep_len,
+                  p.def_off, p.def_len, p.val_off, p.val_len)
+            for p in (pages_p[i] for i in range(n_pages.value))]
+    finally:
+        lib.pqd_free(blob_p)
+        lib.pqd_free(pages_p)
+    return blob, pages
+
+
+# ---------------------------------------------------------------------------
+# RLE-hybrid: host run walk + device expansion
+# ---------------------------------------------------------------------------
+
+def _walk_runs(blob: np.ndarray, off: int, length: int, n: int,
+               bit_width: int):
+    """Parse the run headers of one hybrid section (a few bytes per run).
+    Returns lists (kinds, counts, values, bit_starts): kind 1 = bit-packed
+    (its values start at bit ``bit_starts`` of the blob), kind 0 = RLE.
+
+    The walk runs to the END of the section, not to ``n`` entries: a
+    dictionary-index stream holds only the STORED (non-null) entries, a
+    data-dependent count the host never needs to know."""
+    buf = blob[off:off + length].tobytes()
+    kinds, counts, values, bit_starts = [], [], [], []
+    k_add, c_add = kinds.append, counts.append
+    v_add, b_add = values.append, bit_starts.append
+    pos, end, produced = 0, len(buf), 0
+    nbytes = (bit_width + 7) // 8
+    base = off * 8
+    while pos < end and produced < n:
+        header = buf[pos]
+        pos += 1
+        if header & 0x80:  # a header longer than one byte
+            header &= 0x7F
+            shift = 7
+            while True:
+                if pos >= end:
+                    raise ValueError("rle: truncated varint")
+                b = buf[pos]
+                pos += 1
+                header |= (b & 0x7F) << shift
+                if not (b & 0x80):
+                    break
+                shift += 7
+                if shift > 63:
+                    raise ValueError("rle: varint overflow")
+        if header & 1:
+            groups = header >> 1
+            count = groups * 8
+            k_add(1)
+            c_add(count)
+            v_add(0)
+            b_add(base + pos * 8)
+            # the final run may pad past the section's end; the device's
+            # byte reads clip at the blob's end
+            pos = min(pos + groups * bit_width, end)
+        else:
+            count = header >> 1
+            if count <= 0:
+                raise ValueError("rle: zero-length run")
+            if pos + nbytes > end:
+                raise ValueError("rle: truncated run value")
+            k_add(0)
+            c_add(count)
+            v_add(buf[pos] if nbytes == 1
+                  else int.from_bytes(buf[pos:pos + nbytes], "little"))
+            b_add(0)
+            pos += nbytes
+        produced += count
+    if not kinds:  # empty section (all-null page): one zero run
+        kinds, counts, values, bit_starts = [0], [max(1, n)], [0], [0]
+    return kinds, counts, values, bit_starts
+
+
+class _Runs:
+    """The runs of one stream kind (definition levels or dictionary
+    indices) over every data page of a column chunk, placed on one output
+    axis: page p's entries are positions [row0_p, row0_p + n_p), as each
+    page's expansion in the JAX package is n_p entries long. An entry past
+    the runs a page's walk found reads 0, as the JAX package's padded run
+    arrays give it."""
+
+    def __init__(self):
+        self.kind: List[int] = []
+        self.value: List[int] = []
+        self.bit_start: List[int] = []
+        self.width: List[int] = []
+        self.out_start: List[int] = []
+
+    def add_page(self, walked, row0: int, n: int, bit_width: int) -> None:
+        kinds, counts, values, bit_starts = walked
+        self.kind += kinds
+        self.value += values
+        self.bit_start += bit_starts
+        self.width += [bit_width] * len(kinds)
+        self.out_start += accumulate(counts[:-1], initial=row0)
+        end = row0 + sum(counts)
+        if end < row0 + n:
+            self.add_zero(end)
+
+    def add_zero(self, at: int) -> None:
+        """An RLE run of 0 from position ``at`` to the next run."""
+        self.kind.append(0)
+        self.value.append(0)
+        self.bit_start.append(0)
+        self.width.append(1)
+        self.out_start.append(at)
+
+    def all_rle(self) -> bool:
+        return not any(self.kind)
+
+    def expand(self, blob_dev: torch.Tensor, total: int) -> torch.Tensor:
+        """int64[total] entries: each run's attributes repeated over the
+        entries it covers (an entry belongs to the last run starting at or
+        before it), then the literal bits of bit-packed runs. RLE-only
+        streams skip the bit path."""
+        dev = blob_dev.device
+        starts = np.asarray(self.out_start, np.int64)
+        lengths = torch.from_numpy(np.diff(np.append(starts, total))).to(dev)
+
+        def spread(per_run) -> torch.Tensor:
+            return torch.repeat_interleave(
+                torch.from_numpy(np.asarray(per_run, np.int64)).to(dev),
+                lengths, output_size=total)
+
+        rle = spread(self.value)
+        if self.all_rle():
+            return rle
+        width = np.asarray(self.width, np.int64)
+        # bit position of an entry = its run's first bit + its index into
+        # the run x width = (first bit - run start x width) + index x width
+        width_e = spread(width)
+        bitpos = spread(np.asarray(self.bit_start, np.int64)
+                        - starts * width)
+        bitpos += torch.arange(total, dtype=torch.int64, device=dev) * width_e
+        lit = _bits(blob_dev, bitpos) & ((1 << width_e) - 1)
+        return torch.where(spread(self.kind) == 1, lit, rle)
+
+
+# ---------------------------------------------------------------------------
+# PLAIN assembly
+# ---------------------------------------------------------------------------
+
+_LANE = {4: torch.int32, 8: torch.int64}
+_PAD = 8  # zero bytes past the end of a device blob (at least)
+
+
+def _device_blob(blob: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The blob on ``dev`` (the one copy), zero-padded by at least _PAD
+    bytes to a whole number of 32-bit words."""
+    out = torch.zeros((blob.shape[0] + _PAD + 3) // 4 * 4,
+                      dtype=torch.uint8, device=dev)
+    out[:blob.shape[0]].copy_(torch.from_numpy(blob))
+    return out
+
+
+def _bits(blob_dev: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
+    """int64 of the blob's bits from each ``bitpos`` on (LSB-first; at
+    least 32 of them): the two aligned 32-bit words holding them, joined
+    and shifted. Positions past the blob read its zero padding."""
+    words = blob_dev.view(torch.int32)
+    w = (bitpos >> 5).clamp_(0, words.shape[0] - 2)
+    lo = words.index_select(0, w).to(torch.int64) & 0xFFFFFFFF
+    hi = words.index_select(0, w + 1).to(torch.int64)
+    return ((hi << 32) | lo) >> (bitpos & 31)
+
+
+def _plain_fixed(blob_dev: torch.Tensor, offs: np.ndarray,
+                 counts: np.ndarray, es: int) -> torch.Tensor:
+    """The little-endian ``es``-byte values of several runs of the blob
+    (run j: ``counts[j]`` values from byte ``offs[j]``), concatenated, as
+    int32 (es 4) or int64 (es 8) lanes: the runs' bytes concatenated (a
+    few batched copies), then a view, so every bit is kept."""
+    if int(counts.sum()) == 0:
+        return torch.zeros(0, dtype=_LANE[es], device=blob_dev.device)
+    return torch.cat([blob_dev[o:o + c * es]
+                      for o, c in zip(offs.tolist(), counts.tolist())
+                      if c]).view(_LANE[es])
+
+
+def _plain_bool(blob_dev: torch.Tensor, bit0: torch.Tensor) -> torch.Tensor:
+    """Bit ``bit0[i]`` of the blob for each i, as uint8 0/1 (bit-packed
+    booleans are LSB-first)."""
+    last = blob_dev.shape[0] - 1
+    byte = blob_dev.index_select(0, (bit0 >> 3).clamp_(0, last))
+    return (byte >> (bit0 & 7).to(torch.uint8)) & 1
+
+
+def _segment_rows(dev, per_page: np.ndarray, sizes: np.ndarray,
+                  total: int) -> torch.Tensor:
+    """int64[total]: ``per_page[p]`` at each of page p's ``sizes[p]``
+    positions (no host sync: the size is given)."""
+    return torch.repeat_interleave(
+        torch.from_numpy(per_page.astype(np.int64)).to(dev),
+        torch.from_numpy(sizes.astype(np.int64)).to(dev),
+        output_size=total)
+
+
+def _scatter_nulls(dense: torch.Tensor, valid: torch.Tensor,
+                   rows: np.ndarray, dense_base: np.ndarray,
+                   dense_len: np.ndarray) -> torch.Tensor:
+    """Spread each page's stored (non-null-only) values into its row
+    slots; nulls get 0. Page p owns ``rows[p]`` rows and the dense values
+    [dense_base[p], dense_base[p] + dense_len[p]): its k-th valid row takes
+    its k-th value (clamped to the page's last value, as the JAX package
+    clips). One cumulative count over all rows, less each page's count at
+    its start."""
+    dev = dense.device
+    total = valid.shape[0]
+    counted = torch.cumsum(valid, 0, dtype=torch.int64)
+    row0 = np.zeros(len(rows), np.int64)
+    np.cumsum(rows[:-1], out=row0[1:])
+    before = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                        counted]).index_select(
+        0, torch.from_numpy(row0).to(dev))
+    posn = counted - torch.repeat_interleave(
+        before, torch.from_numpy(rows.astype(np.int64)).to(dev),
+        output_size=total) - 1
+    posn = torch.minimum(posn.clamp_(min=0), _segment_rows(
+        dev, np.maximum(dense_len - 1, 0), rows, total))
+    posn += _segment_rows(dev, dense_base, rows, total)
+    # one zero past the end keeps every index in range, an all-null
+    # page's included
+    padded = torch.cat([dense, dense.new_zeros(1)])
+    return torch.where(valid, padded.index_select(0, posn),
+                       dense.new_zeros(()))
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+
+_SUPPORTED_PHYS = {_PT_BOOLEAN, _PT_INT32, _PT_INT64, _PT_FLOAT, _PT_DOUBLE}
+_ELEM_SIZE = {_PT_INT32: 4, _PT_INT64: 8, _PT_FLOAT: 4, _PT_DOUBLE: 8,
+              _PT_BOOLEAN: 1}
+
+
+def pages_supported(leaf, pages: List[_Page]) -> bool:
+    """Can this chunk's page inventory run on the device tier?"""
+    if leaf.max_rep > 1:
+        return False
+    has_dict = any(p.ptype == 2 for p in pages)
+    has_dict_data = any(p.ptype != 2 and p.encoding in
+                        (_ENC_PLAIN_DICT, _ENC_RLE_DICT) for p in pages)
+    has_plain_data = any(p.ptype != 2 and p.encoding == _ENC_PLAIN
+                         for p in pages)
+    if has_dict_data and has_plain_data:
+        # dictionary-fallback chunks (the writer hit the dictionary size
+        # cap mid-chunk and switched to PLAIN) mix index pages and value
+        # pages; the device assembly handles one stream kind per chunk,
+        # the host tier decodes these
+        return False
+    for p in pages:
+        if p.ptype == 2:
+            if p.encoding not in (_ENC_PLAIN, _ENC_PLAIN_DICT):
+                return False
+            continue
+        if p.encoding in (_ENC_PLAIN_DICT, _ENC_RLE_DICT):
+            if not has_dict:
+                return False
+            continue
+        if p.encoding == _ENC_PLAIN:
+            if leaf.physical not in _SUPPORTED_PHYS:
+                return False  # PLAIN BYTE_ARRAY: variable stride -> host
+            continue
+        return False
+    if leaf.physical == _PT_BYTE_ARRAY and not has_dict:
+        return False
+    if leaf.physical in (_PT_INT96, _PT_FLBA):
+        return False
+    if leaf.dtype.id is TypeId.DECIMAL128:
+        return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+# dictionaries
+# ---------------------------------------------------------------------------
+
+def parse_byte_array_dictionary(blob: np.ndarray, page: _Page):
+    """Host parse of a BYTE_ARRAY dictionary page's length-prefixed layout
+    -> (flat uint8 bytes, int64 offsets). Shared by the decode path and
+    the reader's predicate-pushdown probe."""
+    nd = page.num_values
+    raw = blob[page.val_off:page.val_off + page.val_len].tobytes()
+    offs = np.zeros(nd + 1, np.int64)
+    parts = []
+    pos = 0
+    for i in range(nd):
+        (ln,) = struct.unpack_from("<I", raw, pos)
+        pos += 4
+        parts.append(raw[pos:pos + ln])
+        pos += ln
+        offs[i + 1] = offs[i] + ln
+    flat = np.frombuffer(b"".join(parts), np.uint8).copy()
+    return flat, offs
+
+
+def dictionary_entry_set(blob: np.ndarray, page: _Page) -> frozenset:
+    """Membership set of a BYTE_ARRAY dictionary page's entries (the
+    pushdown probe's statistic: an equality literal absent from it can
+    match no row of a fully dict-encoded chunk)."""
+    flat, offs = parse_byte_array_dictionary(blob, page)
+    blob_b = flat.tobytes()
+    return frozenset(blob_b[int(offs[i]):int(offs[i + 1])]
+                     for i in range(page.num_values))
+
+
+def _decode_dictionary(leaf, blob: np.ndarray, blob_dev: torch.Tensor,
+                       page: _Page):
+    """("bytes", flat, offsets, host flat, host offsets) for a BYTE_ARRAY
+    dictionary (parsed on the host: it is small by construction; its host
+    copies seed the DICT32 values column's mirrors), or ("fixed", lanes)
+    for a fixed-width one, assembled on the device from the shipped
+    blob."""
+    nd = page.num_values
+    if leaf.physical == _PT_BYTE_ARRAY:
+        flat, offs = parse_byte_array_dictionary(blob, page)
+        offs32 = offs.astype(np.int32)
+        dev = blob_dev.device
+        return ("bytes", torch.from_numpy(flat).to(dev),
+                torch.from_numpy(offs32).to(dev), flat, offs32)
+    if leaf.physical == _PT_BOOLEAN:
+        bits = torch.arange(nd, dtype=torch.int64, device=blob_dev.device)
+        return ("fixed", _plain_bool(blob_dev, bits + page.val_off * 8))
+    return ("fixed", _plain_fixed(blob_dev, np.array([page.val_off]),
+                                  np.array([nd]), _ELEM_SIZE[leaf.physical]))
+
+
+# ---------------------------------------------------------------------------
+# encoded integers (parquet.encoded_ints)
+# ---------------------------------------------------------------------------
+
+def _encoded_ints_enabled() -> bool:
+    from ..utils import config
+    return bool(config.get("parquet.encoded_ints"))
+
+
+_INT_PHYS = {_PT_INT32: np.int32, _PT_INT64: np.int64}
+
+
+def _all_valid_pages(leaf, blob: np.ndarray, pages: List[_Page]) -> bool:
+    """True when every data page's def-level stream provably encodes
+    all-valid rows (RLE runs of max_def only): the precondition for
+    surfacing the dict-index runs as row-aligned runs."""
+    if leaf.max_def == 0:
+        return True
+    bw = max(1, leaf.max_def.bit_length())
+    for p in pages:
+        if p.ptype == 2:
+            continue
+        if p.def_len <= 0:
+            return False
+        try:
+            kinds, _, values, _ = _walk_runs(blob, p.def_off, p.def_len,
+                                             p.num_values, bw)
+        except ValueError:
+            return False
+        if any(kinds) or any(v != leaf.max_def for v in values):
+            return False
+    return True
+
+
+def _host_int_dictionary(leaf, blob: np.ndarray, page: _Page):
+    """PLAIN fixed-width dictionary page -> host int64 entry array
+    (dictionary-sized, never row-sized)."""
+    npdt = _INT_PHYS[leaf.physical]
+    es = np.dtype(npdt).itemsize
+    nd = page.num_values
+    raw = blob[page.val_off:page.val_off + nd * es]
+    if raw.size != nd * es:
+        return None
+    return np.frombuffer(raw.tobytes(), npdt).astype(np.int64)
+
+
+def _host_column(dtype, host: np.ndarray, dev: torch.device) -> Column:
+    """A small column from a host array that also becomes its host mirror
+    (columnar/encodings.py reads ``_host_data``)."""
+    col = Column(dtype, host.size, data=torch.from_numpy(host).to(dev))
+    mirror = host.copy()
+    mirror.flags.writeable = False
+    col._host_data = mirror
+    return col
+
+
+def _try_encoded_ints(leaf, blob: np.ndarray, pages: List[_Page],
+                      rows: int, dev: torch.device):
+    """Surface a dictionary-encoded INT32/INT64 chunk as an encoded
+    Column with NO row expansion, or None to take the normal decode.
+
+    * every dict-index stream all RLE runs -> ``RLE`` column: run values
+      gather through the (small) host dictionary, run lengths come
+      straight from the run headers; O(runs) work, not O(rows).
+    * one page, all bit-packed runs, dictionary a dense ascending range
+      [lo, lo+nd) -> ``FOR`` column: the page's packed bytes ARE the
+      column data (Parquet's bit-pack order is FOR's LSB-first layout),
+      reference = lo, width = the stream's index bit width.
+
+    Gated as the JAX package gates it: flat all-valid chunks whose page
+    inventory is purely dictionary-encoded; anything else returns None."""
+    from ..columnar import encodings as enc
+
+    if leaf.max_rep != 0 or leaf.physical not in _INT_PHYS:
+        return None
+    if leaf.dtype.id not in (TypeId.INT32, TypeId.INT64):
+        return None
+    dict_page = next((p for p in pages if p.ptype == 2), None)
+    data_pages = [p for p in pages if p.ptype != 2]
+    if dict_page is None or not data_pages:
+        return None
+    if dict_page.encoding not in (_ENC_PLAIN, _ENC_PLAIN_DICT):
+        return None
+    if any(p.encoding not in (_ENC_PLAIN_DICT, _ENC_RLE_DICT)
+           for p in data_pages):
+        return None
+    if sum(p.num_values for p in data_pages) != rows or rows == 0:
+        return None
+    if not _all_valid_pages(leaf, blob, pages):
+        return None
+    dict_host = _host_int_dictionary(leaf, blob, dict_page)
+    if dict_host is None or dict_host.size == 0:
+        return None
+    nd = dict_host.size
+
+    walked = []
+    for p in data_pages:
+        ibw = int(blob[p.val_off]) if p.val_len >= 1 else -1
+        if ibw == 0:  # degenerate stream: every row is dict entry 0
+            walked.append(([0], [p.num_values], [0], [0], ibw, p))
+            continue
+        if ibw < 1 or ibw > 32 or p.val_len <= 1:
+            return None
+        try:
+            k, c, v, bs = _walk_runs(blob, p.val_off + 1, p.val_len - 1,
+                                     p.num_values, ibw)
+        except ValueError:
+            return None
+        walked.append((k, c, v, bs, ibw, p))
+
+    npdt = _INT_PHYS[leaf.physical]
+
+    if not any(any(w[0]) for w in walked):
+        vals_parts, lens_parts = [], []
+        for k, c, v, bs, ibw, p in walked:
+            c = np.asarray(c, np.int64)
+            v = np.asarray(v, np.int64)
+            tot = int(c.sum())
+            if tot < p.num_values:
+                return None
+            over = tot - p.num_values  # writer padding in the final run
+            i = len(c) - 1
+            while over > 0 and i >= 0:
+                take = min(over, int(c[i]))
+                c[i] -= take
+                over -= take
+                i -= 1
+            if np.any(v < 0) or np.any(v >= nd):
+                return None
+            vals_parts.append(dict_host[v])
+            lens_parts.append(c)
+        rvals = np.concatenate(vals_parts).astype(npdt)
+        rlens64 = np.concatenate(lens_parts)
+        if rlens64.size and int(rlens64.max()) > np.iinfo(np.int32).max:
+            return None
+        return enc.rle_column(_host_column(leaf.dtype, rvals, dev),
+                              _host_column(dt.INT32,
+                                           rlens64.astype(np.int32), dev),
+                              size=rows)
+
+    if len(walked) == 1:
+        k, c, v, bs, ibw, p = walked[0]
+        if (all(k)
+                and np.array_equal(dict_host,
+                                   np.arange(dict_host[0],
+                                             dict_host[0] + nd))
+                and (1 << ibw) >= nd):
+            # bit-packed runs are NOT contiguous in the blob (a varint
+            # header byte precedes each), but every run covers a multiple
+            # of 8 values (groups*8) at groups*ibw bytes, so stitching the
+            # runs' byte regions lands every code at bit i*ibw
+            parts = []
+            for j in range(len(k)):
+                start = int(bs[j]) >> 3  # run payloads are byte-aligned
+                nbytes = (int(c[j]) // 8) * ibw
+                parts.append(blob[start:start + nbytes])
+            packed = np.concatenate(parts) if parts else \
+                np.zeros(0, np.uint8)
+            need = enc.packed_nbytes(rows, ibw)
+            if packed.size < need:  # final-group padding clipped at blob end
+                packed = np.pad(packed, (0, need - packed.size))
+            packed = np.ascontiguousarray(packed[:need])
+            fdt = (dt.for32(ibw) if leaf.physical == _PT_INT32
+                   else dt.for64(ibw))
+            return enc.for_column(torch.from_numpy(packed).to(dev), fdt,
+                                  rows, int(dict_host[0]))
+    return None
+
+
+# ---------------------------------------------------------------------------
+# leaf orchestration
+# ---------------------------------------------------------------------------
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+
+
+@dataclass
+class HostChunk:
+    """The host half of one column chunk's device decode: the decompressed
+    page blob, its page inventory, and every data page's runs walked
+    (run-length headers are host work; the reader does it on its decode
+    threads, beside the other columns' native extraction)."""
+
+    blob: np.ndarray
+    pages: List[_Page]
+    rows: int                 # values in the chunk (the footer's count)
+    n_rows: np.ndarray        # rows of each data page
+    row0: np.ndarray          # first row of each data page
+    defs: _Runs
+    idx: _Runs
+    any_dict_data: bool
+    walk_ms: float
+
+
+def prepare_chunk(leaf, blob: np.ndarray, pages: List[_Page],
+                  rows: int) -> HostChunk:
+    """Walk the run headers of every data page of a chunk the device
+    tier takes (``pages_supported``): definition levels and dictionary
+    indices, each on one axis over the chunk's rows."""
+    t0 = time.perf_counter()
+    data_pages = [p for p in pages if p.ptype != 2]
+    n_rows = np.array([p.num_values for p in data_pages], np.int64)
+    row0 = np.zeros(len(data_pages), np.int64)
+    np.cumsum(n_rows[:-1], out=row0[1:])
+    bw_def = max(1, leaf.max_def.bit_length())
+    defs = _Runs()
+    idx = _Runs()
+    any_dict_data = False
+    for p, r0 in zip(data_pages, row0.tolist()):
+        n = p.num_values
+        if leaf.max_def > 0 and p.def_len > 0:
+            defs.add_page(_walk_runs(blob, p.def_off, p.def_len, n, bw_def),
+                          r0, n, bw_def)
+        else:
+            defs.add_zero(r0)
+        if p.encoding in (_ENC_PLAIN_DICT, _ENC_RLE_DICT):
+            any_dict_data = True
+            ibw = int(blob[p.val_off])
+            if ibw == 0:
+                idx.add_zero(r0)
+            else:
+                # the walk may stop short of n (nulls store no index); the
+                # scatter never selects past the page's valid count
+                idx.add_page(_walk_runs(blob, p.val_off + 1, p.val_len - 1,
+                                        n, ibw), r0, n, ibw)
+    return HostChunk(blob, pages, rows, n_rows, row0, defs, idx,
+                     any_dict_data, (time.perf_counter() - t0) * 1e3)
+
+
+def decode_leaf_device(leaf, chunk: HostChunk, device: torch.device,
+                       times: Optional[dict] = None) -> Column:
+    """Device decode of one flat column chunk whose host half is done
+    (``prepare_chunk``): the blob crosses to ``device`` once; everything
+    after runs there (plus the sizing sync of a BYTE_ARRAY dictionary
+    gather). With a ``times`` dict, adds the copy (``h2d_ms``) and the
+    device work (``decode_ms``) in milliseconds, synchronizing the device
+    at each boundary so the split is real (off the default path)."""
+    dev = torch.device(device)
+    if leaf.max_rep != 0:
+        raise dt.not_ported("the device decode of LIST columns",
+                            "A1, nested columns")
+    blob, pages, rows = chunk.blob, chunk.pages, chunk.rows
+    if _encoded_ints_enabled():
+        out = _try_encoded_ints(leaf, blob, pages, rows, dev)
+        if out is not None:
+            return out
+    data_pages = [p for p in pages if p.ptype != 2]
+    n_rows, row0 = chunk.n_rows, chunk.row0
+    defs, idx = chunk.defs, chunk.idx
+    total = int(n_rows.sum())
+    t1 = time.perf_counter()
+
+    blob_dev = _device_blob(blob, dev)  # the ONE host->device copy
+    if times is not None:
+        _sync(dev)
+    t2 = time.perf_counter()
+
+    dictionary = None
+    dict_page = next((p for p in pages if p.ptype == 2), None)
+    if dict_page is not None:
+        dictionary = _decode_dictionary(leaf, blob, blob_dev, dict_page)
+
+    # validity: definition level == max_def, present whenever the column
+    # is OPTIONAL (as the JAX package's device tier gives it)
+    if leaf.max_def == 0:
+        validity = None
+        valid = None
+    elif defs.all_rle() and all(v == leaf.max_def for v in defs.value):
+        validity = torch.ones(total, dtype=torch.bool, device=dev)
+        valid = None  # every row valid: the scatter is the identity
+    else:
+        validity = defs.expand(blob_dev, total) == leaf.max_def
+        valid = validity
+
+    if chunk.any_dict_data:
+        # dictionary indices: each page's dense stream is n_p entries long
+        # and starts at the page's first row
+        idx_rows = idx.expand(blob_dev, total)
+        if valid is not None:
+            idx_rows = _scatter_nulls(idx_rows, valid, n_rows, row0, n_rows)
+        column = _finish_dictionary(leaf, rows, idx_rows, dictionary,
+                                    validity)
+    else:
+        if leaf.physical == _PT_BOOLEAN:
+            # bit-packed booleans: page p's k-th stored value is bit k of
+            # its value section
+            bit0 = torch.arange(total, dtype=torch.int64, device=dev)
+            bit0 += _segment_rows(dev, np.array([p.val_off * 8 for p in
+                                                 data_pages]) - row0,
+                                  n_rows, total)
+            dense = _plain_bool(blob_dev, bit0)
+            base, stored = row0, n_rows
+        else:
+            es = _ELEM_SIZE[leaf.physical]
+            stored = np.array([p.val_len // es for p in data_pages],
+                              np.int64)
+            base = np.zeros(len(stored), np.int64)
+            np.cumsum(stored[:-1], out=base[1:])
+            dense = _plain_fixed(blob_dev,
+                                 np.array([p.val_off for p in data_pages],
+                                          np.int64), stored, es)
+        if valid is not None:
+            dense = _scatter_nulls(dense, valid, n_rows, base, stored)
+        elif dense.shape[0] != total:
+            # every row valid: stored values are the rows
+            dense = _scatter_nulls(
+                dense, torch.ones(total, dtype=torch.bool, device=dev),
+                n_rows, base, stored)
+        column = _finish_fixed(leaf, rows, dense, validity)
+    if times is not None:
+        _sync(dev)
+        t3 = time.perf_counter()
+        times["h2d_ms"] = times.get("h2d_ms", 0.0) + (t2 - t1) * 1e3
+        times["decode_ms"] = times.get("decode_ms", 0.0) + (t3 - t2) * 1e3
+        times["h2d_bytes"] = times.get("h2d_bytes", 0) + int(blob.nbytes)
+    return column
+
+
+def _finish_dictionary(leaf, rows: int, idx_rows: torch.Tensor, dictionary,
+                       validity) -> Column:
+    """Row-aligned dictionary indices (0 at null rows) -> the column."""
+    kind, payload = dictionary[0], dictionary[1]
+    nd = (int(payload.shape[0]) if kind == "fixed"
+          else int(dictionary[2].shape[0]) - 1)
+    if nd == 0:
+        return _finish_empty_dict(leaf, rows, idx_rows, validity)
+    safe = idx_rows.clamp(0, nd - 1)
+    if kind == "fixed":
+        return _finish_fixed(leaf, rows, payload.index_select(0, safe),
+                             validity)
+    _, flat, offs, host_flat, host_offs = dictionary
+    if _encoded_strings():
+        return _finish_dict32(safe, host_flat, host_offs, validity,
+                              flat.device)
+    return _finish_string_dict(safe, flat, offs, validity)
+
+
+def _finish_fixed(leaf, rows: int, lanes: torch.Tensor,
+                  validity) -> Column:
+    """int32/int64/uint8 lanes -> the typed column: a view for the floats
+    (every bit kept), the integer cast of the JAX package's narrowing for
+    the INT32 family's narrower types, the same bits for the rest."""
+    d = leaf.dtype
+    if d.id is TypeId.FLOAT64:
+        data = lanes.view(torch.float64)
+    elif d.id is TypeId.FLOAT32:
+        data = lanes.view(torch.float32)
+    elif d.id is TypeId.BOOL8:
+        data = (lanes != 0).to(torch.uint8)
+    else:
+        data = lanes.to(d.torch_dtype)
+    return Column(d, rows, data=data, validity=validity)
+
+
+def _finish_empty_dict(leaf, rows: int, idx_rows, validity) -> Column:
+    """All-null chunk: the dictionary page holds zero entries, so every
+    index is padding under a null mask."""
+    dev = idx_rows.device
+    if leaf.dtype.id is TypeId.STRING:
+        return Column(dt.STRING, rows,
+                      data=torch.zeros(0, dtype=torch.uint8, device=dev),
+                      validity=validity,
+                      offsets=torch.zeros(rows + 1, dtype=torch.int32,
+                                          device=dev))
+    lane = torch.int64 if _ELEM_SIZE[leaf.physical] == 8 else torch.int32
+    return _finish_fixed(leaf, rows, torch.zeros(idx_rows.shape[0],
+                                                 dtype=lane, device=dev),
+                         validity)
+
+
+def _encoded_strings() -> bool:
+    """Surface dictionary-encoded BYTE_ARRAY chunks as DICT32?"""
+    from ..utils import config
+    return bool(config.get("parquet.encoded_strings"))
+
+
+def _finish_dict32(codes: torch.Tensor, host_flat: np.ndarray,
+                   host_offs: np.ndarray, validity,
+                   dev: torch.device) -> Column:
+    """DICT32 column straight from the decode: the expanded row indices
+    ARE the codes; the gather a STRING column needs is deferred to
+    ``materialize`` at an output boundary. The shared values column is
+    built from the host parse, so fingerprinting it costs no device
+    readback."""
+    from ..columnar.dictionary import dict_column, values_from_host
+    values = values_from_host(host_flat, host_offs, dev)
+    return dict_column(codes.to(torch.int32), values, validity)
+
+
+def _finish_string_dict(safe: torch.Tensor, flat: torch.Tensor,
+                        offs: torch.Tensor, validity) -> Column:
+    """STRING column from the dictionary: per-row (start, length) spans,
+    then the shared span gather (one output-sizing sync)."""
+    from ..columnar.strings import gather_spans
+    offs = offs.to(torch.int64)
+    starts = offs.index_select(0, safe)
+    lens = offs.index_select(0, safe + 1) - starts
+    return gather_spans(flat, starts, lens, validity)

@@ -1,6 +1,7 @@
 """The port's knobs: the entries of the JAX package's utils/config.py
 that this port reads (``plan.*``, ``trace.enabled``, ``rmm.*``,
-``native.so_override``, ``faultinj.*``, ``watchdog.*``, ``spill.*``), with
+``native.so_override``, ``faultinj.*``, ``watchdog.*``, ``spill.*``,
+``parquet.*``, ``sandbox.*``, ``breaker.*``), with
 the same names, defaults and environment variables. Each resolves
 programmatic override -> environment variable -> default.
 
@@ -139,6 +140,80 @@ _REGISTRY: Dict[str, _Entry] = {
         "SRJT_SPILL_VERIFY", True, _parse_bool,
         "crc32-fingerprint spilled tables and verify at promote; a "
         "mismatch quarantines the table and raises CorruptionError"),
+    # ---- Parquet (parquet/) -----------------------------------------------
+    "parquet.chunk_byte_budget": _Entry(
+        "SRJT_PARQUET_CHUNK_BYTES", 128 << 20, int,
+        "row-group batching budget for the chunked reader"),
+    "parquet.decode_workers": _Entry(
+        "SRJT_PARQUET_DECODE_WORKERS", 0, int,
+        "column-decode thread count (GIL-free native decode); "
+        "0 = min(8, cpu count)"),
+    "parquet.verify_crc": _Entry(
+        "SRJT_PARQUET_VERIFY_CRC", True, _parse_bool,
+        "verify PageHeader.crc on every parquet page when present; a bad "
+        "page surfaces as CorruptionError and the reader re-reads it"),
+    "parquet.device_decode": _Entry(
+        "SRJT_PARQUET_DEVICE_DECODE", "auto", str,
+        "Parquet decode tier: auto (the device tier for a CUDA reader, the "
+        "host tier for a CPU reader) | device/on (torch ops on the "
+        "reader's device) | native/off (native host decode)"),
+    "parquet.encoded_strings": _Entry(
+        "SRJT_PARQUET_ENCODED_STRINGS", False, _parse_bool,
+        "surface dictionary-encoded BYTE_ARRAY chunks from the device tier "
+        "as DICT32 (int32 codes + shared dictionary) instead of gathering "
+        "their bytes into a STRING column"),
+    "parquet.encoded_ints": _Entry(
+        "SRJT_PARQUET_ENCODED_INTS", False, _parse_bool,
+        "surface dictionary-encoded INT32/INT64 chunks from the device tier "
+        "encoded: all-RLE index streams as RLE columns, one bit-packed page "
+        "over a dense ascending dictionary as FOR32/FOR64"),
+    "parquet.predicate_pushdown": _Entry(
+        "SRJT_PARQUET_PUSHDOWN", True, _parse_bool,
+        "skip row groups a reader predicate cannot match: equality "
+        "literals absent from a fully dictionary-encoded chunk's "
+        "dictionary page, integer comparisons outside the footer's "
+        "min/max statistics"),
+    # ---- crash containment (faultinj/sandbox.py, faultinj/breaker.py) -----
+    "sandbox.enabled": _Entry(
+        "SRJT_SANDBOX_ENABLED", False, _parse_bool,
+        "host crash-prone native dispatch surfaces in supervised worker "
+        "subprocesses so a SIGSEGV in native code is a recoverable CRASH "
+        "fault; off = in-process dispatch (bit-identical, faster)"),
+    "sandbox.surfaces": _Entry(
+        "SRJT_SANDBOX_SURFACES", "parquet_page_decode,parse_uri", str,
+        "csv of guarded api names routed through the sandbox when "
+        "sandbox.enabled"),
+    "sandbox.max_replays": _Entry(
+        "SRJT_SANDBOX_MAX_REPLAYS", 3, int,
+        "crashes one input may cause before it is quarantined "
+        "(QuarantinedInputError, handled like CORRUPTION); 0 disables "
+        "quarantine"),
+    "sandbox.call_timeout_s": _Entry(
+        "SRJT_SANDBOX_CALL_TIMEOUT_S", 0.0, float,
+        "hard per-call cap on a sandbox worker's response besides the "
+        "caller's Deadline; a silent worker is killed and the call "
+        "classifies CRASH; 0 = Deadline/watchdog only"),
+    "breaker.enabled": _Entry(
+        "SRJT_BREAKER_ENABLED", True, _parse_bool,
+        "per-surface circuit breakers: a surface failing breaker.threshold "
+        "times within breaker.window_s opens and routes to its degraded "
+        "path without paying the recovery ladder per call"),
+    "breaker.threshold": _Entry(
+        "SRJT_BREAKER_THRESHOLD", 5, int,
+        "failures within breaker.window_s that open a surface's breaker; "
+        "0 disables"),
+    "breaker.window_s": _Entry(
+        "SRJT_BREAKER_WINDOW_S", 30.0, float,
+        "sliding window for breaker failure counting; 0 = failures never "
+        "age out"),
+    "breaker.cooldown_s": _Entry(
+        "SRJT_BREAKER_COOLDOWN_S", 5.0, float,
+        "time an open breaker waits before going half-open and admitting "
+        "one probe"),
+    "breaker.retry_jitter": _Entry(
+        "SRJT_BREAKER_RETRY_JITTER", True, _parse_bool,
+        "decorrelated jitter on an open breaker's retry_after_s hints; "
+        "off = the deterministic cooldown remainder"),
 }
 _overrides: Dict[str, Any] = {}
 _lock = threading.Lock()

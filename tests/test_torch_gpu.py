@@ -606,3 +606,70 @@ def test_guarded_cuda_oom_is_typed_and_leaves_the_card_usable(cuda):
         torch.cuda.empty_cache()
     big = torch.ones(1 << 30, dtype=torch.uint8, device=cuda)
     assert int(big.sum()) == 1 << 30
+
+
+def _parquet_file(path, n=60_000, seed=0):
+    """A file of the port's writer with nulls, a STRING dictionary and a
+    chunk whose dictionary falls back to PLAIN mid-chunk."""
+    from spark_rapids_jni_tpu_torch.utils import datagen_parquet as W
+    rng = np.random.default_rng(seed)
+    valid = rng.random(n) > 0.1
+    entries = [f"key{i}".encode() for i in range(300)] + [b""]
+    cols = [
+        W.ParquetColumn("i32", values=rng.integers(0, 90, n)
+                        .astype(np.int32), valid=valid),
+        W.ParquetColumn("i64", values=rng.integers(-2**62, 2**62, n)),
+        W.ParquetColumn("f64", values=rng.standard_normal(n), valid=valid),
+        W.ParquetColumn("b", values=rng.random(n) > 0.5, valid=valid),
+        W.string_codes("key", rng.integers(0, len(entries), n), entries,
+                       valid=valid),
+        W.ParquetColumn("mixed", values=np.where(
+            np.arange(n) % 20_000 < 5_000, rng.integers(0, 10, n),
+            np.arange(n)).astype(np.int64)),
+    ]
+    W.write_parquet(path, cols, row_group_rows=20_000, page_rows=5_000,
+                    dict_page_bytes=4096)
+
+
+def test_parquet_device_tier_on_cuda(cuda, tmp_path):
+    """The device tier on the card: bit for bit the device tier on the
+    CPU, and on the valid rows the host tier; the mixed chunk takes the
+    host tier; DICT32 codes and dictionary equal the CPU's."""
+    from spark_rapids_jni_tpu_torch.columnar import dictionary as D
+    from spark_rapids_jni_tpu_torch.parquet import reader as PR
+    from spark_rapids_jni_tpu_torch.utils import config
+    path = str(tmp_path / "g.parquet")
+    _parquet_file(path)
+
+    def read(device, tier, encoded=False):
+        with config.override("parquet.device_decode", tier), \
+                config.override("parquet.encoded_strings", encoded):
+            return PR.read_parquet(path, device=device)
+
+    before = PR.route_metrics.snapshot()
+    got = read(cuda, "auto")
+    after = PR.route_metrics.snapshot()
+    assert after["device_columns"] - before["device_columns"] == 5
+    assert after["host_columns_unsupported"] \
+        - before["host_columns_unsupported"] == 1
+    cpu = read("cpu", "device")
+    host = read(cuda, "native")
+    for i, (g, c, h) in enumerate(zip(got, cpu, host)):
+        assert g.device.type == cuda.type, i
+        assert (g.validity is None) == (c.validity is None), i
+        assert torch.equal(g.valid_mask().cpu(), c.valid_mask()), i
+        assert torch.equal(g.valid_mask(), h.valid_mask()), i
+        if g.dtype.id is dt.TypeId.STRING:
+            assert torch.equal(g.offsets.cpu(), c.offsets), i
+            assert torch.equal(g.data.cpu(), c.data), i
+            assert g.to_pylist() == h.to_pylist(), i
+            continue
+        bits = {1: torch.uint8, 4: torch.int32, 8: torch.int64}[
+            g.data.element_size()]
+        assert torch.equal(g.data.cpu().view(bits), c.data.view(bits)), i
+        v = g.valid_mask()
+        assert torch.equal(g.data.view(bits)[v], h.data.view(bits)[v]), i
+    gd = read(cuda, "device", encoded=True)[4]
+    cd = read("cpu", "device", encoded=True)[4]
+    assert D.is_dict(gd) and torch.equal(gd.data.cpu(), cd.data)
+    assert D._entries(D.dict_values(gd)) == D._entries(D.dict_values(cd))
