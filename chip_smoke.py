@@ -106,7 +106,26 @@ run exits non-zero:
      extract, run walk, copy, device decode and reservation, peak device
      memory, one read under torch.profiler) beside a pinned copy of file
      A's bytes; and prunes file A's footer with ``read_and_filter`` (the
-     plugin's ParquetFooter), whole and split at its midpoint.
+     plugin's ParquetFooter), whole and split at its midpoint;
+ 11. ``decimal_sf10``: DECIMAL128 end to end. Writes file C, lineitem at
+     60M rows with TPC-H's DECIMAL(12, 2) money columns as
+     FIXED_LEN_BYTE_ARRAY (the q1 draws, and l_orderkey); with the
+     launch counts set to 0 reads it with a CUDA reader (the money
+     columns on the host tier, counted ``host_columns_unsupported``, the
+     rest on the device tier), runs q1 in Spark's decimal types on the
+     eager ops (price * (1.00 - discount) and * (1.00 + tax) in kernel
+     H2, DECIMAL128 sums and means by (returnflag, linestatus)), the
+     decimal shuffle (B1 route, B3 rows with 16-byte slots, back and
+     concatenated), both hashes over the charge column and a join on the
+     discount (B2), and reads the counts; checks the read == the
+     generated table, q1 == numpy (exact in int64; the means HALF_UP in
+     Python ints), the round trip == its input, B1/B2 over DECIMAL128 ==
+     plain, and H2 == plain, bit for bit, on 1M seeded rows per op and
+     on the edge table; then times the read (first, warm median of 3,
+     the split), q1 and the shuffle (first, warm, peak, profile), the
+     hashes over the decimal bytes, and H2's six ops at 60M rows (events,
+     profiler, bound; divide's bound from the steps this data takes in
+     its loop and the loop's instructions in the SASS).
 
 Prints JSON lines (timings, then the {"kernels": [...]} line, whose
 entries give each kernel's launches by path) and, last,
@@ -325,6 +344,11 @@ def main():
     # ---- phase 10: the Parquet read path ----------------------------------
     paths["parquet_sf10"] = parquet_phase(dev, card, SF10_ROWS)
     phase_end("parquet_sf10")
+
+    # ---- phase 11: DECIMAL128 ----------------------------------------------
+    paths["decimal_sf10"], h2 = decimal_phase(dev, card, SF10_ROWS)
+    entries.append(h2)
+    phase_end("decimal_sf10")
     for entry, (_, wrapper, _, _) in zip(entries, K.KERNELS):
         entry["launches_by_path"] = {p: c[wrapper] for p, c in paths.items()}
     jline({"phase_seconds": PHASE_SECONDS})
@@ -2456,6 +2480,475 @@ def _parquet_phase(dev, card, rows, tmp):
                "bytes": int(raw.nbytes), **yard})
         del raw, pinned, pageable
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: DECIMAL128 (decimal_sf10)
+# ---------------------------------------------------------------------------
+
+# TPC-H's DECIMAL(12, 2) money columns of lineitem, as file C holds them
+MONEY = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+# q1's aggregates over (returnflag, linestatus, quantity, extendedprice,
+# disc_price, charge, discount): four sums, three means, a count
+Q1_DEC_AGGS = [(2, "sum"), (3, "sum"), (4, "sum"), (5, "sum"), (2, "mean"),
+               (3, "mean"), (6, "mean"), (2, "count")]
+Q1_DEC_SCALES = (2, 2, 4, 6, 6, 6, 6, None)
+H2_DEVICE_KERNEL = "decimal128_kernel"
+# H2's timing operands: (op, Java scales a, b -> out); the operands are
+# 18-digit values at scale 4 and 9-digit nonzero values at scale 2
+H2_TIMED = (("add", 4, 2, 4), ("sub", 4, 2, 4), ("multiply", 4, 2, 6),
+            ("divide", 4, 2, 6), ("integer_divide", 4, 2, 0),
+            ("remainder", 4, 2, 4))
+
+
+def decimal_lineitem_arrays(rows):
+    """File C's lineitem as numpy arrays: the q1/q6 draws of
+    ``tpch.q1_arrays(rows, 0)`` with the four money columns as the
+    unscaled int64 values of TPC-H's DECIMAL(12, 2) (quantity x 100 —
+    its unit is whole —, cents, discount and tax in hundredths), and a
+    uniform l_orderkey over SF10's 1..60M key range."""
+    from spark_rapids_jni_tpu_torch import tpch
+    a = tpch.q1_arrays(rows, 0)
+    out = {"l_orderkey": np.random.default_rng(1).integers(1, 60_000_001,
+                                                            rows)}
+    out["l_quantity"] = a["l_quantity"] * 100
+    out["l_extendedprice"] = a["l_extendedprice"]
+    out["l_discount"] = a["l_discount"].astype(np.int64)
+    out["l_tax"] = a["l_tax"].astype(np.int64)
+    for k in ("l_returnflag", "l_linestatus", "l_shipdate"):
+        out[k] = a[k]
+    return out
+
+
+def q1_decimal(li, cutoff=2400):
+    """TPC-H q1 in Spark's decimal types on the eager ops, over file C's
+    lineitem: disc_price = price * (1.00 - discount) at scale 4, charge =
+    disc_price * (1.00 + tax) at scale 6 (kernel H2; the literal 1.00 is a
+    stride-0 column), then the groupby of Q1_DEC_AGGS by (returnflag,
+    linestatus) where shipdate <= cutoff, sorted by the keys. Returns (the
+    result, the charge column, any overflow of the arithmetic)."""
+    from spark_rapids_jni_tpu_torch.columnar.column import (
+        Table, decimal128_literal)
+    from spark_rapids_jni_tpu_torch.ops import decimal128 as D
+    from spark_rapids_jni_tpu_torch.ops import groupby as G
+    from spark_rapids_jni_tpu_torch.ops.sort import sort_table
+    _, qty, price, disc, tax, rf, ls, ship = li.columns
+    one = decimal128_literal("1.00", 2, li.num_rows, li.device)
+    d1 = D.sub_decimal128(one, disc, 2)
+    t1 = D.add_decimal128(one, tax, 2)
+    dp = D.multiply_decimal128(price, d1[1], 4)
+    ch = D.multiply_decimal128(dp[1], t1[1], 6)
+    over = (d1[0].data | t1[0].data | dp[0].data | ch[0].data).any()
+    g = G.groupby_aggregate(Table((rf, ls, qty, price, dp[1], ch[1], disc)),
+                            [0, 1], Q1_DEC_AGGS,
+                            row_mask=ship.data <= cutoff)
+    return sort_table(g, [0, 1]), ch[1], over
+
+
+def numpy_q1_decimal(a, cutoff=2400):
+    """q1 in decimals over the arrays, independent of the port: per
+    (returnflag, linestatus) in ascending order, the unscaled sums (exact
+    in int64: the largest charge is 1.05e7 x 100 x 108 at scale 6), the
+    means HALF_UP at scale 6 in Python ints, and the count."""
+    keep = a["l_shipdate"] <= cutoff
+    key = a["l_returnflag"].astype(np.int64) * 2 + a["l_linestatus"]
+    price, disc, tax = (a[k] for k in ("l_extendedprice", "l_discount",
+                                       "l_tax"))
+    dp = price * (100 - disc)
+    charge = dp * (100 + tax)
+    out = []
+    for g in np.unique(key[keep]):
+        sel = keep & (key == g)
+        cnt = int(sel.sum())
+        sums = [int(v[sel].sum()) for v in (a["l_quantity"], price, dp,
+                                            charge)]
+        means = [(2 * s * 10**4 + cnt) // (2 * cnt)  # HALF_UP, s >= 0
+                 for s in (sums[0], sums[1], int(disc[sel].sum()))]
+        out.append([int(g) // 2, int(g) % 2] + sums + means + [cnt])
+    return out
+
+
+def _q1_rows(t):
+    """The q1 result's rows as Python ints (decimals unscaled)."""
+    cols = []
+    for c, scale in zip(t.columns, (None, None) + Q1_DEC_SCALES):
+        vals = c.to_pylist()
+        cols.append(vals if scale is None else
+                    [None if v is None else int(v.scaleb(scale))
+                     for v in vals])
+    return [list(r) for r in zip(*cols)]
+
+
+def _sass_loops(lib_path, kernel):
+    """Backward branches (loops) of ``kernel`` in the SASS of
+    ``lib_path``, as instruction counts, longest first; None without
+    cuobjdump."""
+    import re
+    import shutil
+    from pathlib import Path
+    tool = next((c for c in (shutil.which("cuobjdump"),
+                             "/usr/local/cuda/bin/cuobjdump")
+                 if c and Path(c).exists()), None)
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    body = next((p for p in sass.split("Function : ")[1:]
+                 if kernel in p.splitlines()[0]), "")
+    labels, insns = {}, []
+    pending = []
+    for line in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for lab in pending:
+            labels[lab] = addr
+        pending = []
+        insns.append((addr, m.group(2)))
+    loops = []
+    for addr, text in insns:
+        if "BRA" not in text:
+            continue
+        m = re.search(r"0x([0-9a-f]+)|`\((\.L_x_\d+)\)", text)
+        if not m:
+            continue
+        target = int(m.group(1), 16) if m.group(1) else labels.get(
+            m.group(2))
+        if target is not None and target <= addr:
+            loops.append(sum(1 for a, _ in insns if target <= a <= addr))
+    return sorted(loops, reverse=True)
+
+
+def h2_kernel_ms(calls, reps=5):
+    """Mean device ms of H2's kernel for each (fn, op) in ``calls``, where
+    fn() launches H2 once for ``op``: the launches of that op's kernel
+    (decimal128_kernel<code>, the op its template argument) under one
+    torch.profiler session. An op none of whose launches the profiler saw
+    reads None (not measured: the CUDA-event time ``ms`` stands)."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_jni_tpu_torch.ops.decimal128 import OPS
+    for fn, _ in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn, _ in calls:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for e in prof.events():
+        m = re.search(H2_DEVICE_KERNEL + r"<[^0-9>]*(\d+)>", e.name)
+        if e.device_type == DeviceType.CUDA and m:
+            seen.setdefault(int(m.group(1)), []).append(
+                e.time_range.elapsed_us() / 1e3)
+    out = []
+    for _, op in calls:
+        d = seen.get(OPS[op], [])
+        out.append(sum(d) / len(d) if d else None)
+    return out
+
+
+def _divide_iterations(a_data):
+    """(steps, rows): the steps of H2's bit-serial loop that divide's
+    timed operands need, and the rows that take it. n = a x 10^4 (scale 4
+    -> 6 over scale 2) takes one step per bit of |n| where n passes 2^64
+    (below, both operands fit the hardware's 64-bit division)."""
+    w = a_data.view(torch.int64)[:, 0].abs()  # |a| < 10^18 < 2^63
+    lo = (w & 0xFFFFFFFF) * 10**4
+    hi = (w >> 32) * 10**4 + (lo >> 32)        # n = hi * 2^32 + lo32
+    bits = 32 + torch.frexp(hi.to(torch.float64))[1].to(torch.int64)
+    loop = hi >= 1 << 32
+    return int(torch.where(loop, bits, 0).sum()), int(loop.sum())
+
+
+def _h2_operands(rows, dev, seed):
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column
+    from spark_rapids_jni_tpu_torch.utils import datagen
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-10**18, 10**18, rows)
+    b = rng.integers(1, 10**9, rows) * rng.choice([-1, 1], rows)
+    valid = rng.random(rows) > 0.01
+    return (Column.from_numpy(datagen.decimal128_limbs(a), dt.decimal128(4),
+                              validity=valid, device=dev),
+            Column.from_numpy(datagen.decimal128_limbs(b), dt.decimal128(2),
+                              device=dev))
+
+
+def _h2_call(op, a, b, scale, cast=True):
+    from spark_rapids_jni_tpu_torch.ops import decimal128 as D
+    fn = getattr(D, f"{op}_decimal128")
+    kw = {"cast_interim_result": cast} if op == "multiply" else {}
+    return fn(a, b, **kw) if op == "integer_divide" else fn(a, b, scale,
+                                                            **kw)
+
+
+def _h2_equals_plain(op, a, b, scale, cast=True, plain_device=None):
+    """(H2 == its plain version, bit for bit: limbs, overflow and
+    validity; the plain version's wall ms). The plain version
+    (ops/decimal128.op_plain) runs on ``plain_device``, by default the
+    inputs' own."""
+    from spark_rapids_jni_tpu_torch.ops import decimal128 as D
+    got = _h2_call(op, a, b, scale, cast)
+    pdev = plain_device or a.device
+    (over, res), ms = wall(lambda: D.op_plain(
+        op, a.data.to(pdev), b.data.to(pdev), -a.dtype.scale,
+        -b.dtype.scale, -scale, cast), a.device)
+    ok = (torch.equal(got[0].data.cpu(), over.to(torch.uint8).cpu())
+          and torch.equal(got[1].data.cpu(), res.cpu())
+          and torch.equal(got[0].valid_mask(), got[1].valid_mask())
+          and torch.equal(got[1].valid_mask(),
+                          a.valid_mask() & b.valid_mask()))
+    return ok, ms
+
+
+def decimal_phase(dev, card, rows):
+    """Phase 11: DECIMAL128 end to end (``decimal_sf10``). Writes file C,
+    TPC-H's lineitem with its DECIMAL(12, 2) money columns as
+    FIXED_LEN_BYTE_ARRAY, and with the launch counts set to 0 reads it
+    with a CUDA reader (11a), runs q1 in Spark's decimal types on the
+    eager ops (11b) and the shuffle of the decimal lineitem with both
+    hashes over the charge column and a join on the discount (11c); reads
+    the counts; then checks each against the generated table and numpy,
+    and times H2's six ops (11d). Returns (the launches of the counted
+    run, H2's kernels entry)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="decimal_sf10_")
+    try:
+        return _decimal_phase(dev, card, rows, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _decimal_phase(dev, card, rows, tmp):
+    import os
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.table_ops import concat_tables
+    from spark_rapids_jni_tpu_torch.ops import hashing as H
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+    from spark_rapids_jni_tpu_torch.ops.join import inner_join
+    from spark_rapids_jni_tpu_torch.parallel.exchange import partition_ids
+    from spark_rapids_jni_tpu_torch.parquet.reader import route_metrics
+    from spark_rapids_jni_tpu_torch.utils import datagen
+    from spark_rapids_jni_tpu_torch.utils import datagen_parquet as W
+
+    cuda = dev.type == "cuda"
+    device_tier = "auto" if cuda else "device"  # auto: the card's default
+    secs, t_part = {}, [time.perf_counter()]
+
+    def lap(name):  # seconds of each part of the phase
+        now = time.perf_counter()
+        secs[name] = now - t_part[0]
+        t_part[0] = now
+
+    # the file
+    a = decimal_lineitem_arrays(rows)
+    path = os.path.join(tmp, "lineitem_decimal.parquet")
+    t = time.perf_counter()
+    info = W.write_parquet(path, [W.ParquetColumn(
+        k, values=v, decimal=(12, 2) if k in MONEY else None)
+        for k, v in a.items()])
+    write_s = time.perf_counter() - t
+    jline({"phase": "decimal_sf10", "part": "file", **card, "file": "C",
+           "rows": rows, "bytes": info["bytes"],
+           "row_groups": len(info["row_groups"]),
+           "money_columns": "FIXED_LEN_BYTE_ARRAY DECIMAL(12, 2), 6 bytes",
+           "encodings_first_group": {k: v[0] for k, v in
+                                     info["encodings"].items()},
+           "write_s": write_s})
+    gen = Table(tuple(
+        Column.from_numpy(datagen.decimal128_limbs(v), dt.decimal128(2),
+                          device=dev) if k in MONEY
+        else Column.from_numpy(v, device=dev) for k, v in a.items()))
+    dim = datagen.decimal128_column(list(range(11)), 2, device=dev)
+    lap("write_and_generate")
+
+    def shuffle(li):
+        pids = partition_ids(li, [0], PARTITIONS)
+        batches = R.convert_to_rows(li)
+        dtypes = [c.dtype for c in li.columns]
+        return pids, len(batches), concat_tables(
+            [R.convert_from_rows(b, dtypes) for b in batches])
+
+    # 11a-11c, counted
+    K.reset_launches()
+    route_metrics.reset()
+    li, routes, first_read_ms = _read(path, dev, device_tier)
+    counted_routes = route_metrics.snapshot()
+    (q1, charge, over), first_q1_ms = wall(lambda: q1_decimal(li), dev)
+    (pids, n_batches, back), first_shuffle_ms = wall(lambda: shuffle(li),
+                                                     dev)
+    h_mm = H.murmur_hash3_32([charge])
+    h_xx = H.xxhash64([charge])
+    l_idx, r_idx = inner_join([li[3]], [dim])
+    _sync(dev)
+    launches = _kernel_counts()
+    log(f"decimal launches: {launches}")
+    for wrapper in ("murmur3_fixed_rows", "xxhash64_fixed_rows",
+                    "rowconv_fixed_words", "decimal128_op"):
+        if cuda and launches[wrapper] < 1:
+            raise AssertionError(f"phase 11 never launched {wrapper}")
+    lap("counted_run")
+    jline({"phase": "decimal_sf10", "part": "routes", **card,
+           "columns": {c: [r["tier"], r["why"]] for c, r in routes.items()},
+           "route_metrics_counted_run": counted_routes})
+
+    # checks
+    want_q1 = numpy_q1_decimal(a)
+    n1 = min(rows, 1_000_000)
+    head = Column(charge.dtype, n1, data=charge.data[:n1])
+    schema = [("str", H.dec128_hash_words(head), None)]
+    cpu_li = Table(tuple(Column(c.dtype, n1, data=c.data[:n1].cpu())
+                         for c in li.columns))
+    checks = {
+        "C_read_equals_generated": _same_cols(li, gen),
+        "money_columns_host_tier_unsupported": all(
+            (routes[k]["tier"], routes[k]["why"]) ==
+            ("host", "host_columns_unsupported") for k in MONEY)
+        and counted_routes["host_columns_unsupported"] == len(MONEY),
+        "other_columns_device_tier": all(
+            r["tier"] == "device" for k, r in routes.items()
+            if k not in MONEY) or not cuda,
+        "q1_equals_numpy": _q1_rows(q1) == want_q1,
+        "q1_no_overflow": not bool(over),
+        "shuffle_round_trip_equals_input": _same_cols(back, li),
+        "partition_ids_equal_cpu_1m": torch.equal(
+            pids[:n1].cpu(), partition_ids(cpu_li, [0], PARTITIONS)),
+        "B1_decimal_equals_plain_1m": torch.equal(
+            H.murmur_hash3_32([head]).data,
+            K.murmur3_fixed_rows_plain(schema, 42, n1)),
+        "B2_decimal_equals_plain_1m": torch.equal(
+            H.xxhash64([head]).data,
+            K.xxhash64_fixed_rows_plain(schema, 42, n1)),
+        "join_each_row_to_its_discount": (
+            l_idx.numel() == rows and torch.equal(
+                li[3].data.index_select(0, l_idx),
+                dim.data.index_select(0, r_idx))),
+    }
+    del back, h_mm, h_xx, l_idx, r_idx, cpu_li, gen
+
+    # 11d: H2 == plain on 1M seeded rows (the plain version on the card,
+    # timed) and on the edge table (the plain version on the CPU)
+    xa, xb = _h2_operands(n1, dev, 12)
+    plain_ms = {}
+    for op, _, _, scale in H2_TIMED:
+        checks[f"H2_{op}_equals_plain_1m"], plain_ms[op] = \
+            _h2_equals_plain(op, xa, xb, scale)
+    checks["H2_multiply_no_interim_cast_equals_plain_1m"] = \
+        _h2_equals_plain("multiply", xa, xb, 6, cast=False)[0]
+    edge = datagen.decimal128_edge_cases(512, 3, dev)
+    checks["H2_edge_table_equals_plain"] = all(
+        _h2_equals_plain(op, ea, eb, scale, cast, torch.device("cpu"))[0]
+        for op, ea, eb, scale, cast in edge)
+    del xa, xb, edge
+    lap("checks")
+    jline({"phase": "decimal_sf10", "part": "checks", **card, **checks})
+    failed = [k for k, ok in checks.items() if ok is not True]
+    if failed:
+        raise AssertionError(f"phase 11: {failed}")
+    log("check phase 11: file C == the generated table, its money columns "
+        "on the host tier; decimal q1 == numpy; the shuffle round trip == "
+        "its input; B1/B2 over DECIMAL128 == plain; H2 == plain on 1M rows "
+        "and the edge table")
+
+    entry = {"name": K.KERNELS[4][0], "route": "cuda",
+             "source": K.KERNELS[4][2], "replaces": K.KERNELS[4][3],
+             "launches": launches["decimal128_op"], "bit_exact": True,
+             "max_abs_err": 0}
+    if not cuda:
+        return launches, entry
+
+    # times: 11a reads, 11b q1, 11c shuffle and hashes
+    warm, parts = [], []
+    for _ in range(3):
+        tim = {}
+        _, _, ms = _read(path, dev, device_tier, timings=tim)
+        warm.append(ms)
+        parts.append(tim)
+    mid = sorted(range(3), key=warm.__getitem__)[1]
+    jline({"phase": "decimal_sf10", "part": "read_time", **card,
+           "file": "C", "rows": rows, "file_bytes": info["bytes"],
+           "first_ms": first_read_ms, "warm_ms": sorted(warm),
+           "warm_median_ms": warm[mid],
+           "split_ms_of_the_median_read": {
+               k: v for k, v in parts[mid].items()
+               if not k.startswith("walk_ms:")},
+           "tiers": {"host": list(MONEY),
+                     "device": [k for k in a if k not in MONEY]}})
+    for name, fn, first in (("q1", lambda: q1_decimal(li), first_q1_ms),
+                            ("shuffle", lambda: shuffle(li),
+                             first_shuffle_ms)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        K.reset_launches()
+        times = sorted(wall(fn, dev)[1] for _ in range(3))
+        n_launch = _kernel_counts()
+        jline({"phase": "decimal_sf10", "part": f"{name}_time", **card,
+               "rows": rows, "first_ms": first, "warm_ms": times,
+               "warm_median_ms": times[1],
+               "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+               "launches_per_run": {k: v // 3 for k, v in n_launch.items()
+                                    if v},
+               "profile": profile_once(fn)})
+    lap("read_q1_shuffle_times")
+    schema = [("str", H.dec128_hash_words(charge), None)]
+    for wrapper in ("murmur3_fixed_rows", "xxhash64_fixed_rows"):
+        fn = getattr(K, wrapper)
+        ms = cuda_ms(lambda: fn(schema, 42, rows), reps=5, warm=1)
+        nbytes = schema[0][1][1].numel() + 4 * (rows + 1) + rows * (
+            4 if wrapper.startswith("murmur") else 8)
+        b_ms, b_by = bound_ms(nbytes, 0)
+        jline({"phase": "decimal_sf10", "part": "hash_time", **card,
+               "kernel": wrapper, "rows": rows, "column": "charge",
+               "java_bytes": schema[0][1][1].numel(), "ms": ms,
+               "words_ms": cuda_ms(lambda: H.dec128_hash_words(charge),
+                                   reps=3, warm=1),
+               "bound_ms": b_ms, "bound_by": b_by})
+    del li, q1, charge, pids, schema
+
+    # 11d: H2's six ops at 60M rows
+    xa, xb = _h2_operands(rows, dev, 13)
+    k_ms = h2_kernel_ms([((lambda o=o, s=s: _h2_call(o, xa, xb, s)), o)
+                         for o, _, _, s in H2_TIMED])
+    # the division's loops (one step a trip); the one-instruction loop is
+    # the branch to itself after the kernel's EXIT
+    loops = [n for n in _sass_loops(K._lib_path("decimal128"),
+                                    "decimal128_kernelILi3E") or [] if n > 1]
+    steps, loop_rows = _divide_iterations(xa.data)
+    ops = {}
+    for i, (op, _, _, scale) in enumerate(H2_TIMED):
+        out_bytes = 9 if op == "integer_divide" else 17
+        # divide: its loop steps at the shortest division loop's
+        # instructions (a lower bound on any step's)
+        nops = steps * min(loops) if op == "divide" and loops else 0
+        b_ms, b_by = bound_ms(rows * (32 + out_bytes), nops)
+        ms = cuda_ms(lambda: _h2_call(op, xa, xb, scale), reps=5, warm=1)
+        ops[op] = {"ms": ms, **profiler_fields(k_ms[i], ms),
+                   "plain_ms": plain_ms[op], "plain_rows": n1,
+                   "bound_ms": b_ms, "bound_by": b_by}
+        jline({"phase": "decimal_sf10", "part": "h2_time", **card,
+               "op": op, "rows": rows, **ops[op]})
+    jline({"phase": "decimal_sf10", "part": "h2_divide_loop", **card,
+           "sass_loops_of_divide_kernel": loops, "loop_steps": steps,
+           "rows_in_the_loop": loop_rows})
+    entry.update({k: ops["multiply"][k] for k in (
+        "ms", "kernel_ms", "profiler_ms", "plain_ms", "plain_rows",
+        "bound_ms", "bound_by")})
+    entry.update({"library_ms": None, "op": "multiply", "ops": ops})
+    lap("hash_and_h2_times")
+    jline({"phase": "decimal_sf10", "part": "seconds", **card, **secs})
+    return launches, entry
 
 
 def numpy_q1(a, cutoff=2400):

@@ -10,7 +10,11 @@ Fields of a Column:
             package keeps uint64 bit patterns).
   size:     row count.
   data:     the values, a 1-D tensor of ``dtype.torch_dtype``; for a
-            STRING column the characters, ``uint8[nbytes]``.
+            STRING column the characters, ``uint8[nbytes]``; for a
+            DECIMAL128 column ``int32[n, 4]`` little-endian two's-complement
+            limbs (the JAX package's ``uint32[n, 4]``, same bits). A
+            DECIMAL128 literal may be one row expanded to n (row stride 0,
+            ``decimal128_literal``).
   validity: ``bool[n]`` mask (True = valid), or None when every row is.
   offsets:  ``int32[n+1]`` row offsets of a STRING or LIST column, else
             None: row i is ``data[offsets[i]:offsets[i+1]]``.
@@ -32,6 +36,7 @@ column (gather, slice, filter, ``dataclasses.replace``) starts without.
 
 from __future__ import annotations
 
+import decimal as _pydecimal
 from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
@@ -146,10 +151,14 @@ class Column:
     def from_numpy(arr: np.ndarray, dtype: Optional[DType] = None,
                    validity: Optional[np.ndarray] = None,
                    device="cuda") -> "Column":
-        """Fixed-width column from a host numpy array, on ``device``."""
+        """Fixed-width column from a host numpy array, on ``device``
+        (DECIMAL128: ``[n, 4]`` 32-bit limbs)."""
         dev = resolve_device(device)
         if dtype is None:
             dtype = dt.infer_dtype(arr.dtype)
+        if dtype.id is TypeId.DECIMAL128 and (arr.ndim != 2
+                                              or arr.shape[1] != 4):
+            raise ValueError("DECIMAL128 data is [n, 4] 32-bit limbs")
         host = np.ascontiguousarray(arr.astype(dtype.np_dtype, copy=False))
         if not host.flags.writeable:  # torch.from_numpy needs writable
             host = host.copy()
@@ -178,8 +187,18 @@ class Column:
             return Column(dtype, n, data=torch.from_numpy(chars).to(dev),
                           validity=vmask,
                           offsets=torch.from_numpy(offsets).to(dev))
-        if dtype.is_decimal:
-            raise dt.not_ported("from_pylist of decimals", "A12, decimals")
+        if dtype.id is TypeId.DECIMAL128:
+            limbs = np.zeros((n, 4), dtype=np.uint32)
+            for i, v in enumerate(values):
+                if v is not None:
+                    limbs[i] = int128_to_limbs(
+                        _to_unscaled_int(v, dtype.scale))
+            col = Column.from_numpy(limbs, dtype, device=dev)
+            col.validity = vmask
+            return col
+        if dtype.is_decimal:  # DECIMAL32 / DECIMAL64: unscaled values
+            values = [None if v is None else _to_unscaled_int(v, dtype.scale)
+                      for v in values]
         arr = np.zeros(n, dtype=dtype.np_dtype)
         for i, v in enumerate(values):
             if v is not None:
@@ -244,11 +263,27 @@ class Column:
             return [child[offs[i]:offs[i + 1]] if valid[i] else None
                     for i in range(self.size)]
         arr = self.to_numpy()
+        if self.dtype.id is TypeId.DECIMAL128:
+            return [_scaled_decimal(limbs_to_int128(arr[i]), self.dtype.scale)
+                    if valid[i] else None for i in range(self.size)]
+        if self.dtype.is_decimal:
+            return [_scaled_decimal(int(arr[i]), self.dtype.scale)
+                    if valid[i] else None for i in range(self.size)]
         if self.dtype.id is TypeId.BOOL8:
             return [bool(arr[i]) if valid[i] else None
                     for i in range(self.size)]
         return [arr[i].item() if valid[i] else None
                 for i in range(self.size)]
+
+
+def decimal128_literal(value, scale: int, n: int, device="cuda") -> Column:
+    """A DECIMAL128 literal as an n-row column: one row of limbs expanded
+    to n (row stride 0, no copy), as Spark's ``1 - l_discount`` holds its
+    ``1.00``. ``value``: an int (unscaled), a Decimal or its string."""
+    dev = resolve_device(device)
+    row = int128_to_limbs(_to_unscaled_int(value, scale))
+    data = torch.from_numpy(row.view(np.int32).copy()).to(dev)
+    return Column(dt.decimal128(scale), n, data=data[None, :].expand(n, 4))
 
 
 def _host_to_tensor(host: np.ndarray, dtype: DType,
@@ -259,6 +294,51 @@ def _host_to_tensor(host: np.ndarray, dtype: DType,
     storage_np = torch.empty(0, dtype=dtype.torch_dtype).numpy().dtype
     t = torch.from_numpy(host.view(storage_np))
     return t.clone() if dev.type == "cpu" else t.to(dev)
+
+
+# ---- int128 limb helpers (host side; the JAX package's) --------------------
+
+_MASK128 = (1 << 128) - 1
+
+
+def int128_to_limbs(value: int) -> np.ndarray:
+    """Two's-complement 128-bit -> 4 little-endian uint32 limbs."""
+    v = value & _MASK128
+    return np.array([(v >> (32 * i)) & 0xFFFFFFFF for i in range(4)],
+                    dtype=np.uint32)
+
+
+def limbs_to_int128(limbs: np.ndarray) -> int:
+    v = 0
+    for i in range(4):
+        v |= (int(limbs[i]) & 0xFFFFFFFF) << (32 * i)
+    if v >= (1 << 127):
+        v -= 1 << 128
+    return v
+
+
+def _to_unscaled_int(v, scale: int) -> int:
+    """The unscaled integer of a value at a Java scale: an int is taken
+    as unscaled already; a Decimal (or its string) is shifted by its
+    exponent and rounded HALF_UP, independent of the decimal context."""
+    if isinstance(v, (int, np.integer)):
+        return int(v)
+    if isinstance(v, _pydecimal.Decimal):
+        sign, digits, exp = v.as_tuple()
+        shifted = _pydecimal.Decimal((sign, digits, exp + scale))
+        return int(shifted.to_integral_value(
+            rounding=_pydecimal.ROUND_HALF_UP))
+    if isinstance(v, str):
+        return _to_unscaled_int(_pydecimal.Decimal(v), scale)
+    raise TypeError(f"cannot build decimal from {type(v)}")
+
+
+def _scaled_decimal(unscaled: int, scale: int) -> _pydecimal.Decimal:
+    """Exact Decimal of an unscaled value (``scaleb`` would round to the
+    context's precision, 28 digits by default)."""
+    sign = 1 if unscaled < 0 else 0
+    digits = tuple(int(c) for c in str(abs(unscaled)))
+    return _pydecimal.Decimal((sign, digits, -scale))
 
 
 @dataclass

@@ -3,11 +3,11 @@
 The type ids and their wire names are the JAX package's (a column crosses
 between the two packages as ``(dtype_str, rows, data, offsets, validity)``;
 see columnar/interop.py), so every id is declared here. The port stores
-the fixed-width ids, STRING (uint8 characters + int32 offsets, see
-columnar/column.py) and the encoded ids DICT32, RLE, FOR32 and FOR64
-(columns with children: columnar/dictionary.py, columnar/encodings.py);
-the others raise ``NotImplementedError`` naming the ROADMAP queue item
-that brings them. ``require_stored`` admits the fixed-width and encoded
+the fixed-width ids, DECIMAL128, STRING (uint8 characters + int32
+offsets, see columnar/column.py) and the encoded ids DICT32, RLE, FOR32
+and FOR64 (columns with children: columnar/dictionary.py,
+columnar/encodings.py); the others raise ``NotImplementedError`` naming
+the ROADMAP queue item that brings them. ``require_stored`` admits the fixed-width and encoded
 ids: a STRING column raises there, in every op that reads values as
 fixed-width elements (plan expressions, aggregated values).
 
@@ -17,7 +17,10 @@ comparison for uint16/uint32/uint64, so those three are stored as the
 int16/int32/int64 of the same bits; readback (``Column.to_numpy``) views
 them back. FLOAT64 is stored as native float64 (Hopper has exact f64; the
 JAX package keeps uint64 bit patterns because the TPU's f64 is lossy) —
-views, copies and gathers keep every bit, NaN payloads included. DICT32
+views, copies and gathers keep every bit, NaN payloads included.
+DECIMAL128 is the one 2-D storage: ``int32[n, 4]``, the JAX package's
+``uint32[n, 4]`` little-endian two's-complement limbs as the int32 of the
+same bits (``itemsize`` 16, ``np_dtype`` uint32: one limb). DICT32
 stores int32 codes. RLE stores no row buffer and FOR stores packed bytes;
 for those ``np_dtype`` and ``torch_dtype`` name the LOGICAL element type,
 as in the JAX package.
@@ -79,6 +82,7 @@ _FIXED = {
     TypeId.TIMESTAMP_MICROSECONDS: (np.int64, torch.int64),
     TypeId.DECIMAL32: (np.int32, torch.int32),
     TypeId.DECIMAL64: (np.int64, torch.int64),
+    TypeId.DECIMAL128: (np.uint32, torch.int32),  # [n, 4] limbs
     TypeId.DICT32: (np.int32, torch.int32),
     TypeId.RLE: (np.int64, torch.int64),
     TypeId.FOR32: (np.int32, torch.int32),
@@ -88,7 +92,6 @@ _FIXED = {
 # where each id the port does not store yet is queued (ROADMAP.md queue A)
 _QUEUED = {
     TypeId.STRING: "A10, strings in plan expressions and aggregates",
-    TypeId.DECIMAL128: "A12, decimal128",
     TypeId.LIST: "A1, nested columns",
     TypeId.STRUCT: "A1, nested columns",
 }
@@ -155,6 +158,8 @@ class DType:
     @property
     def itemsize(self) -> int:
         """Element size in bytes (the JCUDF layout size)."""
+        if self.id is TypeId.DECIMAL128:
+            return 16
         return np.dtype(self._fixed()[0]).itemsize
 
     @property
@@ -198,6 +203,19 @@ def for32(width: int) -> DType:
 def for64(width: int) -> DType:
     """FOR64 with a static bit width (1..32) in the scale slot."""
     return DType(TypeId.FOR64, width)
+
+
+def decimal32(scale: int) -> DType:
+    return DType(TypeId.DECIMAL32, scale)
+
+
+def decimal64(scale: int) -> DType:
+    return DType(TypeId.DECIMAL64, scale)
+
+
+def decimal128(scale: int) -> DType:
+    """DECIMAL128 at a Java scale (digits after the point)."""
+    return DType(TypeId.DECIMAL128, scale)
 
 
 def parse_dtype(s: str) -> DType:

@@ -5,8 +5,9 @@ The JAX package's engine bridge moves a column as the tuple
 the top of that file):
 
   * dtype_str: the TypeId value, with ":scale" for decimals
-    ("int64", "decimal64:2", "timestamp_us", ...);
-  * data:      raw little-endian value bytes (FLOAT64 = IEEE-754 bits);
+    ("int64", "decimal64:2", "decimal128:2", "timestamp_us", ...);
+  * data:      raw little-endian value bytes (FLOAT64 = IEEE-754 bits,
+    DECIMAL128 = 16-byte two's complement);
   * offsets:   int64[rows+1] bytes for STRING, else None;
   * validity:  uint8[rows] 0/1 bytes, or None (= all valid).
 
@@ -31,9 +32,9 @@ WireCol = Tuple[str, int, bytes, Optional[bytes], Optional[bytes]]
 
 
 def wire_to_col(w: WireCol, device="cuda") -> Column:
-    """Wire tuple -> port Column on ``device`` (fixed-width and STRING
-    types; STRING offsets narrow to int32 and the characters stop at the
-    last offset, as in the JAX package's bridge)."""
+    """Wire tuple -> port Column on ``device`` (fixed-width, DECIMAL128
+    and STRING types; STRING offsets narrow to int32 and the characters
+    stop at the last offset, as in the JAX package's bridge)."""
     name, rows, data, offsets, validity = w
     d = dt.parse_dtype(name)
     dev = resolve_device(device)
@@ -43,6 +44,9 @@ def wire_to_col(w: WireCol, device="cuda") -> Column:
         chars = np.frombuffer(data, np.uint8)[:int(offs[-1])].copy()
         col = Column(d, rows, data=torch.from_numpy(chars).to(dev),
                      offsets=torch.from_numpy(offs.astype(np.int32)).to(dev))
+    elif d.id is TypeId.DECIMAL128:
+        limbs = np.frombuffer(data, np.uint32)[:4 * rows].reshape(rows, 4)
+        col = Column.from_numpy(limbs, d, device=dev)
     else:
         vals = np.frombuffer(data, d.require_stored().np_dtype)[:rows]
         col = Column.from_numpy(vals, d, device=dev)

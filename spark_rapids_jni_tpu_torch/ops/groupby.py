@@ -23,8 +23,17 @@ inputs and flush-to-zero results; FLOAT32 widens to float64 first (a
 subnormal becomes ±0, a NaN is quieted). The sum, min and max of a float
 column run in kernel H1 (``kernels.segment_float_agg``), which keeps that
 order and those flushes; a float mean is that sum over ``max(count, 1)``,
-flushed as x86 flushes a quotient. Decimal and UINT64 aggregates are
-ROADMAP A12 and raise.
+flushed as x86 flushes a quotient.
+
+Decimals and UINT64, as in the JAX package: DECIMAL32/64 and UINT64
+aggregate their stored integers as int64 (sum INT64, mean FLOAT64 of the
+unscaled values, min/max in int64 order, the type kept). DECIMAL128 keys
+compare their limb rows; its sum is exact mod 2^128 (per-limb int64
+segment sums, one carry pass), min/max take the high then the low 64
+bits, and its mean is Spark's avg(decimal): the sum divided by the count
+in ops/decimal128 (kernel H2 on the card) at scale min(s + 4, 38), null
+where the sum wraps past int128 or the quotient overflows. DECIMAL128
+aggregates run on the sorted path only.
 
 Two sort-free paths take a single encoded key, as in the JAX package: a
 DICT32 key maps its codes through the dictionary's ranks to |dictionary|+1
@@ -79,6 +88,10 @@ def _keys_equal_prev(col: Column, order: torch.Tensor) -> torch.Tensor:
                      == words.index_select(0, pidx)).all(dim=1)
                     & (lengths.index_select(0, idx)
                        == lengths.index_select(0, pidx)))
+    elif col.dtype.id is TypeId.DECIMAL128:  # both words of the limbs
+        from .int128 import take_words
+        a, b = take_words(col.data, idx), take_words(col.data, pidx)
+        same_val = (a[0] == b[0]) & (a[1] == b[1])
     else:
         # a DICT32 key compares codes: the entries are unique
         vals = spark_key_values(col)
@@ -102,7 +115,8 @@ def _agg_out_dtype(vdtype: dt.DType, op: str) -> dt.DType:
     """Result dtype of an aggregation over a column of (logical) type
     ``vdtype``, and the one validation point: Spark's sum(int) -> long,
     sum(float/double) -> double, count -> long, mean -> double, min/max
-    keep the type."""
+    keep the type; DECIMAL128 sum/min/max keep it, its mean is
+    DECIMAL128 at scale min(s + 4, 38)."""
     if op == "count":
         return dt.INT64
     if op not in ("sum", "min", "max", "mean"):
@@ -111,9 +125,9 @@ def _agg_out_dtype(vdtype: dt.DType, op: str) -> dt.DType:
         raise TypeError("groupby aggregation over dictionary-encoded "
                         "string value columns supports count only")
     vdtype.require_stored()
-    if vdtype.is_decimal or vdtype.id is TypeId.UINT64:
-        raise dt.not_ported(f"groupby {op} over {vdtype.id.value}",
-                            "A12, decimal and unsigned 64-bit aggregates")
+    if vdtype.id is TypeId.DECIMAL128:
+        return dt.decimal128(min(vdtype.scale + 4, 38)) if op == "mean" \
+            else vdtype
     if op == "mean" or (op == "sum" and vdtype.is_floating):
         return dt.FLOAT64
     return dt.INT64 if op == "sum" else vdtype
@@ -260,10 +274,22 @@ def _segment_agg_fixed(vcol: Column, order: Optional[torch.Tensor],
     None the rows are in table order and, unless ``sorted_ids``, the ids
     in any order); masked rows contribute the op's identity (+0.0 to a
     float sum). ``state``: the value column's memo within one groupby, so
-    every float aggregation of the column reads one H1 result."""
+    every float aggregation of the column reads one H1 result, and a
+    DECIMAL128 column's sum and mean one 128-bit sum."""
     out_dtype = _agg_out_dtype(vcol.dtype, op)
     if op == "count":
         return Column(dt.INT64, num_segments, data=cnt)
+    if vcol.dtype.id is TypeId.DECIMAL128:  # sorted path only
+        if op in ("sum", "mean") and "dec_sum" not in state:
+            state["dec_sum"] = _decimal128_sum(vcol, order, valid, seg_ids,
+                                               num_segments, cnt > 0)
+        if op == "sum":
+            return state["dec_sum"][0]
+        if op == "mean":
+            return _decimal128_mean(state["dec_sum"], num_segments, cnt,
+                                    out_dtype)
+        return _decimal128_minmax(vcol, order, valid, seg_ids, num_segments,
+                                  cnt > 0, op == "min")
     if vcol.dtype.is_floating:
         if "h1" not in state:
             if sorted_ids:
@@ -298,6 +324,83 @@ def _segment_agg_fixed(vcol: Column, order: Optional[torch.Tensor],
                   data=res.to(out_dtype.torch_dtype), validity=cnt > 0)
 
 
+# ---------------------------------------------------------------------------
+# DECIMAL128 values (sorted path)
+# ---------------------------------------------------------------------------
+
+def _decimal128_sum(vcol: Column, order: torch.Tensor, valid: torch.Tensor,
+                    seg_ids: torch.Tensor, num_segments: int,
+                    any_valid: torch.Tensor):
+    """Exact 128-bit segment sums (the JAX package's
+    _decimal128_segment_sum): each u32 limb, and a fifth limb of the
+    sign extension, summed in int64 (exact for groups under 2^31 rows),
+    then one carry pass per group gives the sum mod 2^128 — negative
+    addends enter as their unsigned limbs, so the wrap is the signed sum.
+    Returns (the sum Column, bool[G] where the true sum is outside
+    int128: limb 4 is not the sign extension of limb 3)."""
+    from .hashing import _lsr
+    from .int128 import M32, take_words
+    lo, hi = take_words(vcol.data, order)  # sorted
+    # one 1-D prefix sum a limb (a scan down a column of an [n, 5] tensor
+    # is far slower on the card)
+    lanes = [torch.where(valid, x, 0) for x in
+             (lo & M32, _lsr(lo, 32), hi & M32, _lsr(hi, 32))]
+    lanes.append(torch.where(valid & (hi < 0), M32, 0))
+    out = []
+    carry = 0
+    for z in lanes:
+        t = _sorted_segment_sum(z, seg_ids, num_segments) + carry
+        out.append(t & M32)
+        carry = t >> 32
+    wrap = out[4] != torch.where(out[3] >> 31 != 0, M32, 0)
+    data = torch.stack(out[:4], dim=1).to(torch.int32)
+    return Column(vcol.dtype, num_segments, data=data,
+                  validity=any_valid), wrap
+
+
+def _decimal128_minmax(vcol: Column, order: torch.Tensor,
+                       valid: torch.Tensor, seg_ids: torch.Tensor,
+                       num_segments: int, any_valid: torch.Tensor,
+                       is_min: bool) -> Column:
+    """128-bit segment min/max: the high 64 bits (signed) are reduced
+    first, then the low 64 bits (unsigned, sign-flipped into int64 order)
+    among each group's rows that hold the winning high word. A group
+    with no valid row holds the JAX package's padding."""
+    from .int128 import take_words
+    lo, hi = take_words(vcol.data, order)  # sorted
+    pad = _I64_MAX if is_min else _I64_MIN
+    red = "amin" if is_min else "amax"
+    hi = torch.where(valid, hi, pad)
+    win_hi = torch.full((num_segments,), pad, dtype=torch.int64,
+                        device=hi.device).scatter_reduce_(0, seg_ids, hi,
+                                                          red)
+    on_win = valid & (hi == win_hi.index_select(0, seg_ids))
+    lo = torch.where(on_win, lo ^ _I64_MIN, pad)
+    win_lo = torch.full_like(win_hi, pad).scatter_reduce_(0, seg_ids, lo,
+                                                          red)
+    data = torch.stack([win_lo ^ _I64_MIN, win_hi], dim=1).view(
+        torch.int32)
+    return Column(vcol.dtype, num_segments, data=data, validity=any_valid)
+
+
+def _decimal128_mean(sum_wrap, num_segments: int, cnt: torch.Tensor,
+                     out_dtype: dt.DType) -> Column:
+    """Spark's avg(decimal): the exact group sum (``_decimal128_sum``'s
+    (column, wrap)) over the group count (a scale-0 DECIMAL128) by
+    ops/decimal128's HALF_UP division at scale min(s + 4, 38). An
+    all-null group, a sum past int128 and a quotient overflow come back
+    null."""
+    from .decimal128 import divide_decimal128
+    from .int128 import from_int64, storage
+    sum_col, wrap = sum_wrap
+    cnt_col = Column(dt.decimal128(0), num_segments,
+                     data=storage(from_int64(cnt)))
+    res = divide_decimal128(sum_col, cnt_col, out_dtype.scale)
+    overflow = (res.columns[0].data != 0) | wrap
+    return Column(out_dtype, num_segments, data=res.columns[1].data,
+                  validity=(cnt > 0) & ~overflow)
+
+
 def _check_row_mask(row_mask, n: int, device) -> Optional[torch.Tensor]:
     if row_mask is None:
         return None
@@ -309,9 +412,11 @@ def _check_row_mask(row_mask, n: int, device) -> Optional[torch.Tensor]:
 
 
 def _declines_fast_path(table: Table, aggs) -> bool:
-    """A sort-free path keeps its hands off float sums and means: their
-    order is the sorted path's."""
-    return any(table.columns[ci].dtype.is_floating and op in ("sum", "mean")
+    """A sort-free path keeps its hands off float sums and means (their
+    order is the sorted path's) and off DECIMAL128 values (their limb
+    carries stay on the sorted path), as the JAX package's do."""
+    return any((table.columns[ci].dtype.is_floating and op in ("sum", "mean"))
+               or table.columns[ci].dtype.id is TypeId.DECIMAL128
                for ci, op in aggs)
 
 
@@ -502,8 +607,9 @@ def _groupby_aggregate(table: Table, key_indices: Sequence[int],
         out_cols: List[Column] = [gather(k, order) for k in keys]
         for ci, op in aggs:
             od = _agg_out_dtype(table.columns[ci].dtype, op)
+            shape = (0, 4) if od.id is TypeId.DECIMAL128 else (0,)
             out_cols.append(Column(od, 0, data=torch.zeros(
-                0, dtype=od.torch_dtype, device=table.device)))
+                shape, dtype=od.torch_dtype, device=table.device)))
         return Table(tuple(out_cols))
 
     boundary, seg_ids = _segment_structure(cmp_keys, order)

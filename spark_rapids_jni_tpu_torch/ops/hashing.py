@@ -7,7 +7,10 @@ module reproduces them:
   * the running hash is chained across columns as the next column's seed,
     and a null element passes it through unchanged;
   * INT8/INT16 sign-extend to 4 bytes, BOOL8 hashes as ``!= 0``,
-    DECIMAL32/64 hash as the 8 bytes of the sign-extended unscaled value;
+    DECIMAL32/64 hash as the 8 bytes of the sign-extended unscaled value,
+    DECIMAL128 as the bytes of Java's
+    ``BigDecimal.unscaledValue().toByteArray()``: the minimal big-endian
+    two's complement, 1-16 bytes (``_dec128_java_bytes``);
   * murmur3 canonicalizes float NaNs only; xxhash64 canonicalizes NaNs
     and folds -0.0 into 0.0;
   * a string hashes its bytes: murmur3 mixes 4-byte little-endian blocks,
@@ -19,8 +22,9 @@ The per-type normalization (``_fixed_element_words``) runs here in torch;
 the chained mixing of whole rows, strings included, runs in the CUDA
 kernels B1 (murmur3) and B2 (xxhash64) behind ops/kernels.py, whose plain
 versions are built from the mixing functions below (strings over their
-zero-padded bytes, columnar/strings.py). DECIMAL128, LIST and STRUCT
-hashing are ROADMAP A2.
+zero-padded bytes, columnar/strings.py). A DECIMAL128 column enters
+them as a "str" entry of its Java bytes. LIST and STRUCT hashing are
+ROADMAP A2.
 
 torch has no shift, add or compare for uint32/uint64, so these mixing
 functions hold a u32 value in an int64 tensor masked to its low 32 bits,
@@ -304,15 +308,46 @@ def _fixed_element_words(col_dtype: DType, data: torch.Tensor,
         return "u64", _f64_bits(data, normalize_zero=for_xxhash)
     if tid is TypeId.DECIMAL32:
         return "u64", data.to(torch.int64)
-    if tid is TypeId.STRING:
-        raise TypeError("a STRING column hashes its bytes (the \"str\" "
-                        "schema entry of _hash_rows), not fixed-width words")
-    if tid in (TypeId.DECIMAL128, TypeId.LIST, TypeId.STRUCT):
-        raise dt.not_ported(f"{tid.value} hashing", "A2, decimal128 and "
-                            "nested row hashes")
+    if tid in (TypeId.STRING, TypeId.DECIMAL128):
+        raise TypeError(f"a {tid.name} column hashes its bytes (the "
+                        f"\"str\" schema entry of _hash_rows), not "
+                        f"fixed-width words")
+    if tid in (TypeId.LIST, TypeId.STRUCT):
+        raise dt.not_ported(f"{tid.value} hashing", "A2, nested row hashes")
     # DICT32, RLE and FOR: the JAX package's TypeError (a join aligns
     # dictionary codes, and decodes run and packed keys, before hashing)
     raise TypeError(f"unsupported hash element type {col_dtype}")
+
+
+def _dec128_java_bytes(limbs: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int32[n, 4] limbs -> (uint8[n, 16] big-endian minimal two's
+    complement bytes, zero padded; int64[n] lengths 1-16): Java's
+    BigInteger.toByteArray (hash.cuh:63-102)."""
+    n = limbs.shape[0]
+    le = limbs.contiguous().view(torch.uint8).reshape(n, 16)
+    is_neg = limbs[:, 3] < 0
+    fill = torch.where(is_neg, 0xFF, 0).to(torch.uint8)
+    pos = torch.arange(16, device=limbs.device)
+    length = torch.where(le != fill[:, None], pos + 1, 0).amax(dim=1) \
+        .clamp(min=1)
+    # a sign byte where the top kept byte's sign bit says otherwise
+    top = le.gather(1, (length - 1)[:, None])[:, 0]
+    length = torch.where((length < 16) & (is_neg ^ (top >= 0x80)),
+                         length + 1, length)
+    be = le.gather(1, (length[:, None] - 1 - pos).clamp(0, 15))
+    return torch.where(pos < length[:, None], be, 0), length
+
+
+def dec128_hash_words(col: Column) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A DECIMAL128 column's "str" schema words: (int32[n+1] offsets,
+    uint8 characters) of its Java bytes."""
+    be, length = _dec128_java_bytes(col.data)
+    offsets = torch.zeros(col.size + 1, dtype=torch.int32,
+                          device=be.device)
+    torch.cumsum(length, 0, dtype=torch.int32, out=offsets[1:])
+    pos = torch.arange(16, device=be.device)
+    return offsets, be[pos < length[:, None]]
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +377,8 @@ def _hash_rows(columns: Tuple[Column, ...], seed: int, algo: str) -> Column:
     for c in columns:
         if c.dtype.id is TypeId.STRING:
             kind, words = "str", (c.offsets, c.data)
+        elif c.dtype.id is TypeId.DECIMAL128:
+            kind, words = "str", dec128_hash_words(c)
         else:
             kind, words = _fixed_element_words(c.dtype, c.data, for_xx)
         schema.append((kind, words, c.validity))

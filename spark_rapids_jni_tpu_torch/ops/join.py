@@ -7,7 +7,8 @@ A sort-probe join, as in the JAX package:
   3. per left row, the run of equal right hashes by binary search;
   4. expansion of the candidate pairs and an exact key compare that kills
      hash collisions (floats over normalized bits: NaNs equal, -0.0 == 0.0;
-     STRING keys over their zero-padded bytes and lengths), in chunks of
+     STRING keys over their zero-padded bytes and lengths; DECIMAL128
+     keys over their limb rows), in chunks of
      pairs whose gathered key bytes stay under ``_VERIFY_MAX_BYTES``.
 
 The u64 hashes are held as int64 bits; XOR-ing the sign bit makes signed
@@ -90,6 +91,10 @@ def _col_equal(lc: Column, l_idx: torch.Tensor, rc: Column,
         rw = rmat.view(torch.int64)[:, :w]
         vals = ((lw.index_select(0, l_idx) == rw.index_select(0, r_idx))
                 .all(dim=1) & (llen[l_idx] == rlen[r_idx]))
+    elif lc.dtype.id is TypeId.DECIMAL128:  # both words of the limbs
+        from .int128 import take_words
+        a, b = take_words(lc.data, l_idx), take_words(rc.data, r_idx)
+        vals = (a[0] == b[0]) & (a[1] == b[1])
     else:
         vals = spark_key_values(lc)[l_idx] == spark_key_values(rc)[r_idx]
     eq = lv & rv & vals

@@ -9,7 +9,10 @@ ops/pallas_kernels.py:
 
 H1 ``segment_float_agg`` (csrc/segment_agg.cu) stands where the JAX
 package leaves float segment sums, minima and maxima to XLA: no torch op on
-the card sums a segment in row order with XLA:CPU's flushes.
+the card sums a segment in row order with XLA:CPU's flushes. H2
+``decimal128_op`` (csrc/decimal128.cu) stands where it computes Spark's
+DECIMAL128 arithmetic in 256-bit limb math of XLA ops (its ops/int256.py):
+one thread a row holds that math in registers.
 
 A wrapper launches its kernel when its input tensors lie on a CUDA device,
 and raises if the kernel cannot be built or launched. It computes the
@@ -42,7 +45,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("row_hash", "rowconv", "segment_agg")
+SOURCES = ("row_hash", "rowconv", "segment_agg", "decimal128")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -69,6 +72,12 @@ _SIGNATURES = {
                                _VP, _VP, _VP],
     # (x, n, out, stream)
     "srjt_dadd_chain": [_VP, ctypes.c_longlong, _VP, _VP],
+    # (op, a, a row stride, b, b row stride, n, a scale, b scale, out
+    #  scale, cast interim, out, overflow, error flag, stream)
+    "srjt_decimal128_op": [ctypes.c_int, _VP, ctypes.c_longlong, _VP,
+                           ctypes.c_longlong, ctypes.c_longlong,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, _VP, _VP, _VP, _VP],
 }
 
 
@@ -180,7 +189,7 @@ def _schema_device(schema) -> torch.device:
 
 def reset_launches() -> None:
     for fn in (murmur3_fixed_rows, xxhash64_fixed_rows, rowconv_fixed_words,
-               segment_float_agg):
+               segment_float_agg, decimal128_op):
         fn.launches = 0
 
 
@@ -1068,10 +1077,69 @@ def dadd_chain_ms(n: int, device: torch.device) -> float:
     return start.elapsed_time(end)
 
 
+# ---------------------------------------------------------------------------
+# H2: DECIMAL128 arithmetic
+# ---------------------------------------------------------------------------
+
+def _dec_rows(t: torch.Tensor, n: int, which: str) -> int:
+    """Row stride (in rows) of an int32[n, 4] limb operand: 1, or 0 for
+    one row expanded to n (a literal)."""
+    if t.dtype != torch.int32 or t.dim() != 2 or t.shape != (n, 4) \
+            or t.stride(1) != 1 or t.stride(0) not in (0, 4) \
+            or t.data_ptr() % 16:
+        raise ValueError(f"decimal128 operand {which}: expected int32[{n}, "
+                         f"4] limbs on 16 bytes, rows contiguous or a "
+                         f"stride-0 row")
+    return t.stride(0) // 4
+
+
+def decimal128_op(op: str, a: torch.Tensor, b: torch.Tensor, a_c: int,
+                  b_c: int, out_c: int, cast_interim_result: bool = True):
+    """H2: Spark's DECIMAL128 ``op`` (ops/decimal128.OPS) over int32[n, 4]
+    limbs ``a`` and ``b`` (either may be one row expanded to n) at cudf
+    scales ``a_c``, ``b_c`` -> ``out_c``: (overflow bool[n], result
+    int32[n, 4], or int64[n] for integer_divide). The plain version is
+    ``ops/decimal128.op_plain``; it raises ValueError where a power of
+    ten passes 10^76, and so does this wrapper (before the launch where
+    the scales decide it; after it, from the kernel's flag, where only a
+    row's value can)."""
+    from . import decimal128 as D
+    if op not in D.OPS:
+        raise ValueError(f"unknown decimal op {op!r}")
+    n = a.shape[0]
+    if b.shape[0] != n:
+        raise ValueError("decimal128 operands differ in rows")
+    dev = _where([a, b])
+    if dev.type == "cpu":
+        return D.op_plain(op, a, b, a_c, b_c, out_c, cast_interim_result)
+    sa, sb = _dec_rows(a, n, "a"), _dec_rows(b, n, "b")
+    may_flag = D.host_checks(op, a_c, b_c, out_c, n, cast_interim_result)
+    int_div = op == "integer_divide"
+    out = torch.empty((n,) if int_div else (n, 4),
+                      dtype=torch.int64 if int_div else torch.int32,
+                      device=dev)
+    over = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return over, out
+    err = torch.zeros(1, dtype=torch.int32, device=dev) if may_flag \
+        else None
+    lib = _lib("decimal128")
+    _check(lib, lib.srjt_decimal128_op(
+        D.OPS[op], a.data_ptr(), sa, b.data_ptr(), sb, n, a_c, b_c, out_c,
+        int(cast_interim_result), out.data_ptr(), over.data_ptr(),
+        None if err is None else err.data_ptr(), _stream(dev)),
+        "decimal128")
+    decimal128_op.launches += 1
+    if err is not None and int(err.item()):  # a host read only here
+        raise ValueError("pow10 exponent out of supported range [0, 76]")
+    return over, out
+
+
 murmur3_fixed_rows.launches = 0
 xxhash64_fixed_rows.launches = 0
 rowconv_fixed_words.launches = 0
 segment_float_agg.launches = 0
+decimal128_op.launches = 0
 
 
 KERNELS: List[Tuple[str, str, str, str]] = [
@@ -1089,4 +1157,9 @@ KERNELS: List[Tuple[str, str, str, str]] = [
     ("H1 segment_float_agg", "segment_float_agg",
      "spark_rapids_jni_tpu_torch/csrc/segment_agg.cu",
      "spark_rapids_jni_tpu/ops/groupby.py:201"),
+    # no Pallas kernel: XLA's 256-bit limb math (ops/int256.py, its
+    # bit-serial divmod_unsigned) under ops/decimal128.py
+    ("H2 decimal128_op", "decimal128_op",
+     "spark_rapids_jni_tpu_torch/csrc/decimal128.cu",
+     "spark_rapids_jni_tpu/ops/decimal128.py:90"),
 ]

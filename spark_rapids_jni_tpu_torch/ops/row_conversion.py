@@ -143,22 +143,36 @@ def _word_plan(table: Table, info: ColumnInfo, var_lanes=None):
     A STRING column's slot is two u32 lanes (``var_lanes``, by default
     ``_string_lanes``): its offset lane stands in the column's place (so
     the column's validity piece keeps its index), its length lane is an
-    extra input column past the table's, with no validity."""
+    extra input column past the table's, with no validity. A DECIMAL128
+    column's 16-byte slot is four u32 lanes the same way: its limbs, each
+    copied out of the ``[n, 4]`` limb rows into a contiguous lane (B3
+    reads a lane in place), limb 0 in the column's place."""
     if var_lanes is None:
         var_lanes = _string_lanes(table, info)
     ncols = table.num_columns
     cols = [c.data for c in table]
     valids = [c.validity for c in table]
     plan: List[Tuple[int, int, int, int]] = []
+    n_str = 0
     for c, col in enumerate(table):
         o = info.column_starts[c]
         if col.dtype.id is TypeId.STRING:
-            off, length = var_lanes[len(cols) - ncols]
+            off, length = var_lanes[n_str]
+            n_str += 1
             plan += [(o // 4, c, PART_U32, 0),
                      (o // 4 + 1, len(cols), PART_U32, 0)]
             cols[c] = off
             cols.append(length)
             valids.append(None)
+            continue
+        if col.dtype.id is TypeId.DECIMAL128:
+            limbs = [col.data[:, j].contiguous() for j in range(4)]
+            plan.append((o // 4, c, PART_U32, 0))
+            cols[c] = limbs[0]
+            for j in range(1, 4):
+                plan.append((o // 4 + j, len(cols), PART_U32, 0))
+                cols.append(limbs[j])
+                valids.append(None)
             continue
         parts = _column_words(col)
         if info.column_sizes[c] >= 4:  # o is word-aligned (alignment=size)
@@ -499,6 +513,9 @@ def _words_to_column(words: torch.Tensor, word0: int, byte_off: int,
     word0 = the column's first word, byte_off = its byte within that word
     (non-zero only for 1- and 2-byte columns)."""
     n = words.shape[0]
+    if d.id is TypeId.DECIMAL128:
+        return Column(d, n, data=_dense(words[:, word0:word0 + 4]),
+                      validity=validity)
     if d.itemsize == 8:
         data = _dense(words[:, word0:word0 + 2]).view(torch.int64)
         data = data.reshape(n).view(d.torch_dtype)

@@ -10,8 +10,9 @@ A STRING key gives one lane per 8 bytes of its zero-padded bytes
 (columnar/strings.padded_bytes), big-endian: the order of the padded
 bytes, the JAX package's (its lanes hold 4 bytes each). A string that ends
 in NUL bytes ties with its prefix and keeps its input order, as there.
-A DICT32 key sorts by its entries' ranks (one int32 gather in place of the
-byte lanes), a FOR key by its codes (one reference: code order is value
+A DECIMAL128 key gives two lanes, its high 64 bits (signed) and its low
+64 bits (unsigned). A DICT32 key sorts by its entries' ranks (one int32
+gather in place of the byte lanes), a FOR key by its codes (one reference: code order is value
 order); an RLE key is decoded to rows first, as is an RLE or FOR column
 that a gather reorders (a permutation keeps neither runs nor packing).
 
@@ -70,6 +71,10 @@ def _monotone_unsigned(col: Column) -> List[torch.Tensor]:
             0, nd - 1)).to(torch.int64)]
     if tid in (TypeId.FOR32, TypeId.FOR64):
         return [enc.for_codes(col)]
+    if tid is TypeId.DECIMAL128:
+        from .int128 import words
+        w = words(data)  # [n, 2]: low, high
+        return [w[:, 1].contiguous(), w[:, 0] ^ _SIGN64]
     if tid is TypeId.UINT64:
         return [data ^ _SIGN64]
     if tid is TypeId.UINT32:
@@ -154,9 +159,13 @@ def gather(col: Column, idx: torch.Tensor) -> Column:
         return Column(col.dtype, int(idx.shape[0]), data=data,
                       validity=validity, offsets=offsets)
     col.dtype.require_stored()
-    return Column(col.dtype, int(idx.shape[0]),
-                  data=col.data.index_select(0, idx), validity=validity,
-                  children=col.children)
+    if col.dtype.id is TypeId.DECIMAL128:
+        from .int128 import take_rows
+        data = take_rows(col.data, idx)
+    else:
+        data = col.data.index_select(0, idx)
+    return Column(col.dtype, int(idx.shape[0]), data=data,
+                  validity=validity, children=col.children)
 
 
 def _gather_string_bytes(chars: torch.Tensor, offsets: torch.Tensor,

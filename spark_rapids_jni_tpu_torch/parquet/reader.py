@@ -25,9 +25,13 @@ The reader streams one chunk of row groups at a time under a byte budget
 (dictionary membership, footer min/max statistics), and decodes columns
 on a thread pool (the native calls release the GIL).
 
-``LIST`` and ``STRUCT`` columns (the JAX package's parquet/nested.py)
-wait for nested columns (ROADMAP A1); FIXED_LEN_BYTE_ARRAY DECIMAL128
-columns for decimal128 (A12). Selecting one raises ``not_ported``.
+A FIXED_LEN_BYTE_ARRAY DECIMAL column is read as DECIMAL128 on the host
+tier on every reader, as in the JAX package (the device tier declines
+FLBA, ``device_decode.pages_supported``): the native decode turns its
+big-endian bytes into 16-byte little-endian limbs, and the route is
+counted as ``host_columns_unsupported``. ``LIST`` and ``STRUCT`` columns
+(the JAX package's parquet/nested.py) wait for nested columns (ROADMAP
+A1): selecting one raises ``not_ported``.
 """
 
 from __future__ import annotations
@@ -225,9 +229,6 @@ def _check_ported(plan: ColumnPlan) -> None:
     if plan.kind == "nested":
         raise dt.not_ported(f"the Parquet column {plan.name!r} "
                             f"({plan.dtype.id.value})", "A1, nested columns")
-    if plan.dtype.id is TypeId.DECIMAL128:
-        raise dt.not_ported(f"the Parquet DECIMAL128 column {plan.name!r}",
-                            "A12, decimal128")
 
 
 class ParquetReader:
@@ -465,7 +466,10 @@ class ParquetReader:
             return Column(dtype, rows, data=torch.from_numpy(values).to(dev),
                           validity=vmask,
                           offsets=torch.from_numpy(offsets).to(dev))
-        data = _host_to_tensor(values.view(dtype.np_dtype), dtype, dev)
+        host = values.view(dtype.np_dtype)
+        if dtype.id is TypeId.DECIMAL128:
+            host = host.reshape(rows, 4)  # 16-byte little-endian limbs
+        data = _host_to_tensor(host, dtype, dev)
         return Column(dtype, rows, data=data, validity=vmask)
 
     def _concat_parts(self, leaf: LeafSchema, parts) -> Column:

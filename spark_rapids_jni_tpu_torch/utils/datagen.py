@@ -143,7 +143,7 @@ def generate_column(n: int, profile: ColumnProfile, seed: int = 0,
             return (rng.random(k) < p.bool_probability).astype(np.uint8)
         vals = _with_runs(n, p.avg_run_length, rng, sample_bool)
         return Column.from_numpy(vals, dtype, validity=valid, device=dev)
-    dtype.require_stored()  # DECIMAL128 is ROADMAP A12
+    dtype.require_stored()
     dist = p.dist or _default_dist(dtype)
 
     def sample_fixed(k):
@@ -151,8 +151,21 @@ def generate_column(n: int, profile: ColumnProfile, seed: int = 0,
 
     vals = _with_runs(n, p.avg_run_length, rng,
                       _pooled(p.cardinality, rng, sample_fixed))
+    if tid is TypeId.DECIMAL128:  # int64 draws, sign-extended to limbs
+        return Column.from_numpy(decimal128_limbs(vals), dtype,
+                                 validity=valid, device=dev)
     return Column.from_numpy(vals.astype(dtype.np_dtype), dtype,
                              validity=valid, device=dev)
+
+
+def decimal128_limbs(vals: np.ndarray) -> np.ndarray:
+    """int64 unscaled values -> uint32[n, 4] DECIMAL128 limbs (sign
+    extended)."""
+    v = np.ascontiguousarray(vals, dtype=np.int64)
+    out = np.empty((v.shape[0], 4), dtype=np.uint32)
+    out[:, :2] = v.view(np.uint32).reshape(-1, 2)
+    out[:, 2:] = np.where(v < 0, 0xFFFFFFFF, 0).astype(np.uint32)[:, None]
+    return out
 
 
 @dataclass(frozen=True)
@@ -398,3 +411,84 @@ def subnormal_sum_table(n_segments: int = 72, seed: int = 0,
         Column.from_numpy(np.concatenate(keys), dt.INT32, device=dev),
         Column.from_numpy(np.concatenate(vals), dt.FLOAT64,
                           validity=np.concatenate(valid), device=dev)))
+
+
+def decimal128_draws(n: int, rng: np.random.Generator,
+                     max_digits: int = 38) -> list:
+    """n signed Python ints of 0..``max_digits`` decimal digits (the digit
+    count uniform), the edges of DECIMAL128 among them: 0, +-1,
+    +-(10^38 - 1), +-10^37 and the int128 extremes."""
+    digits = rng.integers(0, max_digits + 1, n)
+    out = []
+    for k in digits.tolist():
+        v = int.from_bytes(rng.bytes(17), "little") % (10 ** k)
+        out.append(-v if rng.random() < 0.5 else v)
+    edges = [0, 1, -1, 10 ** 38 - 1, -(10 ** 38 - 1), 10 ** 37, -10 ** 37,
+             (1 << 127) - 1, -(1 << 127)]
+    out[:min(n, len(edges))] = edges[:n]
+    return out
+
+
+def decimal128_column(values, scale: int, valid=None,
+                      device="cuda") -> Column:
+    """DECIMAL128 column of unscaled Python ints at a Java scale."""
+    from ..columnar.column import int128_to_limbs
+    limbs = np.stack([int128_to_limbs(int(v)) for v in values]) if len(
+        values) else np.zeros((0, 4), np.uint32)
+    return Column.from_numpy(limbs, dt.decimal128(scale), validity=valid,
+                             device=device)
+
+
+# (Java scales a, b -> out) per op of the edge table: -10..38, with the
+# 38-digit results, rescales both ways and each divide branch
+_EDGE_SCALES = {
+    "add": [(0, 0, 0), (10, 10, 9), (-5, 3, -5), (38, 0, 10),
+            (2, 38, 38)],
+    "sub": [(0, 0, 0), (10, 2, 9), (-10, 10, 0), (2, 2, 2)],
+    "multiply": [(10, 10, 6), (0, 0, 0), (2, 2, 4), (1, -1, 1),
+                 (20, 18, 38), (-10, -10, -20), (38, 0, 0)],
+    "divide": [(1, 0, 1), (10, 10, 6), (2, 20, 17), (0, 0, 38),
+               (38, 0, 0), (-10, 0, 6), (0, 38, 10)],
+    "integer_divide": [(2, 2, 0), (2, 3, 0), (0, 0, 0), (38, 0, 0),
+                       (-10, 10, 0)],
+    "remainder": [(0, 1, 1), (2, 1, 2), (0, 12, 7), (0, 10, 10),
+                  (10, 0, 38), (-10, 5, 0)],
+}
+
+
+def decimal128_edge_cases(rows: int = 512, seed: int = 0, device="cuda"):
+    """The edge table of kernel H2: a list of (op, a, b, out scale,
+    cast_interim_result) over DECIMAL128 columns of ``rows`` rows. Values
+    of every digit count (decimal128_draws), 5% nulls, zero divisors,
+    each op at Java scales from -10 to 38 (every branch of the division
+    and the rescales, overflow in each op), multiply with and without the
+    interim cast, the SPARK-40129 vectors of the JAX package's tests, and
+    quotients past int64 for integer_divide (its overflow is judged on
+    the 128-bit quotient). Every case keeps its powers of ten within
+    10^0..10^76: none raises."""
+    rng = np.random.default_rng(seed)
+    interim = [33583773388230965117849476564650294583,
+               71610217851860101571101375465940777916,
+               91735941859980016076428384215479932913]
+    cases = []
+    for op, scales in _EDGE_SCALES.items():
+        for a_s, b_s, o_s in scales:
+            a = decimal128_draws(rows, rng)
+            b = decimal128_draws(rows, rng, 20 if "div" in op or
+                                 op == "remainder" else 38)
+            if op == "multiply" and (a_s, b_s) == (10, 10):
+                a[-3:] = interim
+                b[-3:] = [-120000000000] * 3
+            if op in ("divide", "integer_divide", "remainder"):
+                for i in np.flatnonzero(rng.random(rows) < 0.05):
+                    b[i] = 0  # division by zero
+            if op == "integer_divide":
+                a[-2:] = [10 ** 30, -(10 ** 37)]
+                b[-2:] = [3, 7]
+            va = rng.random(rows) >= 0.05
+            vb = rng.random(rows) >= 0.05
+            cols = (decimal128_column(a, a_s, va, device),
+                    decimal128_column(b, b_s, vb, device))
+            for cast in ((True, False) if op == "multiply" else (True,)):
+                cases.append((op, *cols, o_s, cast))
+    return cases

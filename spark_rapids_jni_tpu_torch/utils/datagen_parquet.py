@@ -32,7 +32,15 @@ What it writes:
   with zeros;
 - INT32/INT64 chunk ``Statistics`` (min/max of the non-null values, both
   the legacy and the v2 fields, and the null count) and a CRC32 on every
-  page (``parquet.page.write-checksum.enabled``).
+  page (``parquet.page.write-checksum.enabled``);
+- a DECIMAL column (``decimal=(precision, scale)``, int64 unscaled
+  values) as Spark writes a decimal of precision above 18 with
+  ``spark.sql.parquet.writeLegacyFormat``, and as pyarrow writes
+  ``decimal128``: FIXED_LEN_BYTE_ARRAY of the least bytes that hold the
+  precision (6 for decimal(12, 2)), big-endian two's complement, the
+  DECIMAL converted type with its precision and scale; PLAIN pages only
+  (parquet-mr's v1 writer has no dictionary for FIXED_LEN_BYTE_ARRAY);
+  statistics the v2 min/max (signed order) and the null count.
 
 One cut against Spark's defaults: pages are UNCOMPRESSED (Spark's codec
 is snappy).
@@ -50,7 +58,7 @@ import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -60,12 +68,13 @@ PAGE_BYTES = 1 << 20
 DICT_PAGE_BYTES = 1 << 20
 
 # parquet enums
-_BOOLEAN, _INT32, _INT64, _FLOAT, _DOUBLE, _BYTE_ARRAY = 0, 1, 2, 4, 5, 6
+_BOOLEAN, _INT32, _INT64, _FLOAT, _DOUBLE, _BYTE_ARRAY, _FLBA = (0, 1, 2, 4,
+                                                                5, 6, 7)
 _PLAIN, _PLAIN_DICTIONARY, _RLE, _BIT_PACKED = 0, 2, 3, 4
 _OPTIONAL = 1
 _DATA_PAGE, _DICTIONARY_PAGE = 0, 2
 # converted types
-UTF8, DATE = 0, 6
+UTF8, DECIMAL, DATE = 0, 5, 6
 
 _PHYSICAL = {np.dtype(np.int32): _INT32, np.dtype(np.int64): _INT64,
              np.dtype(np.float32): _FLOAT, np.dtype(np.float64): _DOUBLE,
@@ -78,7 +87,8 @@ class ParquetColumn:
     float32, float64 or bool, one per row). STRING: ``chars`` (uint8) and
     int64 ``offsets`` (rows + 1), or ``codes`` (int per row) into
     ``entries`` (bytes). ``valid`` (bool per row, True = valid) or None.
-    ``converted``: the schema's ConvertedType (UTF8, DATE)."""
+    ``converted``: the schema's ConvertedType (UTF8, DATE). DECIMAL:
+    ``decimal`` = (precision, scale) and int64 unscaled ``values``."""
 
     name: str
     values: Optional[np.ndarray] = None
@@ -88,12 +98,23 @@ class ParquetColumn:
     codes: Optional[np.ndarray] = None
     entries: Optional[Sequence[bytes]] = None
     converted: Optional[int] = None
+    decimal: Optional[Tuple[int, int]] = None
 
     @property
     def physical(self) -> int:
         if self.values is None:
             return _BYTE_ARRAY
+        if self.decimal is not None:
+            return _FLBA
         return _PHYSICAL[self.values.dtype]
+
+    @property
+    def type_length(self) -> int:
+        """FIXED_LEN_BYTE_ARRAY bytes: parquet-mr's minBytesForPrecision."""
+        k = 1
+        while 2 ** (8 * k - 1) < 10 ** self.decimal[0]:
+            k += 1
+        return k
 
     @property
     def rows(self) -> int:
@@ -376,6 +397,12 @@ def _plain_fixed(vals: np.ndarray) -> bytes:
     return vals.astype(vals.dtype.newbyteorder("<"), copy=False).tobytes()
 
 
+def _plain_flba(vals: np.ndarray, width: int) -> bytes:
+    """int64 values as ``width``-byte big-endian two's complement."""
+    be = vals.astype(">i8").view(np.uint8).reshape(-1, 8)
+    return be[:, 8 - width:].tobytes()
+
+
 def _plain_strings(lens: np.ndarray, chars: np.ndarray,
                    starts: np.ndarray) -> bytes:
     """PLAIN BYTE_ARRAY: a u32 length before each value."""
@@ -417,9 +444,13 @@ class _Stored:
             return 4 + self.lens
         if self.col.physical == _BOOLEAN:
             return np.full(self.rows.shape[0], 1 / 8)
+        if self.col.physical == _FLBA:
+            return np.full(self.rows.shape[0], self.col.type_length)
         return np.full(self.rows.shape[0], self.col.values.itemsize)
 
     def plain(self, i: int, j: int) -> bytes:
+        if self.col.physical == _FLBA:
+            return _plain_flba(self.values[i:j], self.col.type_length)
         if self.col.physical != _BYTE_ARRAY:
             return _plain_fixed(self.values[i:j])
         if self.col.codes is not None:
@@ -601,7 +632,7 @@ def _encode_chunk(col: ParquetColumn, lo: int, hi: int, page_rows: int,
     dict_page = None
     plain_from = 0  # chunk row where PLAIN pages start
     got = None
-    if col.physical != _BOOLEAN and vrows.size:
+    if col.physical not in (_BOOLEAN, _FLBA) and vrows.size:
         got = _dict_pages(st, rows, page_rows, dict_bytes_cap)
     if got is not None:
         bodies, ends, ents = got
@@ -638,13 +669,20 @@ def _encode_chunk(col: ParquetColumn, lo: int, hi: int, page_rows: int,
 
 def _stats(t: _Thrift, col: ParquetColumn, st: _Stored, nulls: int) -> None:
     t.begin(12)
-    if col.physical in (_INT32, _INT64) and st.values.size:
-        fmt = "<i" if col.physical == _INT32 else "<q"
-        lo = struct.pack(fmt, int(st.values.min()))
-        hi = struct.pack(fmt, int(st.values.max()))
-        t.binary(1, hi).binary(2, lo)
+    ints = col.physical in (_INT32, _INT64, _FLBA) and st.values.size
+    if ints:
+        lo_v, hi_v = st.values.min(keepdims=True), st.values.max(
+            keepdims=True)
+        if col.physical == _FLBA:
+            lo = _plain_flba(lo_v, col.type_length)
+            hi = _plain_flba(hi_v, col.type_length)
+        else:
+            fmt = "<i" if col.physical == _INT32 else "<q"
+            lo, hi = struct.pack(fmt, int(lo_v[0])), struct.pack(
+                fmt, int(hi_v[0]))
+            t.binary(1, hi).binary(2, lo)
     t.i64(3, nulls)
-    if col.physical in (_INT32, _INT64) and st.values.size:
+    if ints:
         t.binary(5, hi).binary(6, lo)
     t.end()
 
@@ -653,9 +691,14 @@ def _schema(t: _Thrift, columns: Sequence[ParquetColumn]) -> None:
     t.list(2, 12, len(columns) + 1)
     t.begin().binary(4, b"spark_schema").i32(5, len(columns)).end()
     for c in columns:
-        t.begin().i32(1, c.physical).i32(3, _OPTIONAL)
+        t.begin().i32(1, c.physical)
+        if c.physical == _FLBA:
+            t.i32(2, c.type_length)
+        t.i32(3, _OPTIONAL)
         t.binary(4, c.name.encode())
-        if c.converted is not None:
+        if c.decimal is not None:
+            t.i32(6, DECIMAL).i32(7, c.decimal[1]).i32(8, c.decimal[0])
+        elif c.converted is not None:
             t.i32(6, c.converted)
         t.end()
 

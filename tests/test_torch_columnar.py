@@ -89,11 +89,16 @@ def test_float64_storage_keeps_nan_payload_bits():
 
 
 def test_unported_types_raise_with_queue_item():
+    # DECIMAL128 is stored since its slice: [n, 4] limbs, 16 bytes a row,
+    # across the wire bit for bit
     jc = JColumn.from_pylist([1, None], jdt.decimal128(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        interop.wire_to_col(bridge.col_to_wire(jc), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        dt.DType(dt.TypeId.DECIMAL128, 2).itemsize
+    pc = interop.wire_to_col(bridge.col_to_wire(jc), "cpu")
+    assert pc.data.shape == (2, 4) and pc.to_pylist() == jc.to_pylist()
+    assert interop.col_to_wire(pc) == bridge.col_to_wire(jc)
+    assert dt.DType(dt.TypeId.DECIMAL128, 2).itemsize == 16
+    # nested columns stay queued
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        dt.DType(dt.TypeId.STRUCT).itemsize
 
 
 def test_device_nbytes_and_valid_mask():

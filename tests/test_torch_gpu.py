@@ -673,3 +673,106 @@ def test_parquet_device_tier_on_cuda(cuda, tmp_path):
     cd = read("cpu", "device", encoded=True)[4]
     assert D.is_dict(gd) and torch.equal(gd.data.cpu(), cd.data)
     assert D._entries(D.dict_values(gd)) == D._entries(D.dict_values(cd))
+
+
+# ---------------------------------------------------------------------------
+# DECIMAL128: kernel H2, and B1-B3 over decimal columns
+# ---------------------------------------------------------------------------
+
+def test_h2_edge_table_matches_plain(cuda):
+    """H2 == its plain version, bit for bit (limbs, overflow, validity),
+    on every case of the edge table; every case launches once."""
+    from spark_rapids_jni_tpu_torch.ops import decimal128 as D
+    for op, a, b, scale, cast in datagen.decimal128_edge_cases(512, 3,
+                                                               cuda):
+        kw = {"cast_interim_result": cast} if op == "multiply" else {}
+        fn = getattr(D, f"{op}_decimal128")
+        args = (a, b) if op == "integer_divide" else (a, b, scale)
+        before = K.decimal128_op.launches
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert K.decimal128_op.launches == before + 1, op
+        cpu = lambda c: Column(c.dtype, c.size, data=c.data.cpu(),
+                               validity=None if c.validity is None
+                               else c.validity.cpu())
+        want = fn(*((cpu(a), cpu(b)) + args[2:]), **kw)
+        for g, w in zip(got.columns, want.columns):
+            assert g.dtype == w.dtype, (op, scale)
+            assert torch.equal(g.data.cpu(), w.data), (op, scale, cast)
+            assert torch.equal(g.valid_mask().cpu(), w.valid_mask()), op
+
+
+def test_h2_literal_operand_and_raise(cuda):
+    """A stride-0 literal operand (Spark's 1 - l_discount) reads one row;
+    a multiply whose rescale needs a power past 10^76 raises on the card
+    as on the CPU."""
+    from spark_rapids_jni_tpu_torch.columnar.column import decimal128_literal
+    from spark_rapids_jni_tpu_torch.ops import decimal128 as D
+    disc = datagen.decimal128_column(list(range(11)) * 3, 2, device=cuda)
+    one = decimal128_literal("1.00", 2, disc.size, cuda)
+    assert one.data.stride(0) == 0
+    got = D.sub_decimal128(one, disc, 2)[1].to_pylist()
+    assert [int(v * 100) for v in got] == [100 - v for v in
+                                           list(range(11)) * 3]
+    # 10^67 at scale -20 to scale 38: 10^(58 + 29) after the interim cast
+    big = datagen.decimal128_column([10 ** 37, 1], -10, device=cuda)
+    tiny = datagen.decimal128_column([10 ** 30, 1], -10, device=cuda)
+    for dev in (cuda, torch.device("cpu")):
+        x = Column(big.dtype, 2, data=big.data.to(dev))
+        y = Column(tiny.dtype, 2, data=tiny.data.to(dev))
+        with pytest.raises(ValueError, match="pow10"):
+            D.multiply_decimal128(x, y, 38)
+            torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("algo", ["murmur3", "xxhash64"])
+def test_decimal128_hashes_match_plain(cuda, algo):
+    """B1/B2 over a DECIMAL128 column (its Java bytes as a "str" entry)
+    among fixed-width columns == the plain versions."""
+    rng = np.random.default_rng(5)
+    n = 20_011
+    d = datagen.decimal128_column(datagen.decimal128_draws(n, rng), 2,
+                                  rng.random(n) > 0.1, device=cuda)
+    k = Column.from_numpy(rng.integers(-2**62, 2**62, n), dt.INT64,
+                          device=cuda)
+    xx = algo == "xxhash64"
+    fn = H.xxhash64 if xx else H.murmur_hash3_32
+    plain = K.xxhash64_fixed_rows_plain if xx else \
+        K.murmur3_fixed_rows_plain
+    wrapper = K.xxhash64_fixed_rows if xx else K.murmur3_fixed_rows
+    for cols in ([d], [k, d], [d, k]):
+        before = wrapper.launches
+        got = fn(cols).data
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        schema = [(("str", H.dec128_hash_words(c))
+                   if c.dtype.id is dt.TypeId.DECIMAL128 else
+                   H._fixed_element_words(c.dtype, c.data, xx))
+                  + (c.validity,) for c in cols]
+        assert torch.equal(got, plain(schema, 42, n))
+
+
+def test_decimal128_rows_round_trip(cuda):
+    """B3 writes a DECIMAL128 column's 16-byte JCUDF slot from its four
+    limb lanes; convert_from_rows gives the table back, bit for bit, and
+    the rows equal the CPU's."""
+    rng = np.random.default_rng(6)
+    n = 30_007
+    d = datagen.decimal128_column(datagen.decimal128_draws(n, rng), 4,
+                                  rng.random(n) > 0.1, device=cuda)
+    t = Table((Column.from_numpy(rng.integers(0, 100, n).astype(np.int32),
+                                 device=cuda), d,
+               Column.from_numpy(rng.standard_normal(n), device=cuda)))
+    before = K.rowconv_fixed_words.launches
+    rows = R.convert_to_rows(t)
+    assert K.rowconv_fixed_words.launches == before + 1
+    cpu_t = Table(tuple(Column(c.dtype, c.size, data=c.data.cpu(),
+                               validity=None if c.validity is None
+                               else c.validity.cpu()) for c in t.columns))
+    cpu_rows = R.convert_to_rows(cpu_t)
+    assert torch.equal(rows[0].children[0].data.cpu(),
+                       cpu_rows[0].children[0].data)
+    back = R.convert_from_rows(rows[0], [c.dtype for c in t.columns])
+    for a, b in zip(back.columns, t.columns):
+        assert torch.equal(a.data, b.data)
+        assert torch.equal(a.valid_mask(), b.valid_mask())

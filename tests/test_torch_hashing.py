@@ -268,7 +268,11 @@ def test_kernel_wrappers_compute_plain_only_on_the_cpu():
 
 
 def test_unported_hash_inputs_raise():
-    d = Column(dt.DType(dt.TypeId.DECIMAL128, 2), 0)
+    # nested columns stay queued; an empty DECIMAL128 column hashes
+    s = Column(dt.DType(dt.TypeId.STRUCT), 0)
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        H.murmur_hash3_32([d])
+        H.murmur_hash3_32([s])
+    d = Column(dt.decimal128(2), 0, data=torch.zeros((0, 4),
+                                                     dtype=torch.int32))
+    assert H.murmur_hash3_32([d]).size == 0
     assert H.xxhash64([]).size == 0

@@ -168,11 +168,15 @@ def test_groupby_all_masked_and_unported_aggs():
     assert_table_equal(
         JG.groupby_aggregate(jt, [0], [(1, "sum"), (1, "mean")]),
         G.groupby_aggregate(pt, [0], [(1, "sum"), (1, "mean")]))
-    # unsigned 64-bit aggregates stay queued with decimals
-    u64 = Table((pt.columns[0], Column.from_numpy(
-        np.arange(jt.num_rows, dtype=np.uint64), device="cpu")))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        G.groupby_aggregate(u64, [0], [(1, "sum")])
+    # unsigned 64-bit aggregates (ported with decimals, A12): int64 sums
+    # and int64-order min/max, as the JAX package
+    u = np.arange(jt.num_rows, dtype=np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+    ju = JTable((jt.columns[0], JColumn.from_numpy(u)))
+    assert_table_equal(
+        JG.groupby_aggregate(ju, [0], [(1, "sum"), (1, "min"), (1, "max"),
+                                       (1, "mean")]),
+        G.groupby_aggregate(table_to_port(ju), [0], [
+            (1, "sum"), (1, "min"), (1, "max"), (1, "mean")]))
     # an integer mean is the exact int64 sum over the count, in float64
     assert_table_equal(
         JG.groupby_aggregate(jt, [0], [(2, "mean"), (3, "mean")]),

@@ -52,6 +52,20 @@ def quick_jax_reference():
         jax.config.update("jax_disable_most_optimizations", was)
 
 
+@pytest.fixture(scope="module")
+def jitted_jax_decimal():
+    """The JAX package's DECIMAL128 long division and precision10 under
+    ``jax.jit`` for one test module (eagerly, each call re-traces its
+    256-step loop): how long its calls take changes, not what they
+    compute."""
+    from spark_rapids_jni_tpu.ops import decimal128 as JD
+    from spark_rapids_jni_tpu.ops import int256 as JI
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JI, "divmod_unsigned", jax.jit(JI.divmod_unsigned))
+        mp.setattr(JD, "precision10", jax.jit(JD.precision10))
+        yield
+
+
 _ENCODED = ("dict32", "rle", "for32", "for64")
 
 
