@@ -124,8 +124,28 @@ run exits non-zero:
      on the edge table; then times the read (first, warm median of 3,
      the split), q1 and the shuffle (first, warm, peak, profile), the
      hashes over the decimal bytes, and H2's six ops at 60M rows (events,
-     profiler, bound; divide's bound from the steps this data takes in
-     its loop and the loop's instructions in the SASS).
+     profiler, bound; operations bounds from the SASS at the card's
+     instruction issue rate: divide's from the steps this data takes in
+     its loop at the fewest instructions a trip issues, integer divide's
+     and remainder's from their two 64-bit divisions a row at the fewest
+     instructions of nvcc's division subroutine);
+ 12. ``spark_features_sf10``: the slice's path at SF10, the launch counts
+     set to 0 just before and read just after: Spark's runtime bloom
+     filter on q3 (the o_orderkey values that pass q3's customer and
+     order-date filters, their XxHash64 longs (B2) put into 8 partial
+     filters with Spark's numBits and numHashes through B1's h1/h2 and
+     OR-merged, every l_orderkey probed, q3 over the kept lineitem rows),
+     the full join of late lineitem with early orders, fused q1 over a
+     donated lineitem, hilbert_index of three lineitem columns, the
+     LEGACY calendar rebase both ways over 60M microsecond and day
+     values, both Asia/Kolkata conversions, and decimal_to_string of
+     phase 11's q1 and of 1M of file C's prices; checks the merged filter
+     == one put == plain (serialized bytes), every build key hits, the
+     false-positive share in [2%, 4%], q3 over the kept rows == q3 ==
+     numpy, the full join == left join + right anti rows, donated q1 ==
+     undonated and the donated table raises, and each module == plain on
+     1M rows; then times each (CUDA events, byte bounds) and the peaks of
+     donated and undonated q1.
 
 Prints JSON lines (timings, then the {"kernels": [...]} line, whose
 entries give each kernel's launches by path) and, last,
@@ -142,8 +162,16 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
-ALU_OPS_PER_S = 67e12       # H100 SXM non-tensor-core fp32 rate, used as
-#                             the rate of the kernels' 32-bit integer ops
+# The operations yardstick: instructions a card can issue, in thread
+# instructions a second. Each SM's four warp schedulers issue at most one
+# warp instruction (32 lanes) a clock (the Hopper SM: 4 partitions, one
+# dispatch unit each; NVIDIA H100 architecture white paper), so the rate
+# is SMs x 4 x 32 x the SM clock. main() sets it from the SM count and
+# nvidia-smi's clocks.max.sm; until then the H100 SXM's 132 SMs at
+# 1980 MHz. (The FP32 rate, 67e12, counts an FMA as two operations and
+# is no bound on integer instructions.)
+INSTRUCTION_RATE = {"per_s": 132 * 4 * 32 * 1.98e9, "sms": 132,
+                    "mhz": 1980.0, "source": "H100 SXM data sheet"}
 SF10_ROWS = 60_000_000      # lineitem rows; orders 15M, customer 1.5M
 PARTITIONS = 200            # spark.sql.shuffle.partitions default
 
@@ -251,10 +279,24 @@ DEVICE_KERNEL = {"murmur3_fixed_rows": "murmur3_rows_kernel",
 
 def bound_ms(nbytes, nops):
     """Least time for the work: the larger of its bytes over the memory
-    rate and its operations over the ALU rate, and which one bounds it."""
+    rate and its operations (thread instructions) over the issue rate,
+    and which one bounds it."""
     b = nbytes / HBM_BYTES_PER_S * 1e3
-    o = nops / ALU_OPS_PER_S * 1e3
+    o = nops / INSTRUCTION_RATE["per_s"] * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
+
+
+def read_instruction_rate(dev_index=0):
+    """Set INSTRUCTION_RATE from this card: its SM count (torch) and its
+    maximum SM clock (nvidia-smi clocks.max.sm, MHz)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[dev_index])
+    sms = torch.cuda.get_device_properties(dev_index).multi_processor_count
+    INSTRUCTION_RATE.update(
+        per_s=sms * 4 * 32 * mhz * 1e6, sms=sms, mhz=mhz,
+        source="this card: SM count x 4 x 32 x clocks.max.sm")
 
 
 def wall(fn, dev):
@@ -284,6 +326,8 @@ def main():
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     card = {"card": smi}
+    read_instruction_rate()
+    jline({"phase": "card", **card, "instruction_rate": INSTRUCTION_RATE})
     phase_end("card")
 
     # ---- phase 2: build -------------------------------------------------
@@ -346,9 +390,16 @@ def main():
     phase_end("parquet_sf10")
 
     # ---- phase 11: DECIMAL128 ----------------------------------------------
-    paths["decimal_sf10"], h2 = decimal_phase(dev, card, SF10_ROWS)
+    paths["decimal_sf10"], h2, decimal_keep = decimal_phase(dev, card,
+                                                            SF10_ROWS)
     entries.append(h2)
     phase_end("decimal_sf10")
+
+    # ---- phase 12: Spark's runtime filter and the slice's features --------
+    paths["spark_features_sf10"] = features_phase(dev, card, SF10_ROWS,
+                                                  decimal_keep)
+    del decimal_keep
+    phase_end("spark_features_sf10")
     for entry, (_, wrapper, _, _) in zip(entries, K.KERNELS):
         entry["launches_by_path"] = {p: c[wrapper] for p, c in paths.items()}
     jline({"phase_seconds": PHASE_SECONDS})
@@ -2579,10 +2630,11 @@ def _q1_rows(t):
     return [list(r) for r in zip(*cols)]
 
 
-def _sass_loops(lib_path, kernel):
-    """Backward branches (loops) of ``kernel`` in the SASS of
-    ``lib_path``, as instruction counts, longest first; None without
-    cuobjdump."""
+def _sass_listing(lib_path, kernel):
+    """(instructions [(address, text)], labels {name: address}) of the
+    kernel whose mangled name holds ``kernel`` in the SASS of
+    ``lib_path`` (cuobjdump -sass), its subroutines included; None
+    without cuobjdump."""
     import re
     import shutil
     from pathlib import Path
@@ -2595,33 +2647,109 @@ def _sass_loops(lib_path, kernel):
                           text=True, check=True).stdout
     body = next((p for p in sass.split("Function : ")[1:]
                  if kernel in p.splitlines()[0]), "")
-    labels, insns = {}, []
-    pending = []
+    labels, insns, pending = {}, [], []
     for line in body.splitlines():
-        m = re.match(r"\s*(\.L_x_\d+):", line)
+        m = re.match(r"\s*([.$\w][^\s:]*):\s*$", line)
         if m:
             pending.append(m.group(1))
             continue
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
         if not m:
             continue
         addr = int(m.group(1), 16)
         for lab in pending:
             labels[lab] = addr
         pending = []
-        insns.append((addr, m.group(2)))
+        insns.append((addr, m.group(2).strip()))
+    return insns, labels
+
+
+def _sass_op(text):
+    """(opcode, predicated) of one SASS instruction."""
+    words = text.split()
+    pred = words[0].startswith("@")
+    return (words[1] if pred else words[0]).split(".")[0], pred
+
+
+def _sass_target(text, labels):
+    import re
+    m = re.search(r"0x([0-9a-f]+)|`\(([^)]+)\)", text)
+    if not m:
+        return None
+    return int(m.group(1), 16) if m.group(1) else labels.get(m.group(2))
+
+
+def sass_fewest(insns, labels, start, stop):
+    """Fewest instructions issued from address ``start`` to the first
+    instruction that ``stop(address, text)`` accepts, both counted: a
+    branch forward goes to its target (a predicated one may also fall
+    through), a branch back is not taken, a call steps over its callee.
+    None where no such path exists."""
+    pos = {a: i for i, (a, _) in enumerate(insns)}
+    inf = float("inf")
+    dist = [inf] * len(insns)
+    dist[pos[start]] = 1
+    best = inf
+    for i in range(pos[start], len(insns)):
+        d = dist[i]
+        if d == inf:
+            continue
+        addr, text = insns[i]
+        if stop(addr, text):
+            best = min(best, d)
+            continue
+        op, pred = _sass_op(text)
+        nxt = [i + 1] if i + 1 < len(insns) else []
+        if op in ("BRA", "JMP"):
+            t = _sass_target(text, labels)
+            succ = ([pos[t]] if t is not None and t > addr and t in pos
+                    else []) + (nxt if pred else [])
+        elif op in ("EXIT", "RET", "BRX", "JMX") and not pred:
+            succ = []
+        else:
+            succ = nxt
+        for j in succ:
+            dist[j] = min(dist[j], d + 1)
+    return None if best == inf else int(best)
+
+
+def _sass_loops(listing):
+    """Each loop (a branch back) of a SASS listing as (instructions in its
+    body, fewest issued on one trip), longest body first; the branch to
+    itself after EXIT is left out."""
+    insns, labels = listing
     loops = []
     for addr, text in insns:
-        if "BRA" not in text:
+        if _sass_op(text)[0] != "BRA":
             continue
-        m = re.search(r"0x([0-9a-f]+)|`\((\.L_x_\d+)\)", text)
-        if not m:
+        target = _sass_target(text, labels)
+        if target is None or target >= addr:
             continue
-        target = int(m.group(1), 16) if m.group(1) else labels.get(
-            m.group(2))
-        if target is not None and target <= addr:
-            loops.append(sum(1 for a, _ in insns if target <= a <= addr))
+        body = sum(1 for a, _ in insns if target <= a <= addr)
+        few = sass_fewest(insns, labels, target,
+                          lambda a, _t, end=addr: a == end)
+        loops.append((body, few))
     return sorted(loops, reverse=True)
+
+
+def _sass_callees(listing):
+    """{callee: fewest instructions from its entry to its RET} of every
+    subroutine the kernel calls (nvcc's 64-bit division and remainder
+    are such subroutines)."""
+    import re
+    insns, labels = listing
+    out = {}
+    for _, text in insns:
+        if _sass_op(text)[0] != "CALL":
+            continue
+        m = re.search(r"`\(([^)]+)\)", text)
+        entry = _sass_target(text, labels)
+        if entry is None:
+            continue
+        name = m.group(1) if m else hex(entry)
+        out[name] = sass_fewest(insns, labels, entry,
+                                lambda _a, t: _sass_op(t)[0] == "RET")
+    return out
 
 
 def h2_kernel_ms(calls, reps=5):
@@ -2718,7 +2846,8 @@ def decimal_phase(dev, card, rows):
     hashes over the charge column and a join on the discount (11c); reads
     the counts; then checks each against the generated table and numpy,
     and times H2's six ops (11d). Returns (the launches of the counted
-    run, H2's kernels entry)."""
+    run, H2's kernels entry, the q1 result and 1M of the prices for
+    phase 12)."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="decimal_sf10_")
@@ -2836,6 +2965,9 @@ def _decimal_phase(dev, card, rows, tmp):
                 dim.data.index_select(0, r_idx))),
     }
     del back, h_mm, h_xx, l_idx, r_idx, cpu_li, gen
+    # phase 12 prints the q1 result and 1M of the prices as strings
+    keep = {"q1": q1, "price_1m": Column(li[2].dtype, n1,
+                                         data=li[2].data[:n1].clone())}
 
     # 11d: H2 == plain on 1M seeded rows (the plain version on the card,
     # timed) and on the edge table (the plain version on the CPU)
@@ -2866,7 +2998,7 @@ def _decimal_phase(dev, card, rows, tmp):
              "launches": launches["decimal128_op"], "bit_exact": True,
              "max_abs_err": 0}
     if not cuda:
-        return launches, entry
+        return launches, entry, keep
 
     # times: 11a reads, 11b q1, 11c shuffle and hashes
     warm, parts = [], []
@@ -2905,6 +3037,7 @@ def _decimal_phase(dev, card, rows, tmp):
     schema = [("str", H.dec128_hash_words(charge), None)]
     for wrapper in ("murmur3_fixed_rows", "xxhash64_fixed_rows"):
         fn = getattr(K, wrapper)
+        plain = getattr(K, wrapper + "_plain")
         ms = cuda_ms(lambda: fn(schema, 42, rows), reps=5, warm=1)
         nbytes = schema[0][1][1].numel() + 4 * (rows + 1) + rows * (
             4 if wrapper.startswith("murmur") else 8)
@@ -2914,6 +3047,8 @@ def _decimal_phase(dev, card, rows, tmp):
                "java_bytes": schema[0][1][1].numel(), "ms": ms,
                "words_ms": cuda_ms(lambda: H.dec128_hash_words(charge),
                                    reps=3, warm=1),
+               "plain_ms": cuda_ms(lambda: plain(schema, 42, rows), reps=1,
+                                   warm=0),
                "bound_ms": b_ms, "bound_by": b_by})
     del li, q1, charge, pids, schema
 
@@ -2921,34 +3056,393 @@ def _decimal_phase(dev, card, rows, tmp):
     xa, xb = _h2_operands(rows, dev, 13)
     k_ms = h2_kernel_ms([((lambda o=o, s=s: _h2_call(o, xa, xb, s)), o)
                          for o, _, _, s in H2_TIMED])
-    # the division's loops (one step a trip); the one-instruction loop is
-    # the branch to itself after the kernel's EXIT
-    loops = [n for n in _sass_loops(K._lib_path("decimal128"),
-                                    "decimal128_kernelILi3E") or [] if n > 1]
+    # operations bounds from the SASS, in instructions that any path must
+    # issue: divide, its loop steps on this data at the fewest a trip of
+    # the division's loop issues; integer divide and remainder, the two
+    # 64-bit hardware divisions a row this data takes (divmod_u's short
+    # path: the quotient by 10^2 after the division by b) at the fewest
+    # instructions of the division subroutine nvcc calls
+    from spark_rapids_jni_tpu_torch.ops.decimal128 import OPS
+    lib = K._lib_path("decimal128")
+    sass = {op: _sass_listing(lib, f"decimal128_kernelILi{OPS[op]}E")
+            for op in ("divide", "integer_divide", "remainder")}
+    loops = [lp for lp in _sass_loops(sass["divide"]) if lp[0] > 1] \
+        if sass["divide"] else []
+    step_insns = min((f for _, f in loops if f), default=None)
+    callees = {op: _sass_callees(sass[op]) if sass[op] else {}
+               for op in ("integer_divide", "remainder")}
     steps, loop_rows = _divide_iterations(xa.data)
     ops = {}
     for i, (op, _, _, scale) in enumerate(H2_TIMED):
         out_bytes = 9 if op == "integer_divide" else 17
-        # divide: its loop steps at the shortest division loop's
-        # instructions (a lower bound on any step's)
-        nops = steps * min(loops) if op == "divide" and loops else 0
+        nops = 0
+        if op == "divide" and step_insns:
+            nops = steps * step_insns
+        elif op in callees and any(callees[op].values()):
+            nops = rows * 2 * min(v for v in callees[op].values() if v)
         b_ms, b_by = bound_ms(rows * (32 + out_bytes), nops)
         ms = cuda_ms(lambda: _h2_call(op, xa, xb, scale), reps=5, warm=1)
         ops[op] = {"ms": ms, **profiler_fields(k_ms[i], ms),
                    "plain_ms": plain_ms[op], "plain_rows": n1,
+                   "bytes_ms": rows * (32 + out_bytes) / HBM_BYTES_PER_S
+                   * 1e3, "operations": nops,
+                   "operations_ms": nops / INSTRUCTION_RATE["per_s"] * 1e3,
                    "bound_ms": b_ms, "bound_by": b_by}
         jline({"phase": "decimal_sf10", "part": "h2_time", **card,
                "op": op, "rows": rows, **ops[op]})
-    jline({"phase": "decimal_sf10", "part": "h2_divide_loop", **card,
-           "sass_loops_of_divide_kernel": loops, "loop_steps": steps,
-           "rows_in_the_loop": loop_rows})
+    jline({"phase": "decimal_sf10", "part": "h2_sass", **card,
+           "instruction_rate": INSTRUCTION_RATE,
+           "divide_loops_body_and_fewest_a_trip": loops,
+           "divide_loop_steps": steps, "rows_in_the_loop": loop_rows,
+           "division_subroutines_fewest_to_ret": callees})
     entry.update({k: ops["multiply"][k] for k in (
         "ms", "kernel_ms", "profiler_ms", "plain_ms", "plain_rows",
         "bound_ms", "bound_by")})
     entry.update({"library_ms": None, "op": "multiply", "ops": ops})
     lap("hash_and_h2_times")
     jline({"phase": "decimal_sf10", "part": "seconds", **card, **secs})
-    return launches, entry
+    return launches, entry, keep
+
+
+# phase 12: Spark's runtime bloom filter (InjectRuntimeFilter): numBits =
+# optimalNumOfBits(n, DEFAULT_FPP) capped at the runtime filter's maxNumBits
+# default, numHashes = optimalNumOfHashFunctions(n, numBits)
+# (org.apache.spark.util.sketch.BloomFilter; SQLConf
+# spark.sql.optimizer.runtime.bloomFilter.maxNumBits)
+SPARK_BLOOM_FPP = 0.03
+SPARK_BLOOM_MAX_BITS = 67_108_864
+BLOOM_PARTIALS = 8          # partial aggregations merged into one filter
+XXHASH64_SEED = 42          # Spark's XxHash64 expression seed
+HILBERT_BITS = 21
+# Asia/Kolkata's transition history in the tz database (2025b), as
+# (UTC instant, local search instant, offset) in seconds after the
+# sentinel: phase 12 needs nothing of the card machine's zone files
+KOLKATA = [(-3645237208, -3645216000, 21200),
+           (-3155694800, -3155673600, 19270),
+           (-2019705670, -2019685870, 19800),
+           (-891581400, -891558000, 23400),
+           (-872058600, -872035200, 19800),
+           (-862637400, -862614000, 23400),
+           (-764145000, -764121600, 19800)]
+KOLKATA_LMT = 21208         # the offset before the first transition
+
+
+def spark_bloom_parameters(n):
+    """(numBits, numHashes, numLongs) of Spark's runtime filter over
+    ``n`` build keys."""
+    import math
+    bits = min(int(-n * math.log(SPARK_BLOOM_FPP) / (math.log(2) ** 2)),
+               SPARK_BLOOM_MAX_BITS)
+    hashes = max(1, int(math.floor(bits / n * math.log(2) + 0.5)))
+    return bits, hashes, -(-bits // 64)
+
+
+def features_phase(dev, card, rows, decimal_keep):
+    """Phase 12 (``spark_features_sf10``): the slice's path at SF10. With
+    the launch counts set to 0: 12a Spark's runtime bloom filter on q3
+    (XxHash64 of the filtered orders' keys in B2, BLOOM_PARTIALS partial
+    filters put through B1's h1/h2 and merged, every l_orderkey probed,
+    q3 over the kept rows), 12b the full join of late lineitem with early
+    orders, 12c fused q1 over a donated lineitem, 12d hilbert_index of
+    three lineitem columns, 12e the calendar rebase both ways and both
+    time zone conversions over 60M microsecond and day values, 12f
+    decimal_to_string of phase 11's q1 and of 1M of file C's prices
+    (``decimal_keep``); then the counts, the checks and the times.
+    Returns the launches of the counted run."""
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.table_ops import gather_table
+    from spark_rapids_jni_tpu_torch.ops import bloom_filter as BF
+    from spark_rapids_jni_tpu_torch.ops import datetime_rebase as DR
+    from spark_rapids_jni_tpu_torch.ops import hashing as H
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.ops import timezones as TZ
+    from spark_rapids_jni_tpu_torch.ops.decimal_to_string import \
+        decimal_to_string
+    from spark_rapids_jni_tpu_torch.ops.join import (
+        full_join, inner_join, left_anti_join, left_join)
+    from spark_rapids_jni_tpu_torch.ops.zorder import hilbert_index
+    from spark_rapids_jni_tpu_torch.plan import execute_plan
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    cutoff, segment = tpch.CUTOFF_DAYS, 1
+    n1 = min(rows, 1_000_000)
+    secs, t_part = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = now - t_part[0]
+        t_part[0] = now
+
+    def prefix(col, n=n1, device=cpu):
+        n = min(n, col.size)
+        return Column(col.dtype, n, data=col.data[:n].to(device),
+                      validity=None if col.validity is None
+                      else col.validity[:n].to(device))
+
+    a = tpch.q3_arrays(rows, 0)
+    cust, orders, li = tpch._tables(a, tpch._Q3_SCHEMA, dev, stats=True)
+    suppkey = tpch.q5_arrays(rows, 0)["l_suppkey"]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    day_lo, day_hi = -719162, 47846     # 0001-01-01, 2100-12-31
+    days = Column(dt.DType(dt.TypeId.TIMESTAMP_DAYS), rows, data=torch.randint(
+        day_lo, day_hi + 1, (rows,), generator=gen, device=dev,
+        dtype=torch.int32))
+    us = Column(dt.DType(dt.TypeId.TIMESTAMP_MICROSECONDS), rows,
+                data=torch.randint(day_lo * 86_400_000_000,
+                                   (day_hi + 1) * 86_400_000_000, (rows,),
+                                   generator=gen, device=dev))
+    kolkata = TZ.make_transition_table(
+        [[(TZ.INT64_MIN, TZ.INT64_MIN, KOLKATA_LMT)] + KOLKATA],
+        ["Asia/Kolkata"])
+    # l_orderkey (< 15M) and l_suppkey (< 100K) fit INT32; l_shipdate is
+    # days
+    hcols = [Column(dt.INT32, rows, data=li[0].data.to(torch.int32)),
+             Column.from_numpy(suppkey.astype(np.int32), dt.INT32,
+                               device=dev),
+             Column(dt.INT32, rows, data=li[1].data)]
+    del suppkey
+    _sync(dev)
+    lap("generate")
+
+    # ---- the counted run --------------------------------------------------
+    K.reset_launches()
+    t0 = time.perf_counter()
+    # 12a: build side = o_orderkey of orders passing the date and customer
+    # filters (q3's semi join); its XxHash64 longs into the filter
+    oi, _ = inner_join([orders[1]], [cust[0]],
+                       left_mask=orders[2].data < cutoff,
+                       right_mask=cust[1].data == segment)
+    build = gather_table(orders, oi)[0]
+    n_build = build.size
+    num_bits, num_hashes, num_longs = spark_bloom_parameters(n_build)
+    build_h = H.xxhash64([build], XXHASH64_SEED)
+    bounds = [n_build * i // BLOOM_PARTIALS for i in range(
+        BLOOM_PARTIALS + 1)]
+    partials = [BF.bloom_filter_put(
+        BF.bloom_filter_create(num_hashes, num_longs, dev),
+        Column(dt.INT64, hi - lo, data=build_h.data[lo:hi]))
+        for lo, hi in zip(bounds, bounds[1:])]
+    bf = BF.bloom_filter_merge(partials)
+    probe_h = H.xxhash64([li[0]], XXHASH64_SEED)
+    hit = BF.bloom_filter_probe(probe_h, bf).data.bool()
+    kept = gather_table(li, torch.nonzero(hit).reshape(-1))
+    top_kept = tpch.run_q3(cust, orders, kept, engine="eager")
+    # 12b: lineitem shipped after the cutoff, full join orders placed
+    # before it (both sides have misses)
+    li_late = gather_table(li, torch.nonzero(li[1].data > cutoff)
+                           .reshape(-1))
+    ord_early = gather_table(orders, torch.nonzero(
+        orders[2].data < cutoff).reshape(-1))
+    fl, fr = full_join([li_late[0]], [ord_early[0]])
+    # 12c: fused q1 over a donated lineitem
+    q1_plan = tpch._q1_plan(2400)
+    q1_donated = execute_plan(q1_plan, tpch.generate_q1_lineitem(rows, 0,
+                                                                 dev),
+                              donate_input=True)
+    # 12d: hilbert_index of l_orderkey, q5's l_suppkey and l_shipdate
+    hidx = hilbert_index(HILBERT_BITS, hcols)
+    # 12e: LEGACY rebase both ways; Asia/Kolkata both ways
+    rebased = {k: DR.rebase_julian_to_gregorian(
+        DR.rebase_gregorian_to_julian(c)) for k, c in (("days", days),
+                                                       ("micros", us))}
+    to_utc = TZ.convert_timestamp_to_utc(us, kolkata, 0)
+    from_utc = TZ.convert_utc_timestamp_to_timezone(us, kolkata, 0)
+    # 12f: phase 11's decimal q1 and 1M of file C's prices as strings
+    q1_strings = [decimal_to_string(c) for c in decimal_keep["q1"].columns
+                  if c.dtype.is_decimal]
+    price_strings = decimal_to_string(decimal_keep["price_1m"])
+    _sync(dev)
+    counted_s = time.perf_counter() - t0
+    launches = _kernel_counts()
+    log(f"phase 12 launches: {launches}")
+    for wrapper in ("murmur3_fixed_rows", "xxhash64_fixed_rows"):
+        if cuda and launches[wrapper] < 1:
+            raise AssertionError(f"phase 12 never launched {wrapper}")
+    lap("counted_run")
+    jline({"phase": "spark_features_sf10", "part": "bloom_parameters",
+           **card, "build_keys": n_build, "fpp": SPARK_BLOOM_FPP,
+           "max_num_bits": SPARK_BLOOM_MAX_BITS, "num_bits": num_bits,
+           "num_hashes": num_hashes, "num_longs": num_longs,
+           "filter_bytes": num_longs * 8, "partials": BLOOM_PARTIALS,
+           "probe_rows": rows, "rows_kept": int(hit.sum())})
+
+    # ---- checks ----------------------------------------------------------
+    checks = {}
+    whole = BF.bloom_filter_put(BF.bloom_filter_create(num_hashes,
+                                                       num_longs, dev),
+                                build_h)
+    plain = BF.bloom_filter_put(BF.bloom_filter_create(num_hashes,
+                                                       num_longs, cpu),
+                                prefix(build_h, n_build))
+    merged_bytes = BF.serialize(bf)
+    checks["bloom_merged_equals_one_put"] = merged_bytes == BF.serialize(
+        whole)
+    checks["bloom_merged_equals_plain"] = merged_bytes == BF.serialize(plain)
+    checks["bloom_every_build_key_probes_true"] = bool(
+        BF.bloom_filter_probe(build_h, bf).data.bool().all())
+    in_build = torch.zeros(orders.num_rows, dtype=torch.bool, device=dev)
+    in_build[build.data] = True
+    outside = ~in_build
+    fp = int((BF.bloom_filter_probe(H.xxhash64([orders[0]],
+                                               XXHASH64_SEED), bf)
+              .data.bool() & outside).sum()) / int(outside.sum())
+    fp_rows = int((hit & outside[li[0].data]).sum()) / int(
+        outside[li[0].data].sum())
+    checks["bloom_false_positive_share_in_2_to_4_pct"] = 0.02 <= fp <= 0.04
+    checks["bloom_probe_equals_plain_1m"] = torch.equal(
+        hit[:n1].cpu(), BF.bloom_filter_probe(prefix(probe_h), plain)
+        .data.bool())
+    top_all = tpch.run_q3(cust, orders, li, engine="eager")
+    checks["q3_filtered_equals_q3_whole"] = _same_cols(top_kept, top_all)
+    want = numpy_q3(a)
+    checks["q3_filtered_equals_numpy"] = all(
+        np.array_equal(c.to_numpy(), w)
+        for c, w in zip(top_kept.columns, want))
+    il, ir = inner_join([li_late[0]], [ord_early[0]])
+    lmiss = left_anti_join([li_late[0]], [ord_early[0]])
+    rmiss = left_anti_join([ord_early[0]], [li_late[0]])
+    ll, lr = left_join([li_late[0]], [ord_early[0]])
+    checks["full_join_pairs_are_inner_plus_misses"] = (
+        fl.numel() == il.numel() + lmiss.numel() + rmiss.numel()
+        and lmiss.numel() > 0 and rmiss.numel() > 0)
+    checks["full_join_is_left_join_then_right_anti"] = (
+        torch.equal(fl, torch.cat([ll, torch.full_like(rmiss, -1)]))
+        and torch.equal(fr, torch.cat([lr, rmiss])))
+    small = [full_join([prefix(li_late[0], n1, d)],
+                       [prefix(ord_early[0], n1 // 4, d)]) for d in (dev, cpu)]
+    checks["full_join_equals_cpu_1m"] = all(
+        torch.equal(g.cpu(), w) for g, w in zip(*small))
+    del il, ir, lmiss, ll, lr, small
+    undonated = tpch.generate_q1_lineitem(rows, 0, dev)
+    checks["q1_donated_equals_undonated"] = _same_cols(
+        q1_donated, execute_plan(q1_plan, undonated))
+    donor = tpch.generate_q1_lineitem(1024, 0, dev)
+    execute_plan(q1_plan, donor, donate_input=True)
+    try:
+        donor.columns
+        checks["donated_table_raises_on_use"] = False
+    except RuntimeError:
+        checks["donated_table_raises_on_use"] = True
+    checks["hilbert_equals_plain_1m"] = _same_col(
+        prefix(hidx), hilbert_index(HILBERT_BITS,
+                                    [prefix(c) for c in hcols]))
+    greg_start = {"days": -141427, "micros": -12219292800000000}
+    for k, c in (("days", days), ("micros", us)):
+        back = rebased[k]
+        late = c.data >= greg_start[k]
+        checks[f"rebase_{k}_round_trip_from_1582_10_15"] = bool(
+            (back.data[late] == c.data[late]).all())
+        pc = prefix(c)
+        checks[f"rebase_{k}_equals_plain_1m"] = all(_same_col(
+            prefix(fn(c)), fn(pc)) for fn in (DR.rebase_gregorian_to_julian,
+                                             DR.rebase_julian_to_gregorian))
+        checks[f"rebase_{k}_round_trip_equals_plain_1m"] = _same_col(
+            prefix(back), DR.rebase_julian_to_gregorian(
+                DR.rebase_gregorian_to_julian(pc)))
+    checks["timezones_equal_plain_1m"] = all(_same_col(
+        prefix(got), fn(prefix(us), kolkata, 0)) for got, fn in (
+            (to_utc, TZ.convert_timestamp_to_utc),
+            (from_utc, TZ.convert_utc_timestamp_to_timezone)))
+    def same_strings(got, want):
+        return (torch.equal(got.data.cpu(), want.data)
+                and torch.equal(got.offsets.cpu(), want.offsets)
+                and torch.equal(got.valid_mask().cpu(), want.valid_mask()))
+
+    q1_cpu = [decimal_to_string(prefix(c, c.size))
+              for c in decimal_keep["q1"].columns if c.dtype.is_decimal]
+    checks["decimal_to_string_q1_equals_cpu"] = all(
+        same_strings(g, w) for g, w in zip(q1_strings, q1_cpu))
+    checks["decimal_to_string_1m_equals_cpu"] = same_strings(
+        price_strings, decimal_to_string(prefix(
+            decimal_keep["price_1m"], decimal_keep["price_1m"].size)))
+    lap("checks")
+    jline({"phase": "spark_features_sf10", "part": "checks", **card,
+           "bloom_false_positive_share_distinct_keys": fp,
+           "bloom_false_positive_share_lineitem_rows": fp_rows,
+           "full_join_pairs": fl.numel(), "q3_top_orderkeys":
+           top_kept[0].to_numpy().tolist(),
+           "q1_strings_first_row": [s.to_pylist()[0] for s in q1_strings],
+           **checks})
+    failed = [k for k, ok in checks.items() if ok is not True]
+    if failed:
+        raise AssertionError(f"phase 12: {failed}")
+    log("check phase 12: the merged bloom filter == one put == plain; "
+        "every build key hits; q3 over the kept rows == q3 == numpy; the "
+        "full join == left join + right anti rows; donated q1 == "
+        "undonated; hilbert, rebase, time zones and decimal strings == "
+        "plain")
+    del undonated, whole, plain, top_all, q1_donated, donor
+
+    # ---- times (the card only) -------------------------------------------
+    if not cuda:
+        return launches
+    empty = BF.bloom_filter_create(num_hashes, num_longs, dev)
+    full = BF.bloom_filter_put(empty, probe_h)
+    work = {
+        # bytes: the keys read once, the filter's bits written (put) or
+        # read (probe) once, the probe's uint8 written once
+        "bloom_put_build": (lambda: BF.bloom_filter_put(empty, build_h),
+                            n_build * 8 + num_longs * 8),
+        "bloom_put_60m": (lambda: BF.bloom_filter_put(empty, probe_h),
+                          rows * 8 + num_longs * 8),
+        "bloom_probe_60m": (lambda: BF.bloom_filter_probe(probe_h, full),
+                            rows * 8 + num_longs * 8 + rows),
+        "bloom_merge_8": (lambda: BF.bloom_filter_merge(partials),
+                          (BLOOM_PARTIALS + 1) * num_longs * 64),
+        "xxhash64_60m": (lambda: H.xxhash64([li[0]], XXHASH64_SEED),
+                         rows * 16),
+        "full_join": (lambda: full_join([li_late[0]], [ord_early[0]]),
+                      (li_late.num_rows + ord_early.num_rows) * 8
+                      + 2 * 8 * fl.numel()),
+        "hilbert_index_60m": (lambda: hilbert_index(HILBERT_BITS, hcols),
+                              rows * (3 * 4 + 8)),
+        "rebase_days_both_ways": (lambda: DR.rebase_julian_to_gregorian(
+            DR.rebase_gregorian_to_julian(days)), rows * 4 * 2 * 2),
+        "rebase_micros_both_ways": (lambda: DR.rebase_julian_to_gregorian(
+            DR.rebase_gregorian_to_julian(us)), rows * 8 * 2 * 2),
+        "to_utc_micros": (lambda: TZ.convert_timestamp_to_utc(
+            us, kolkata, 0), rows * 16),
+        "from_utc_micros": (lambda: TZ.convert_utc_timestamp_to_timezone(
+            us, kolkata, 0), rows * 16),
+    }
+    for name, (fn, nbytes) in work.items():
+        b_ms, b_by = bound_ms(nbytes, 0)
+        K.reset_launches()
+        fn()
+        per_call = {k: v for k, v in _kernel_counts().items() if v}
+        ms = cuda_ms(fn, reps=2, warm=1)
+        jline({"phase": "spark_features_sf10", "part": "time", **card,
+               "work": name, "rows": rows, "ms": ms, "bound_ms": b_ms,
+               "bound_by": b_by, "launches_per_call": per_call})
+    for name, fn in (("decimal_to_string_1m",
+                      lambda: decimal_to_string(decimal_keep["price_1m"])),):
+        _, ms = wall(fn, dev)
+        jline({"phase": "spark_features_sf10", "part": "time", **card,
+               "work": name, "rows": n1, "wall_ms": ms})
+    del full, empty
+    peaks = {}
+    for label, donate in (("undonated", False), ("donated", True)):
+        t = tpch.generate_q1_lineitem(rows, 0, dev)
+        _sync(dev)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res, ms = wall(lambda: execute_plan(q1_plan, t,
+                                            donate_input=donate), dev)
+        peaks[label] = {"max_memory_allocated_gb":
+                        torch.cuda.max_memory_allocated() / 1e9,
+                        "above_start_gb": (torch.cuda.max_memory_allocated()
+                                           - base) / 1e9,
+                        "input_gb": rows * 36 / 1e9, "ms": ms}
+        del t, res
+    jline({"phase": "spark_features_sf10", "part": "donation_peak", **card,
+           "rows": rows, **peaks})
+    lap("times")
+    jline({"phase": "spark_features_sf10", "part": "seconds", **card,
+           "counted_run_s": counted_s, **secs})
+    return launches
 
 
 def numpy_q1(a, cutoff=2400):

@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import decimal as _pydecimal
 from dataclasses import dataclass, field, replace
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -341,19 +341,42 @@ def _scaled_decimal(unscaled: int, scale: int) -> _pydecimal.Decimal:
     return _pydecimal.Decimal((sign, digits, -scale))
 
 
-@dataclass
 class Table:
-    """An ordered collection of equal-length columns."""
+    """An ordered collection of equal-length columns. ``donate()`` hands
+    the columns to a consumer that then holds the only references (plan
+    input donation); a donated table raises on use, as a deleted
+    ``jax.Array`` does."""
 
-    columns: Tuple[Column, ...]
-
-    def __post_init__(self):
-        self.columns = tuple(self.columns)
-        if self.columns:
-            n = self.columns[0].size
-            for c in self.columns:
+    def __init__(self, columns: Sequence[Column]):
+        self._columns: Optional[Tuple[Column, ...]] = tuple(columns)
+        if self._columns:
+            n = self._columns[0].size
+            for c in self._columns:
                 if c.size != n:
                     raise ValueError("table columns must share row count")
+
+    @property
+    def columns(self) -> Tuple[Column, ...]:
+        if self._columns is None:
+            raise RuntimeError("Table has been donated: its columns were "
+                               "handed to the program that consumed it")
+        return self._columns
+
+    @property
+    def is_donated(self) -> bool:
+        return self._columns is None
+
+    def donate(self) -> List[Column]:
+        """The columns, as a list the caller takes ownership of; the
+        table keeps none of them."""
+        cols = list(self.columns)
+        self._columns = None
+        return cols
+
+    def __repr__(self) -> str:
+        if self._columns is None:
+            return "Table(<donated>)"
+        return f"Table(columns={self._columns!r})"
 
     @property
     def num_rows(self) -> int:

@@ -8,8 +8,8 @@ offsets, see columnar/column.py) and the encoded ids DICT32, RLE, FOR32
 and FOR64 (columns with children: columnar/dictionary.py,
 columnar/encodings.py); the others raise ``NotImplementedError`` naming
 the ROADMAP queue item that brings them. ``require_stored`` admits the fixed-width and encoded
-ids: a STRING column raises there, in every op that reads values as
-fixed-width elements (plan expressions, aggregated values).
+ids: a STRING column raises TypeError there, in every op that reads
+values as fixed-width elements.
 
 Storage (``DType.torch_dtype``): each fixed-width id is held in the torch
 dtype of its byte size and signedness. torch's kernels lack arithmetic and
@@ -91,7 +91,6 @@ _FIXED = {
 
 # where each id the port does not store yet is queued (ROADMAP.md queue A)
 _QUEUED = {
-    TypeId.STRING: "A10, strings in plan expressions and aggregates",
     TypeId.LIST: "A1, nested columns",
     TypeId.STRUCT: "A1, nested columns",
 }
@@ -145,12 +144,14 @@ class DType:
         return self.id in _FIXED
 
     def require_stored(self) -> "DType":
-        """self, or NotImplementedError naming the queue item that ports
-        this type."""
+        """self; TypeError for STRING, NotImplementedError naming the
+        queue item that ports a nested type."""
         self._fixed()
         return self
 
     def _fixed(self):
+        if self.id is TypeId.STRING:
+            raise TypeError("string columns have no fixed-width elements")
         if self.id not in _FIXED:
             raise not_ported(f"{self.id.value} columns", _QUEUED[self.id])
         return _FIXED[self.id]

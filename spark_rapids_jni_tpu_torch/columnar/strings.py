@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..utils.shapes import bucket_size
@@ -115,19 +116,18 @@ def from_padded_bytes(mat: torch.Tensor, lengths: torch.Tensor,
 
 def pack_byte_rows(parts: Sequence[bytes], validity=None,
                    device="cuda") -> Column:
-    """STRING column from a Python list of bytes objects."""
+    """STRING column from a Python list of bytes objects: their bytes
+    joined on the host, one copy to ``device``."""
     from .column import resolve_device
     dev = resolve_device(device)
-    width = max([1] + [len(p) for p in parts])
-    mat = torch.zeros((len(parts), width), dtype=torch.uint8)
-    for i, p in enumerate(parts):
-        if p:
-            mat[i, :len(p)] = torch.frombuffer(bytearray(p),
-                                               dtype=torch.uint8)
-    lengths = torch.tensor([len(p) for p in parts], dtype=torch.int64)
+    lengths = np.fromiter((len(p) for p in parts), np.int64, len(parts))
+    offsets = np.zeros(len(parts) + 1, np.int32)
+    np.cumsum(lengths, out=offsets[1:])
+    chars = np.frombuffer(b"".join(parts), np.uint8).copy()
     if validity is not None:
-        validity = torch.as_tensor(validity).to(torch.bool).to(dev)
-    return from_padded_bytes(mat.to(dev), lengths.to(dev), validity)
+        validity = torch.as_tensor(np.asarray(validity, dtype=bool)).to(dev)
+    return Column(dt.STRING, len(parts), data=torch.from_numpy(chars).to(dev),
+                  validity=validity, offsets=torch.from_numpy(offsets).to(dev))
 
 
 def row_of_position(bounds: torch.Tensor, total: int) -> torch.Tensor:

@@ -113,21 +113,29 @@ def _segment_structure(cmp_keys: Sequence[Column], order: torch.Tensor):
 
 def _agg_out_dtype(vdtype: dt.DType, op: str) -> dt.DType:
     """Result dtype of an aggregation over a column of (logical) type
-    ``vdtype``, and the one validation point: Spark's sum(int) -> long,
-    sum(float/double) -> double, count -> long, mean -> double, min/max
-    keep the type; DECIMAL128 sum/min/max keep it, its mean is
-    DECIMAL128 at scale min(s + 4, 38)."""
+    ``vdtype``, and the one validation point, its checks in the JAX
+    package's order: Spark's sum(int) -> long, sum(float/double) ->
+    double, count -> long, mean -> double, min/max keep the type;
+    DECIMAL128 sum/min/max keep it, its mean is DECIMAL128 at scale
+    min(s + 4, 38)."""
     if op == "count":
         return dt.INT64
-    if op not in ("sum", "min", "max", "mean"):
-        raise ValueError(f"unknown aggregation {op}")
     if vdtype.id is TypeId.DICT32:
         raise TypeError("groupby aggregation over dictionary-encoded "
                         "string value columns supports count only")
-    vdtype.require_stored()
     if vdtype.id is TypeId.DECIMAL128:
-        return dt.decimal128(min(vdtype.scale + 4, 38)) if op == "mean" \
-            else vdtype
+        if op == "mean":
+            return dt.decimal128(min(vdtype.scale + 4, 38))
+        if op not in ("sum", "min", "max"):
+            raise TypeError(f"groupby {op} unsupported for decimal128 "
+                            f"(sum/min/max/mean/count are)")
+        return vdtype
+    if not vdtype.is_fixed_width:
+        raise TypeError(f"groupby aggregation unsupported for "
+                        f"{vdtype.id.value} value columns")
+    vdtype.require_stored()
+    if op not in ("sum", "min", "max", "mean"):
+        raise ValueError(f"unknown aggregation {op}")
     if op == "mean" or (op == "sum" and vdtype.is_floating):
         return dt.FLOAT64
     return dt.INT64 if op == "sum" else vdtype

@@ -255,6 +255,20 @@ def left_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
             torch.cat([r_idx, torch.full_like(miss, -1)]))
 
 
+def full_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
+              nulls_equal: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full outer join; unmatched rows get -1 on the other side: the
+    inner join's maps, then every unmatched left row (ascending) with
+    right index -1, then every unmatched right row (ascending) with left
+    index -1."""
+    l_idx, r_idx = inner_join(left_keys, right_keys, nulls_equal)
+    lmiss = torch.nonzero(~_matched(l_idx, left_keys[0].size)).reshape(-1)
+    rmiss = torch.nonzero(~_matched(r_idx, right_keys[0].size)).reshape(-1)
+    return (torch.cat([l_idx, lmiss, torch.full_like(rmiss, -1)]),
+            torch.cat([r_idx, torch.full_like(lmiss, -1), rmiss]))
+
+
 def left_semi_join(left_keys: Sequence[Column],
                    right_keys: Sequence[Column],
                    nulls_equal: bool = False) -> torch.Tensor:

@@ -145,7 +145,7 @@ def _unread(dtype: dt.DType, n: int) -> Column:
 
 
 def _take(c: Column, idx: torch.Tensor) -> Column:
-    return (gather(c, idx) if c.data is not None
+    return (gather(c, idx) if c.data is not None or c.children
             else _unread(c.dtype, int(idx.shape[0])))
 
 
@@ -215,25 +215,61 @@ def _groupby_reads(node: GroupBy, dec, reprobed: Dict[int, set]) -> set:
             | {i for i, op in node.aggs if op != "count"})
 
 
+def _live_before(nodes) -> list:
+    """For each node of a linear plan, the positions of the columns
+    entering it that it or a later node reads (the output's included)."""
+    live = set(range(output_ncols(nodes[-1])))
+    out = [None] * len(nodes)
+    for k in range(len(nodes) - 1, 0, -1):
+        node = nodes[k]
+        if isinstance(node, Filter):
+            live = live | _expr_cols(node.predicate)
+        elif isinstance(node, Project):
+            live = set().union(*(_expr_cols(e) for e in node.exprs))
+        elif isinstance(node, GroupBy):
+            live = set(node.keys) | {i for i, _ in node.aggs}
+        elif isinstance(node, Sort):
+            live = live | set(node.keys)
+        out[k] = live
+    return out
+
+
 def _make_fn(plan: PlanNode, max_groups: int, out_info: Dict[str, Any]):
     """The fused function of a linear plan: ``fn(cols) -> (cols, mask,
     head)``. Each run writes the static facts of its output into
-    ``out_info``."""
+    ``out_info``.
+
+    ``cols`` given as a list is donated: the program empties the list, so
+    that it holds the only references to the input columns, and drops
+    each column after the last node that reads it (the caching allocator
+    then reuses its blocks for intermediates)."""
     nodes = linearize(plan)
+    live_before = _live_before(nodes)
 
     def fn(cols: Tuple[Column, ...]):
         scan = nodes[0]
+        donated = isinstance(cols, list)
+        if donated and not cols:
+            raise RuntimeError("the donated input was consumed by an "
+                               "earlier run of this program")
         if len(cols) != scan.ncols:
             raise PlanError(f"plan expects {scan.ncols} columns, "
                             f"got {len(cols)}")
-        cols = list(cols)
+        if donated:
+            cols, held = list(cols), cols
+            held.clear()
+        else:
+            cols = list(cols)
         n = cols[0].size
         dev = cols[0].device
         mask: Optional[torch.Tensor] = None
         live = None                     # device i32; None while mask is None
         prefix = True                   # trivially true with no mask
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
-        for node in nodes[1:]:
+        for k, node in enumerate(nodes[1:], 1):
+            if donated:
+                cols = [c if i in live_before[k] else _unread(c.dtype, n)
+                        for i, c in enumerate(cols)]
             if isinstance(node, Filter):
                 keep = ex.predicate_mask(ex.eval_expr(node.predicate, cols))
                 mask = keep if mask is None else mask & keep
@@ -253,7 +289,7 @@ def _make_fn(plan: PlanNode, max_groups: int, out_info: Dict[str, Any]):
             elif isinstance(node, Sort):
                 order = _sort_order([cols[i] for i in node.keys], node, mask,
                                     n, dev)
-                cols = [gather(c, order) for c in cols]
+                cols = [_take(c, order) for c in cols]
                 if mask is not None:
                     mask = mask.index_select(0, order)
                 prefix = True

@@ -29,8 +29,8 @@ Fallbacks go through ``run_eager`` (plan/interpreter.py), under the same
 not fixed-width, decimal), a planner gate (a DAG plan the strategy
 selector cannot fuse), a device re-check that tripped
 (``plan_overflows``: group budget, duplicate or non-dense build key,
-span) and the two split gates. Inputs are never donated, so the eager
-replay always has them.
+span) and the two split gates. The ladder's inputs are never donated,
+so the eager replay always has them.
 
 DAG plans (Join nodes, several input tables) take the same path: the
 planner (plan/planner.py) rewrites and annotates the plan, the
@@ -49,8 +49,12 @@ remap as an extra program input. DAG plans over RLE or FOR inputs run
 eagerly (the join lowering reads key lanes as plain data), as in the JAX
 package.
 
-Not ported: input donation (ROADMAP A7.3); the sharded and batched
-programs (A15, A16).
+Input donation (``donate_input=True``, linear plans over plain columns)
+hands the input's column tensors to the program, which drops each after
+its last use; the donated run stays outside the ladder, and an overflow
+after it raises ``RuntimeError``, as in the JAX package.
+
+Not ported: the sharded and batched programs (A15, A16).
 """
 
 from __future__ import annotations
@@ -385,25 +389,59 @@ def _execute_dag(plan: PlanNode, tables: Tuple[Table, ...],
         return _eager_fallback(plan, tables, "overflow")
 
 
+def _run_donated(prog: CompiledPlan, table: Table) -> Table:
+    """The donated run: the program takes the input's columns out of
+    ``table`` (which then raises on use) and drops each after its last
+    use. It stays outside the retry, rollback and split ladder, which
+    would have to re-run it; the guard still classifies, and an OOM
+    propagates typed to a caller that owns replayable state."""
+    nbytes = table.device_nbytes()
+    # the table gives up its columns inside the guarded call, after the
+    # guard's injection point, as a donated jax.Array at the program call
+    donating = CompiledPlan(fn=lambda: prog(table.donate()),
+                            out_info=prog.out_info)
+    try:
+        return _run_fused(donating, (), nbytes)
+    except _OverflowSignal:
+        plan_metrics.inc("plan_overflows")
+        raise RuntimeError(
+            "plan group-budget overflow after input donation: the input "
+            "was consumed by the fused program and the eager fallback "
+            "cannot run. Raise plan.max_groups or disable donation for "
+            "this query.") from None
+
+
 def execute_plan(plan: PlanNode, table: Union[Table, Sequence[Table]],
                  donate_input: bool = False,
                  cache: Optional[ProgramCache] = None) -> Table:
     """Run ``plan`` over ``table`` as one fused program, or eagerly where
     it cannot be fused (a labeled fallback), through the degradation
     ladder of the module docstring. DAG plans (Join nodes) take a sequence
-    of tables indexed by ``Scan.input_index``. Every op runs on the
-    tables' device."""
-    if donate_input:
-        raise dt.not_ported("input donation", "A7.3, fused executor")
+    of tables indexed by ``Scan.input_index``; they never donate (the
+    eager overflow replay needs the inputs). Every op runs on the tables'
+    device.
+
+    ``donate_input=True`` hands a linear plan's input columns to the
+    fused program (``_run_donated``): only for a caller that is done with
+    the table and gives up the ladder's retries. An input holding DICT32,
+    RLE or FOR columns does not donate (their children are shared), and
+    one that runs eagerly keeps its columns."""
     cache = cache if cache is not None else _default_cache
     tables, dag = _inputs(plan, table)
     plan = resolve_literals(plan, table)
     if dag:
         return _execute_dag(plan, tables, cache)
     table = tables[0]
+    if donate_input and any(c.dtype.id is dt.TypeId.DICT32
+                            or c.dtype.is_encoded for c in table.columns):
+        # encoded children (a dictionary's values and ranks, RLE runs, a
+        # FOR header) are shared by reference with other columns
+        donate_input = False
     if _table_unsupported_reason(table) is not None:
         return _eager_fallback(plan, table, "unsupported-input")
     prog = cache.get_or_compile(plan, table)
+    if donate_input:
+        return _run_donated(prog, table)
 
     # the degradation ladder: retry (same program) -> spill-rollback ->
     # split (halved pieces through the ProgramCache) -> eager (named

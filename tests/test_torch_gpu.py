@@ -776,3 +776,109 @@ def test_decimal128_rows_round_trip(cuda):
     for a, b in zip(back.columns, t.columns):
         assert torch.equal(a.data, b.data)
         assert torch.equal(a.valid_mask(), b.valid_mask())
+
+
+def _on(cols, device):
+    return [Column(c.dtype, c.size, data=c.data.to(device),
+                   validity=None if c.validity is None
+                   else c.validity.to(device)) for c in cols]
+
+
+def _same(a, b):
+    return (torch.equal(a.data.cpu(), b.data.cpu())
+            and torch.equal(a.valid_mask().cpu(), b.valid_mask().cpu()))
+
+
+def test_bloom_filter_on_card_equals_plain(cuda):
+    """Put, merge and probe on the card (h1, h2 from kernel B1) give the
+    bytes and probes of the plain version on the CPU."""
+    from spark_rapids_jni_tpu_torch.ops import bloom_filter as B
+    rng = np.random.default_rng(21)
+    keys = rng.integers(-2**63, 2**63 - 1, 200_003)
+    valid = rng.random(keys.size) > 0.05
+    out = {}
+    for dev in ("cpu", cuda):
+        col = Column.from_numpy(keys, dt.INT64, validity=valid, device=dev)
+        half = keys.size // 2
+        parts = [B.bloom_filter_put(B.bloom_filter_create(5, 4096, dev),
+                                    Column(dt.INT64, n, data=col.data[s],
+                                           validity=col.validity[s]))
+                 for s, n in ((slice(0, half), half),
+                              (slice(half, None), keys.size - half))]
+        before = K.murmur3_fixed_rows.launches
+        bf = B.bloom_filter_merge(parts)
+        probe = Column.from_numpy(keys[::-1].copy(), dt.INT64, device=dev)
+        out[str(dev)] = (B.serialize(bf), B.bloom_filter_probe(probe, bf))
+        if dev is cuda:
+            assert K.murmur3_fixed_rows.launches == before + 2
+    assert out["cpu"][0] == out[str(cuda)][0]
+    assert _same(out["cpu"][1], out[str(cuda)][1])
+
+
+def test_full_join_on_card_equals_cpu(cuda):
+    from spark_rapids_jni_tpu_torch.ops.join import full_join
+    rng = np.random.default_rng(22)
+    lk = Column.from_numpy(rng.integers(0, 5000, 100_000), dt.INT64,
+                           validity=rng.random(100_000) > 0.05, device="cpu")
+    rk = Column.from_numpy(rng.integers(2500, 9000, 40_000), dt.INT64,
+                           device="cpu")
+    want = full_join([lk], [rk])
+    got = full_join(_on([lk], cuda), _on([rk], cuda))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_donated_q1_on_card_equals_undonated(cuda):
+    li = tpch.generate_q1_lineitem(1 << 20, 3, device=cuda)
+    want = tpch.run_q1(li)
+    from spark_rapids_jni_tpu_torch.plan import execute_plan
+    donor = Table(tuple(li.columns))
+    got = execute_plan(tpch._q1_plan(2400), donor, donate_input=True)
+    assert donor.is_donated
+    for a, b in zip(want.columns, got.columns):
+        assert _same(a, b)
+    with pytest.raises(RuntimeError, match="donated"):
+        donor.columns
+
+
+def test_hilbert_rebase_timezones_on_card_equal_cpu(cuda):
+    from spark_rapids_jni_tpu_torch.ops import datetime_rebase as DR
+    from spark_rapids_jni_tpu_torch.ops import timezones as TZ
+    from spark_rapids_jni_tpu_torch.ops.zorder import hilbert_index
+    rng = np.random.default_rng(23)
+    n = 300_001
+    ints = [Column.from_numpy(rng.integers(-2**31, 2**31, n).astype(
+        np.int32), dt.INT32, validity=rng.random(n) > 0.05, device="cpu")
+        for _ in range(3)]
+    assert _same(hilbert_index(21, ints), hilbert_index(21, _on(ints, cuda)))
+    days = Column.from_numpy(rng.integers(-719162, 47846, n).astype(
+        np.int32), dt.DType(dt.TypeId.TIMESTAMP_DAYS), device="cpu")
+    micros = Column.from_numpy(rng.integers(-62135596800, 4133980800, n)
+                               * 1_000_000,
+                               dt.DType(dt.TypeId.TIMESTAMP_MICROSECONDS),
+                               device="cpu")
+    table = TZ.make_transition_table(
+        [[(TZ.INT64_MIN, TZ.INT64_MIN, 21200), (-2000000000, -1999978800,
+                                                19800)]], ["Z"])
+    for col in (days, micros):
+        for fn in (DR.rebase_gregorian_to_julian,
+                   DR.rebase_julian_to_gregorian):
+            assert _same(fn(col), fn(_on([col], cuda)[0]))
+    for fn in (TZ.convert_timestamp_to_utc,
+               TZ.convert_utc_timestamp_to_timezone):
+        assert _same(fn(micros, table, 0), fn(_on([micros], cuda)[0],
+                                              table, 0))
+
+
+def test_decimal_to_string_on_card_equals_cpu(cuda):
+    from spark_rapids_jni_tpu_torch.ops.decimal_to_string import \
+        decimal_to_string
+    rng = np.random.default_rng(24)
+    limbs = datagen.decimal128_limbs(rng.integers(-10**12, 10**12, 10_000))
+    col = Column.from_numpy(limbs, dt.decimal128(2), device="cpu")
+    want = decimal_to_string(col)
+    got = decimal_to_string(Column(col.dtype, col.size,
+                                   data=col.data.to(cuda)))
+    assert got.data.device.type == "cuda"
+    assert torch.equal(got.data.cpu(), want.data)
+    assert torch.equal(got.offsets.cpu(), want.offsets)

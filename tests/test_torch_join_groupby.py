@@ -197,3 +197,59 @@ def test_sort_table_matches(ascending):
     want = JS.sort_table(jt, [5, 0], ascending)
     assert_table_equal(want, S.sort_table(table_to_port(jt), [5, 0],
                                           ascending))
+
+
+@pytest.mark.parametrize("nulls_equal", [False, True])
+def test_full_join_matches(nulls_equal):
+    """The reference's case (test_exec_ops.py::test_full_join), then keys
+    with duplicates and nulls on both sides: the inner pairs, the
+    unmatched left rows ascending, the unmatched right rows ascending."""
+    lk = [JColumn.from_pylist([1, 5], jdt.INT64)]
+    rk = [JColumn.from_pylist([1, 7], jdt.INT64)]
+    got = J.full_join([to_port(c) for c in lk], [to_port(c) for c in rk])
+    assert sorted(zip(got[0].tolist(), got[1].tolist())) == [
+        (-1, 1), (0, 0), (1, -1)]
+    r = np.random.default_rng(8)
+    lk = [_ints(r, NL, 0, 90, null_frac=0.1)]
+    rk = [_ints(r, NR, 40, 130, null_frac=0.1)]
+    want = JJ.full_join(lk, rk, nulls_equal=nulls_equal)
+    got = J.full_join([to_port(c) for c in lk], [to_port(c) for c in rk],
+                      nulls_equal=nulls_equal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (got[0] == -1).any() and (got[1] == -1).any()
+
+
+def _c3_tables():
+    from decimal import Decimal
+    keys = JColumn.from_pylist([0, 0, 1, 1], jdt.INT32)
+    return {
+        "string": JTable((keys, JColumn.from_pylist(["a", "b", None, "c"],
+                                                    jdt.STRING))),
+        "decimal128": JTable((keys, JColumn.from_pylist(
+            [Decimal("1.25"), None, Decimal("-3.50"), Decimal("0.01")],
+            jdt.decimal128(2)))),
+        "int64": JTable((keys, JColumn.from_pylist([1, 2, None, 4],
+                                                   jdt.INT64))),
+    }
+
+
+@pytest.mark.parametrize("values,op", [
+    ("string", "sum"), ("string", "min"), ("string", "max"),
+    ("string", "mean"), ("string", "count"), ("decimal128", "median"),
+    ("int64", "median")])
+def test_groupby_error_contract_matches(values, op):
+    """Both packages raise the same exception type, with the reference's
+    message, for an aggregation their contract refuses (or both run it:
+    a count over strings)."""
+    jt = _c3_tables()[values]
+    pt = table_to_port(jt)
+    try:
+        want = JG.groupby_aggregate(jt, [0], [(1, op)])
+    except (TypeError, ValueError) as e:
+        with pytest.raises(type(e)) as got:
+            G.groupby_aggregate(pt, [0], [(1, op)])
+        assert str(got.value) == str(e)
+        return
+    assert_table_equal(want, G.groupby_aggregate(pt, [0], [(1, op)]))

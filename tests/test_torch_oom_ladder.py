@@ -334,6 +334,32 @@ def test_exhausted_split_depth_and_retry_budget_shed_typed(tmp_path):
     assert delta["plan_oom_retries"] == 2
 
 
+def test_donated_run_sheds_oom_typed(tmp_path):
+    """A donated run stays outside the ladder: an injected OOM propagates
+    typed from both packages, no rung runs, and the input, which the
+    program never received, keeps its columns."""
+    jplan = GroupBy(Filter(Scan(5), col(4) < lit(1800)), (0,),
+                    ((2, "sum"), (2, "count")))
+    path = str(tmp_path / "oom.json")
+    with open(path, "w") as f:
+        json.dump(_oom_rule("retry"), f)
+    jt = _table()
+    pt = tables_to_port(jt)
+    outs = []
+    for p, plan, table in ((JAX, jplan, jt), (PORT, plan_to_port(jplan), pt)):
+        before = p["metrics"].snapshot()["plan_oom_retries"]
+        p["I"].install(path, seed=0)
+        try:
+            with pytest.raises(p["E"].TpuRetryOOM) as err:
+                p["execute"](plan, table, donate_input=True)
+        finally:
+            p["I"].uninstall()
+        outs.append((type(err.value).__name__,
+                     p["metrics"].snapshot()["plan_oom_retries"] - before))
+    assert outs[0] == outs[1] == ("TpuRetryOOM", 0)
+    assert not pt.is_donated
+
+
 def _rle_table():
     rng = np.random.default_rng(9)
     runs = JColumn.from_numpy(

@@ -428,15 +428,28 @@ def _float_mean():
                        P.run_eager(plan_to_port(plan), tables_to_port(jt)))
 
 
+def _donate_input():
+    """A donated run equals the JAX package's donated run; the donated
+    port table raises on use."""
+    jplan = PLANS["filter_groupby_sort"]()
+    jt = _table(LINEAR_ROWS, seed=9)
+    pt = tables_to_port(jt)  # before the JAX run deletes jt's buffers
+    want = j_execute(jplan, jt, donate_input=True, cache=JCache())
+    assert_table_equal(want, P.execute_plan(plan_to_port(jplan), pt,
+                                            donate_input=True,
+                                            cache=ProgramCache()))
+    assert pt.is_donated
+    with pytest.raises(RuntimeError, match="donated"):
+        pt.columns
+
+
 # each entry: (ROADMAP item, a call that raises NotImplementedError naming
 # it), or (None, a parity check) for an entry that is ported since
 _NOT_PORTED = {
     "string_literal": (None, _string_literal),
     "dictionary_join_key": (None, _dictionary_join_key),
     "dictionary_operand": (None, _dictionary_operand),
-    "donate_input": ("A7", lambda: P.execute_plan(
-        P.Scan(1), Table((Column.from_numpy(np.arange(3), device="cpu"),)),
-        donate_input=True)),
+    "donate_input": (None, _donate_input),
     "float_mean": (None, _float_mean),
     "tpch_mesh": ("A15", lambda: tpch.run_q6(
         tpch.generate_q1_lineitem(16, 0, device="cpu"), mesh=object())),
@@ -449,7 +462,7 @@ _NOT_PORTED = {
 def test_not_ported_names_its_roadmap_item(case):
     """An unported option raises naming its ROADMAP item; an entry ported
     since (string literals, dictionary keys and operands: A10; float
-    means: A4) runs and equals the JAX package."""
+    means: A4; input donation: A7.3) runs and equals the JAX package."""
     item, call = _NOT_PORTED[case]
     if item is None:
         call()
@@ -487,3 +500,63 @@ def test_plan_cores_are_the_jax_packages_cores():
                          "join_build_sorted", "join_probe_sorted",
                          "join_probe_direct"}
     assert set(mine) <= set(j_cores())
+
+
+# ---------------------------------------------------------------------------
+# input donation (A7.3)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["project_filter_groupby",
+                                  "filter_project_trim", "groupby_limit"])
+def test_donated_run_matches_jax(name):
+    """A donated linear plan (its columns dropped after their last node)
+    equals the JAX package's donated run and the port's undonated one."""
+    jplan = PLANS[name]()
+    jt = _table(LINEAR_ROWS, seed=11)
+    kept, pt = tables_to_port(jt), tables_to_port(jt)
+    want = j_execute(jplan, jt, donate_input=True, cache=JCache())
+    pplan = plan_to_port(jplan)
+    assert_table_equal(want, P.execute_plan(pplan, kept,
+                                            cache=ProgramCache()))
+    P.plan_metrics.reset()
+    got = P.execute_plan(pplan, pt, donate_input=True, cache=ProgramCache())
+    assert_table_equal(want, got)
+    assert pt.is_donated and P.plan_metrics.snapshot()["plan_executes"] == 1
+
+
+def test_donation_contract():
+    """What does not donate (DAG plans, encoded inputs, eager inputs)
+    keeps its columns and equals the JAX package; an overflow after
+    donation raises the JAX package's RuntimeError."""
+    from spark_rapids_jni_tpu.columnar.dictionary import \
+        encode_strings as j_encode
+    jtabs = _probe_build(seed=35, null_keys=True, dense=False)
+    jplan = _join_plan("inner")
+    ptabs = tables_to_port(jtabs)
+    want = j_execute(jplan, jtabs, donate_input=True, cache=JCache())
+    assert_table_equal(want, P.execute_plan(plan_to_port(jplan), ptabs,
+                                            donate_input=True,
+                                            cache=ProgramCache()))
+    assert not any(t.is_donated for t in ptabs)
+
+    jt = JTable((j_encode(JColumn.from_pylist(["a", "b", None, "a", "c"],
+                                              jdt.STRING)),
+                 JColumn.from_numpy(np.arange(5, dtype=np.int64))))
+    jplan = GroupBy(Scan(2), (0,), ((1, "sum"),))
+    pt = tables_to_port(jt)
+    want = j_execute(jplan, jt, donate_input=True, cache=JCache())
+    assert_table_equal(want, P.execute_plan(plan_to_port(jplan), pt,
+                                            donate_input=True,
+                                            cache=ProgramCache()))
+    assert not pt.is_donated
+
+    jplan, jt, budget = _budget_case()
+    pt = tables_to_port(jt)
+    with jconfig.override("plan.max_groups", budget):
+        with pytest.raises(RuntimeError) as jerr:
+            j_execute(jplan, jt, donate_input=True, cache=JCache())
+    with config.override("plan.max_groups", budget):
+        with pytest.raises(RuntimeError) as perr:
+            P.execute_plan(plan_to_port(jplan), pt, donate_input=True,
+                           cache=ProgramCache())
+    assert str(perr.value) == str(jerr.value) and pt.is_donated
