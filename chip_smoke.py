@@ -120,15 +120,16 @@ run exits non-zero:
      discount (B2), and reads the counts; checks the read == the
      generated table, q1 == numpy (exact in int64; the means HALF_UP in
      Python ints), the round trip == its input, B1/B2 over DECIMAL128 ==
-     plain, and H2 == plain, bit for bit, on 1M seeded rows per op and
-     on the edge table; then times the read (first, warm median of 3,
-     the split), q1 and the shuffle (first, warm, peak, profile), the
-     hashes over the decimal bytes, and H2's six ops at 60M rows (events,
-     profiler, bound; operations bounds from the SASS at the card's
-     instruction issue rate: divide's from the steps this data takes in
-     its loop at the fewest instructions a trip issues, integer divide's
-     and remainder's from their two 64-bit divisions a row at the fewest
-     instructions of nvcc's division subroutine);
+     plain, and H2 == plain, bit for bit, on 1M seeded rows per op, on
+     the edge table and on the division table; then times the read
+     (first, warm median of 3, the split), q1 and the shuffle (first,
+     warm, peak, profile), the hashes over the decimal bytes, and H2's
+     six ops at 60M rows (events, profiler, bound; operations bounds
+     from the SASS at the card's instruction issue rate: the per-row
+     reciprocals, 2-by-1 digit steps and hardware 64-bit divisions that
+     this data takes in H2's long division, each at the fewest
+     instructions the SASS gives it; the ptxas account and the SASS's
+     local-memory loads and stores of each op's kernel);
  12. ``spark_features_sf10``: the slice's path at SF10, the launch counts
      set to 0 just before and read just after: Spark's runtime bloom
      filter on q3 (the o_orderkey values that pass q3's customer and
@@ -185,6 +186,7 @@ ROW_KERNELS = ("murmur3_fixed_rows", "xxhash64_fixed_rows",
                "rowconv_fixed_words")
 PHASE_SECONDS = {}
 _PHASE_T0 = [time.perf_counter()]
+BUILD_REPORTS = {}  # phase 2's nvcc -Xptxas -v report of each source
 
 
 def phase_end(name):
@@ -333,6 +335,7 @@ def main():
     # ---- phase 2: build -------------------------------------------------
     t = time.perf_counter()
     reports = K.build_all()
+    BUILD_REPORTS.update(reports)
     log(f"built {sorted(reports) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t:.1f} s")
     for src, rep in reports.items():
@@ -2713,25 +2716,6 @@ def sass_fewest(insns, labels, start, stop):
     return None if best == inf else int(best)
 
 
-def _sass_loops(listing):
-    """Each loop (a branch back) of a SASS listing as (instructions in its
-    body, fewest issued on one trip), longest body first; the branch to
-    itself after EXIT is left out."""
-    insns, labels = listing
-    loops = []
-    for addr, text in insns:
-        if _sass_op(text)[0] != "BRA":
-            continue
-        target = _sass_target(text, labels)
-        if target is None or target >= addr:
-            continue
-        body = sum(1 for a, _ in insns if target <= a <= addr)
-        few = sass_fewest(insns, labels, target,
-                          lambda a, _t, end=addr: a == end)
-        loops.append((body, few))
-    return sorted(loops, reverse=True)
-
-
 def _sass_callees(listing):
     """{callee: fewest instructions from its entry to its RET} of every
     subroutine the kernel calls (nvcc's 64-bit division and remainder
@@ -2783,17 +2767,106 @@ def h2_kernel_ms(calls, reps=5):
     return out
 
 
-def _divide_iterations(a_data):
-    """(steps, rows): the steps of H2's bit-serial loop that divide's
-    timed operands need, and the rows that take it. n = a x 10^4 (scale 4
-    -> 6 over scale 2) takes one step per bit of |n| where n passes 2^64
-    (below, both operands fit the hardware's 64-bit division)."""
-    w = a_data.view(torch.int64)[:, 0].abs()  # |a| < 10^18 < 2^63
-    lo = (w & 0xFFFFFFFF) * 10**4
-    hi = (w >> 32) * 10**4 + (lo >> 32)        # n = hi * 2^32 + lo32
-    bits = 32 + torch.frexp(hi.to(torch.float64))[1].to(torch.int64)
-    loop = hi >= 1 << 32
-    return int(torch.where(loop, bits, 0).sum()), int(loop.sum())
+def h2_ptxas(report):
+    """{op: {"registers", "stack_frame", "spill_stores", "spill_loads"}}
+    of each decimal128_kernel<OP> in nvcc's -Xptxas -v report of
+    csrc/decimal128.cu; None without a report (built before this run)."""
+    import re
+    from spark_rapids_jni_tpu_torch.ops.decimal128 import OPS
+    if not report:
+        return None
+    op_of = {code: op for op, code in OPS.items()}
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"decimal128_kernelILi(\d)E", line)
+        if m:
+            cur = out.setdefault(op_of[int(m.group(1))], {})
+        elif "entry function" in line or "Function properties" in line:
+            cur = None  # another function (a probe)
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_frame=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+H2_PROBES = ("reciprocal_2by1", "step_2by1")
+
+
+def h2_sass(lib_path):
+    """The SASS account of kernel H2 (cuobjdump -sass of the built
+    library): each op's kernel's instructions and its LDL, STL and CALL
+    counts; the fewest instructions issued by one per-row reciprocal and
+    one digit step (the never-launched h2_probe_* kernels, less
+    h2_probe_base, which loads and stores the same words); and the fewest
+    of each division subroutine a kernel calls. None without cuobjdump;
+    ``fewest`` None for a source without the probes."""
+    from spark_rapids_jni_tpu_torch.ops.decimal128 import OPS
+    kernels, callees = {}, {}
+    for op, code in OPS.items():
+        listing = _sass_listing(lib_path, f"decimal128_kernelILi{code}E")
+        if listing is None:
+            return None
+        names = [_sass_op(t)[0] for _, t in listing[0]]
+        kernels[op] = {"instructions": len(names),
+                       **{k: names.count(k) for k in ("LDL", "STL",
+                                                      "CALL")}}
+        callees.update(_sass_callees(listing))
+    fewest = {}
+    for probe in ("base",) + H2_PROBES:
+        insns, labels = _sass_listing(lib_path, f"h2_probe_{probe}")
+        if not insns:
+            fewest = None
+            break
+        fewest[probe] = sass_fewest(
+            insns, labels, insns[0][0],
+            lambda _a, t: _sass_op(t) == ("EXIT", False))
+    if fewest:
+        base = fewest.pop("base")
+        fewest = {k: v - base for k, v in fewest.items()}
+    return {"kernels": kernels, "fewest": fewest,
+            "division_subroutines_fewest_to_ret": callees}
+
+
+def h2_division_work(a_data, b_data):
+    """{op: [per-row reciprocals, 2-by-1 digit steps, hardware 64-bit
+    divisions]} that H2's long division takes on 11d's operands (a at
+    scale 4, |a| < 10^18, b at scale 2, 0 < |b| < 10^9: H2_TIMED's
+    scales). divide divides |a| 10^4 by |b| (one word): where |a| 10^4
+    reaches 2^64, a reciprocal and two steps, else one hardware division.
+    integer divide and remainder divide |a| (one word) by |b| in one
+    hardware division, then the quotient by 10^2 (a step with the table's
+    reciprocal, where the quotient is not 0)."""
+    a = a_data.view(torch.int64)[:, 0].abs()
+    b = b_data.view(torch.int64)[:, 0].abs()
+    rows = a.numel()
+    two = int((a >= -(-2**64 // 10**4)).sum())
+    idiv = [0, int((a // b != 0).sum()), rows]
+    return {"divide": [two, 2 * two, rows - two], "integer_divide": idiv,
+            "remainder": idiv}
+
+
+def h2_division_ops(work, sass):
+    """The thread instructions of ``work`` (h2_division_work's counts) at
+    the fewest the SASS gives a reciprocal, a step and the hardware
+    division subroutine; None where the SASS lacks one that is needed."""
+    rec, steps, hw = work
+    few = (sass or {}).get("fewest") or {}
+    sub = [v for v in (sass or {}).get(
+        "division_subroutines_fewest_to_ret", {}).values() if v]
+    need = [(rec, few.get("reciprocal_2by1")), (steps,
+                                                few.get("step_2by1")),
+            (hw, min(sub) if sub else None)]
+    if any(n and c is None for n, c in need):
+        return None
+    return sum(n * c for n, c in need if n)
 
 
 def _h2_operands(rows, dev, seed):
@@ -2982,7 +3055,11 @@ def _decimal_phase(dev, card, rows, tmp):
     checks["H2_edge_table_equals_plain"] = all(
         _h2_equals_plain(op, ea, eb, scale, cast, torch.device("cpu"))[0]
         for op, ea, eb, scale, cast in edge)
-    del xa, xb, edge
+    table = datagen.decimal128_division_cases(256, 4, dev)
+    checks["H2_division_table_equals_plain"] = all(
+        _h2_equals_plain(op, ea, eb, scale, cast, torch.device("cpu"))[0]
+        for op, ea, eb, scale, cast in table)
+    del xa, xb, edge, table
     lap("checks")
     jline({"phase": "decimal_sf10", "part": "checks", **card, **checks})
     failed = [k for k, ok in checks.items() if ok is not True]
@@ -2990,8 +3067,8 @@ def _decimal_phase(dev, card, rows, tmp):
         raise AssertionError(f"phase 11: {failed}")
     log("check phase 11: file C == the generated table, its money columns "
         "on the host tier; decimal q1 == numpy; the shuffle round trip == "
-        "its input; B1/B2 over DECIMAL128 == plain; H2 == plain on 1M rows "
-        "and the edge table")
+        "its input; B1/B2 over DECIMAL128 == plain; H2 == plain on 1M rows, "
+        "the edge table and the division table")
 
     entry = {"name": K.KERNELS[4][0], "route": "cuda",
              "source": K.KERNELS[4][2], "replaces": K.KERNELS[4][3],
@@ -3056,45 +3133,44 @@ def _decimal_phase(dev, card, rows, tmp):
     xa, xb = _h2_operands(rows, dev, 13)
     k_ms = h2_kernel_ms([((lambda o=o, s=s: _h2_call(o, xa, xb, s)), o)
                          for o, _, _, s in H2_TIMED])
-    # operations bounds from the SASS, in instructions that any path must
-    # issue: divide, its loop steps on this data at the fewest a trip of
-    # the division's loop issues; integer divide and remainder, the two
-    # 64-bit hardware divisions a row this data takes (divmod_u's short
-    # path: the quotient by 10^2 after the division by b) at the fewest
-    # instructions of the division subroutine nvcc calls
-    from spark_rapids_jni_tpu_torch.ops.decimal128 import OPS
+    # operations bounds from the SASS: the reciprocals, digit steps and
+    # hardware divisions H2's long division takes on this data, each at
+    # the fewest instructions the SASS gives it (add, sub and multiply
+    # divide nothing at these scales)
     lib = K._lib_path("decimal128")
-    sass = {op: _sass_listing(lib, f"decimal128_kernelILi{OPS[op]}E")
-            for op in ("divide", "integer_divide", "remainder")}
-    loops = [lp for lp in _sass_loops(sass["divide"]) if lp[0] > 1] \
-        if sass["divide"] else []
-    step_insns = min((f for _, f in loops if f), default=None)
-    callees = {op: _sass_callees(sass[op]) if sass[op] else {}
-               for op in ("integer_divide", "remainder")}
-    steps, loop_rows = _divide_iterations(xa.data)
+    sass = h2_sass(lib)
+    work = h2_division_work(xa.data, xb.data)
     ops = {}
     for i, (op, _, _, scale) in enumerate(H2_TIMED):
         out_bytes = 9 if op == "integer_divide" else 17
-        nops = 0
-        if op == "divide" and step_insns:
-            nops = steps * step_insns
-        elif op in callees and any(callees[op].values()):
-            nops = rows * 2 * min(v for v in callees[op].values() if v)
-        b_ms, b_by = bound_ms(rows * (32 + out_bytes), nops)
+        nops = h2_division_ops(work[op], sass) if op in work else 0
+        b_ms, b_by = bound_ms(rows * (32 + out_bytes), nops or 0)
         ms = cuda_ms(lambda: _h2_call(op, xa, xb, scale), reps=5, warm=1)
-        ops[op] = {"ms": ms, **profiler_fields(k_ms[i], ms),
+        timed = profiler_fields(k_ms[i], ms)
+        ops[op] = {"ms": ms, **timed,
                    "plain_ms": plain_ms[op], "plain_rows": n1,
                    "bytes_ms": rows * (32 + out_bytes) / HBM_BYTES_PER_S
                    * 1e3, "operations": nops,
-                   "operations_ms": nops / INSTRUCTION_RATE["per_s"] * 1e3,
-                   "bound_ms": b_ms, "bound_by": b_by}
+                   "operations_ms": (nops or 0) / INSTRUCTION_RATE["per_s"]
+                   * 1e3, "bound_ms": b_ms, "bound_by": b_by,
+                   # of the kernel's time (the events' where the profiler
+                   # missed it)
+                   "share": b_ms / (timed["kernel_ms"] or ms)}
+        if op in work:
+            ops[op]["division_work"] = dict(zip(
+                ("reciprocals", "steps_2by1", "hw_divisions"), work[op]))
         jline({"phase": "decimal_sf10", "part": "h2_time", **card,
                "op": op, "rows": rows, **ops[op]})
+    ptxas = h2_ptxas(BUILD_REPORTS.get("decimal128"))
     jline({"phase": "decimal_sf10", "part": "h2_sass", **card,
            "instruction_rate": INSTRUCTION_RATE,
-           "divide_loops_body_and_fewest_a_trip": loops,
-           "divide_loop_steps": steps, "rows_in_the_loop": loop_rows,
-           "division_subroutines_fewest_to_ret": callees})
+           "ptxas": ptxas,
+           # no stack frame, spill or local-memory access in any op
+           "registers_only": None if not (ptxas and sass) else all(
+               k["stack_frame"] == k["spill_stores"] == k["spill_loads"]
+               == 0 for k in ptxas.values()) and all(
+               k["LDL"] == k["STL"] == 0 for k in sass["kernels"].values()),
+           **(sass or {"sass": None})})
     entry.update({k: ops["multiply"][k] for k in (
         "ms", "kernel_ms", "profiler_ms", "plain_ms", "plain_rows",
         "bound_ms", "bound_by")})

@@ -492,3 +492,179 @@ def decimal128_edge_cases(rows: int = 512, seed: int = 0, device="cuda"):
             for cast in ((True, False) if op == "multiply" else (True,)):
                 cases.append((op, *cols, o_s, cast))
     return cases
+
+
+_I128 = 1 << 127
+
+
+def _of_bits(bits: int, rng: np.random.Generator) -> int:
+    """A value of exactly ``bits`` bits (1 <= bits <= 127)."""
+    low = int.from_bytes(rng.bytes(16), "little") % (1 << (bits - 1))
+    return (1 << (bits - 1)) | low
+
+
+def _data_divisors(rows: int, lengths, rng: np.random.Generator) -> list:
+    """Signed divisors of the given bit lengths of their magnitude (128:
+    -2^127), cycled over ``rows``."""
+    out = []
+    for i in range(rows):
+        bits = lengths[i % len(lengths)]
+        v = -_I128 if bits == 128 else _of_bits(bits, rng)
+        out.append(-v if bits < 128 and rng.random() < 0.5 else v)
+    return out
+
+
+def _numerators(divisors, rng: np.random.Generator) -> list:
+    """For each divisor d, in turn: a multiple of d, d q + |d| - 1 (a
+    remainder of |d| - 1), |d| (2^64 - 1) + r (a quotient digit of all
+    ones), a random value below 2^127 and one below 2^64, each within
+    DECIMAL128's 128-bit range (a random value where the others do not
+    fit)."""
+    out = []
+    for i, d in enumerate(divisors):
+        m = abs(d) or 1
+        top = (_I128 - 1) // m
+        q = int.from_bytes(rng.bytes(16), "little") % (top + 1)
+        v = [m * q, m * q + m - 1 if q < top else m * q,
+             m * (2**64 - 1) + int(rng.integers(0, 2**62)) % m,
+             int.from_bytes(rng.bytes(16), "little") % _I128,
+             int.from_bytes(rng.bytes(8), "little")][i % 5]
+        if v >= _I128:
+            v = int.from_bytes(rng.bytes(16), "little") % _I128
+        out.append(-v if rng.random() < 0.5 else v)
+    return out
+
+
+def _pow10_numerators(k: int, rng: np.random.Generator) -> list:
+    """Unsigned numerators for a division by 10^k that reach Algorithm D's
+    hard cases: the window whose top words equal the normalised divisor's
+    (a digit of 2^64 - 1, after an add-back), 10^k shifted with its low
+    words cleared (q one too large: an add-back), exact multiples, ties
+    of HALF_UP, remainders of 10^k - 1 and values of every word count;
+    all below 2^127 10^38, so that x + y 10^38 holds them. (Exact
+    multiples take the 3-by-2 step's second correction for some 10^k.)"""
+    p = 10 ** k
+    words = (p.bit_length() + 63) // 64
+    s = 64 * words - p.bit_length()
+    dn = p << s
+    limit = _I128 * 10 ** 38
+    vals = []
+    if words >= 3:
+        vals.append(((dn >> 64) << 128) >> s)        # top words equal
+        vals.append(((dn >> 64) << 64) >> s)         # one word cleared
+        vals.append(((dn >> 128) << 128) >> s)       # two words cleared
+        vals.append((((dn >> 128) << 128) >> s) * 3)
+    for i in range(16):
+        q = int.from_bytes(rng.bytes(32), "little") % max(1, limit // p)
+        vals += [p * q] + ([p * q + p // 2, p * q + p - 1] if i < 4 else [])
+    for bits in (0, 1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 250):
+        vals.append(int.from_bytes(rng.bytes(32), "little") % (1 << bits)
+                    if bits else 0)
+    return [v for v in vals if v < limit]
+
+
+def decimal128_division_cases(rows: int = 64, seed: int = 0,
+                              device="cuda"):
+    """The division table of kernel H2: a list of (op, a, b, out scale,
+    cast_interim_result) over DECIMAL128 columns of ``rows`` rows (at
+    least 64), built to reach every branch of H2's long division through
+    the public ops: divisors from the data of every bit length 1-128
+    (divide at each of its branches, shift < -38 included; integer
+    divide; remainder), numerators of 0-4 64-bit words, every power of
+    ten 10^1..10^39 as a divisor in multiply's interim cast and rescale
+    (per row) and 10^39..10^76 in add's rescale of x + y 10^38 (x at
+    scale 38, y at scale 0), Algorithm D's
+    hard cases (multiples of d, remainders of d - 1, quotient digits of
+    2^64 - 1, windows whose top words equal a power of ten's, add-backs),
+    zero divisors, remainder's divisor that rescales to 0 and
+    integer-divide quotients at the int64 edges, products at and beside
+    powers of ten (precision10's edges). 5% nulls in each
+    operand. Every case keeps its powers of ten within 10^0..10^76."""
+    if rows < 64:
+        raise ValueError("the division table needs at least 64 rows")
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def case(op, scales, a, b, cast=True):
+        a = a + decimal128_draws(rows - len(a), rng)
+        b = b + decimal128_draws(rows - len(b), rng, 20)
+        va = rng.random(rows) >= 0.05
+        vb = rng.random(rows) >= 0.05
+        cases.append((op, decimal128_column(a[:rows], scales[0], va,
+                                            device),
+                      decimal128_column(b[:rows], scales[1], vb, device),
+                      scales[2], cast))
+
+    def zeros(b):  # two zero divisors
+        return b[:-2] + [0, 0]
+
+    # divide, HALF_UP: every bit length of d; n of 1-2 words, then n x 10^38
+    # (3-4 words), then the first division of shift > 0, then shift < -38
+    for lengths in (range(1, 65), range(65, 129)):
+        b = _data_divisors(64, list(lengths), rng)
+        a = _numerators(b, rng)
+        # the 2-by-1 step's second correction (q one too small)
+        a[-4:-2] = [(2**64 - 2) * (2**62 + 1), (2**64 - 2) * (2**62 + 1) + 1]
+        b[-4:-2] = [2**62 + 1, -(2**62 + 1)]
+        case("divide", (0, 0, 0), a, zeros(b))
+    odd = list(range(1, 129, 2))
+    b = _data_divisors(64, odd, rng)
+    case("divide", (0, 0, 38), _numerators(b, rng), zeros(b))
+    b = _data_divisors(64, list(range(2, 129, 2)), rng)
+    case("divide", (20, 0, 2), _numerators(b, rng), zeros(b))
+    b = _data_divisors(64, odd[::-1], rng)
+    case("divide", (0, 10, 60), _numerators(b, rng), zeros(b))
+    # integer divide: quotients at the int64 edges (the low 64 bits of the
+    # quotient are the result; overflow is judged on all of it)
+    edges = [2**63 - 1, 2**63, 2**63 + 1, 2**64 - 1, 2**64, 2**64 + 1,
+             -2**63, -2**63 - 1, -2**63 + 1, -(2**64)]
+    a, b = [], []
+    for i in range(64):
+        q = edges[i % len(edges)]
+        d = _of_bits(1 + i % 60, rng) * (-1 if i % 3 == 0 else 1)
+        a.append(q * d + (d - 1 if i % 2 else 0))
+        b.append(d)
+    case("integer_divide", (0, 0, 0), a, zeros(b))
+    b = _data_divisors(64, list(range(1, 65)), rng)
+    case("integer_divide", (2, 0, 0), _numerators(b, rng), zeros(b))
+    b = _data_divisors(64, list(range(64, 129)), rng)
+    case("integer_divide", (0, 2, 0), _numerators(b, rng), zeros(b))
+    # remainder: n by d directly; 11d's scales; a divisor that rescales to
+    # 0 (|b| < 5 x 10^7 at d_shift 8); n x 10^38 by d
+    b = _data_divisors(64, list(range(1, 129, 2)), rng)
+    case("remainder", (0, 0, 0), _numerators(b, rng), zeros(b))
+    b = _data_divisors(64, list(range(1, 65)), rng)
+    case("remainder", (4, 2, 4), _numerators(b, rng), zeros(b))
+    b = _data_divisors(64, list(range(1, 40)), rng)
+    case("remainder", (0, 10, 2), _numerators(b, rng), zeros(b))
+    b = _data_divisors(64, list(range(2, 129, 2)), rng)
+    case("remainder", (0, 38, 38), _numerators(b, rng), zeros(b))
+    # multiply: products of 39-77 digits, so that the interim cast divides
+    # by 10^1..10^39 and the rescale to scale -38 by 10^0..10^37, per row
+    a, b = [], []
+    for i in range(64):
+        total = 39 + i % 39
+        da = max(1, min(38, total - int(rng.integers(1, 39))))
+        db = min(38, max(1, total - da))
+        a.append(int(10 ** (da - 1) * (1 + rng.random() * 8.99)))
+        b.append(int(10 ** (db - 1) * (1 + rng.random() * 8.99)))
+    a[-2:], b[-2:] = [_I128 - 1, -_I128], [_I128 - 1, -_I128]
+    case("multiply", (0, 0, -38), a, b)
+    # products at 10^13..10^76, one below it or one past it (precision10's
+    # edges)
+    a, b = [], []
+    for i in range(64):
+        k = 13 + i
+        a.append(10 ** (k // 2))
+        b.append(10 ** (k - k // 2) + (0, -1, 1)[i % 3])
+    case("multiply", (0, 0, -38), a, b)
+    # add: x + y 10^38 divided by 10^k in the rescale to scale 38 - k
+    for k in range(39, 77):
+        a, b = [], []
+        for v in _pow10_numerators(k, rng)[:64]:
+            y, x = divmod(v, 10 ** 38)
+            sign = -1 if rng.random() < 0.5 else 1
+            a.append(sign * x)
+            b.append(sign * y)
+        case("add", (38, 0, 38 - k), a, b)
+    return cases

@@ -31,6 +31,7 @@ from spark_rapids_jni_tpu_torch.ops import decimal128 as pd128
 from spark_rapids_jni_tpu_torch.ops import int128 as pi128
 from spark_rapids_jni_tpu_torch.ops import int256 as pi256
 from spark_rapids_jni_tpu_torch.utils import datagen
+import h2_host
 from torch_parity import (assert_col_equal, jitted_jax_decimal,  # noqa: F401
                           quick_jax_reference, to_port)
 
@@ -413,3 +414,146 @@ def test_errors_match_jax():
                   (pd128.multiply_decimal128, pbig)):
         with pytest.raises(ValueError, match="pow10"):
             fn(x, x, 38)
+
+
+# ---------------------------------------------------------------------------
+# the division table: the plain version against the JAX package, and
+# kernel H2's source built for the host (tests/h2_host.py) against the
+# plain version
+# ---------------------------------------------------------------------------
+
+DIVISION = datagen.decimal128_division_cases(ROWS, 0, "cpu")
+_DIV_IDS = [f"{i}-{op}-{a.dtype.scale}_{b.dtype.scale}_{s}"
+            for i, (op, a, b, s, _) in enumerate(DIVISION)]
+
+
+@pytest.fixture(scope="module")
+def division_port():
+    """The port's result of each division case, computed once (on the
+    CPU, the plain version)."""
+    return {}
+
+
+def _division_port(cache, i):
+    if i not in cache:
+        op, a, b, scale, cast = DIVISION[i]
+        fn = getattr(pd128, f"{op}_decimal128")
+        kw = {"cast_interim_result": cast} if op == "multiply" else {}
+        cache[i] = fn(a, b, **kw) if op == "integer_divide" else fn(
+            a, b, scale, **kw)
+    return cache[i]
+
+
+def _jax_decimal(col):
+    return JColumn(jdt.decimal128(col.dtype.scale), col.size,
+                   data=jnp.asarray(col.data.numpy().view(np.uint32)),
+                   validity=jnp.asarray(col.valid_mask().numpy()))
+
+
+@pytest.mark.parametrize("i", range(len(DIVISION)), ids=_DIV_IDS)
+def test_division_table_matches_jax(i, division_port):
+    op, a, b, scale, cast = DIVISION[i]
+    kw = {"cast_interim_result": cast} if op == "multiply" else {}
+    fn = getattr(jd128, f"{op}_decimal128")
+    ja, jb = _jax_decimal(a), _jax_decimal(b)
+    jt = fn(ja, jb, **kw) if op == "integer_divide" else fn(ja, jb, scale,
+                                                            **kw)
+    pt = _division_port(division_port, i)
+    assert_col_equal(jt[0], pt[0], f"{op} overflow", presence=False)
+    assert_col_equal(jt[1], pt[1], f"{op} result", presence=False)
+
+
+@pytest.mark.parametrize("i", range(len(DIVISION)), ids=_DIV_IDS)
+def test_h2_host_build_matches_plain_on_division_table(i, division_port):
+    """H2's per-row arithmetic, built for the host, equals the plain
+    version bit for bit on each case."""
+    op, a, b, scale, cast = DIVISION[i]
+    pt = _division_port(division_port, i)
+    over, res, err = h2_host.op(op, a.data, b.data, -a.dtype.scale,
+                                -b.dtype.scale, -scale, cast)
+    assert not err
+    assert torch.equal(over.to(torch.uint8), pt[0].data), op
+    assert torch.equal(res, pt[1].data), op
+
+
+def test_h2_host_build_reaches_every_division_branch(division_port):
+    """The division table takes every branch of H2's long division (by
+    the host build's counts): zero divisors, the hardware's short path,
+    n shorter than d, both corrections of the 2-by-1 and 3-by-2 steps,
+    Algorithm D's digit of 2^64 - 1 and its add-back, the three
+    adjustments of the 3-by-2 reciprocal, the powers of ten, and every
+    pair of word counts of n (0-4) and d (1-4); and never the bit-serial
+    loop, which no entry point reaches."""
+    h2_host.take_counts()
+    for op, a, b, scale, cast in DIVISION:
+        h2_host.op(op, a.data, b.data, -a.dtype.scale, -b.dtype.scale,
+                   -scale, cast)
+    branches, pairs = h2_host.take_counts()
+    assert branches.pop("bit_serial") == 0
+    assert all(c > 0 for c in branches.values()), branches
+    assert sorted(pairs) == [(n, d) for n in range(5)
+                             for d in range(1, 5)], pairs
+
+
+def test_h2_host_divmod_matches_python_and_bit_serial():
+    """divmod_u equals the plain bit-serial loop for every divisor (its
+    wrap past 2^255 included, which no entry point reaches), and Python's
+    divmod for every divisor below 2^128."""
+    rng = np.random.default_rng(11)
+    n_vals, d_vals = [], []
+    for i in range(512):
+        db = int(rng.integers(1, 257))
+        d = (int.from_bytes(rng.bytes(32), "little") % (1 << db)) | (
+            1 << (db - 1))
+        q = int.from_bytes(rng.bytes(32), "little") % (1 << max(
+            1, 256 - db))
+        n = [d * q % M256, (d * q + d - 1) % M256,
+             int.from_bytes(rng.bytes(32), "little") >> int(
+                 rng.integers(0, 256))][i % 3]
+        n_vals.append(n)
+        d_vals.append(d)
+    d_vals[:4] = [0, 1 << 255, M256 - 1, (1 << 128) + 1]
+    q, r = h2_host.divmod(n_vals, d_vals)
+    want_q, want_r = pi256.divmod_unsigned(
+        torch.from_numpy(_lanes(n_vals, 8)), torch.from_numpy(
+            _lanes(d_vals, 8)))
+    assert [v % M256 for v in pi256.to_int_py(want_q)] == q
+    assert [v % M256 for v in pi256.to_int_py(want_r)] == r
+    for n, d, gq, gr in zip(n_vals, d_vals, q, r):
+        if 0 < d < 1 << 128:
+            assert (gq, gr) == divmod(n, d)
+
+
+def test_h2_reciprocals_and_pow10_table():
+    """The 2-by-1 and 3-by-2 reciprocals equal their definitions on random
+    and edge divisors, and the source's table of powers of ten and of
+    their reciprocals and shifts equals the values computed here."""
+    import re
+    B = 1 << 64
+    rng = np.random.default_rng(12)
+    pairs = [(B - 1, B - 1), (1 << 63, 0), (1 << 63, B - 1),
+             ((1 << 63) + 1, 1), (B - 1, 0)] + [
+        (int(rng.integers(0, 1 << 63, dtype=np.uint64)) | (1 << 63),
+         int(rng.integers(0, 1 << 63, dtype=np.uint64)) * 2 + i % 2)
+        for i in range(2000)]
+    v2, v3 = h2_host.reciprocals(pairs)
+    assert v2 == [(B * B - 1) // d1 - B for d1, _ in pairs]
+    assert v3 == [(B ** 3 - 1) // (d1 * B + d0) - B for d1, d0 in pairs]
+    src = h2_host.SOURCE.read_text()
+    body = src[src.index("kPow10[77][4] = {"):]
+    words = re.findall(r"0x([0-9a-f]{16})ull", body[:body.index("};")])
+    assert [sum(int(w, 16) << (64 * k) for k, w in enumerate(
+        words[4 * e:4 * e + 4])) for e in range(77)] == [
+        10 ** e for e in range(77)]
+    body = src[src.index("kPow10Inv[77] = {"):]
+    rows = re.findall(r"\{0x([0-9a-f]{16})ull,\s*(\d+)\}",
+                      body[:body.index("};")])
+    assert len(rows) == 77
+    for e, (v, s) in enumerate(rows):
+        p = 10 ** e
+        nwords = (p.bit_length() + 63) // 64
+        assert int(s) == 64 * nwords - p.bit_length(), e
+        top = p << int(s) >> (64 * (nwords - 2)) if nwords > 1 else (
+            p << int(s)) * B
+        assert int(v, 16) == (B ** 3 - 1) // top - B if nwords > 1 else \
+            int(v, 16) == (B * B - 1) // (p << int(s)) - B, e

@@ -702,6 +702,32 @@ def test_h2_edge_table_matches_plain(cuda):
             assert torch.equal(g.valid_mask().cpu(), w.valid_mask()), op
 
 
+@pytest.mark.parametrize("rows,seed", [(64, 0), (4096, 5)])
+def test_h2_division_table_matches_plain(cuda, rows, seed):
+    """H2 == its plain version, bit for bit (limbs, overflow, validity),
+    on every case of the division table (every branch of the long
+    division: datagen.decimal128_division_cases); every case launches
+    once."""
+    from spark_rapids_jni_tpu_torch.ops import decimal128 as D
+    for op, a, b, scale, cast in datagen.decimal128_division_cases(
+            rows, seed, cuda):
+        kw = {"cast_interim_result": cast} if op == "multiply" else {}
+        fn = getattr(D, f"{op}_decimal128")
+        args = (a, b) if op == "integer_divide" else (a, b, scale)
+        before = K.decimal128_op.launches
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert K.decimal128_op.launches == before + 1, op
+        cpu = lambda c: Column(c.dtype, c.size, data=c.data.cpu(),
+                               validity=None if c.validity is None
+                               else c.validity.cpu())
+        want = fn(*((cpu(a), cpu(b)) + args[2:]), **kw)
+        for g, w in zip(got.columns, want.columns):
+            assert g.dtype == w.dtype, (op, scale)
+            assert torch.equal(g.data.cpu(), w.data), (op, scale, cast)
+            assert torch.equal(g.valid_mask().cpu(), w.valid_mask()), op
+
+
 def test_h2_literal_operand_and_raise(cuda):
     """A stride-0 literal operand (Spark's 1 - l_discount) reads one row;
     a multiply whose rescale needs a power past 10^76 raises on the card
