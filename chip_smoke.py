@@ -146,7 +146,26 @@ run exits non-zero:
      numpy, the full join == left join + right anti rows, donated q1 ==
      undonated and the donated table raises, and each module == plain on
      1M rows; then times each (CUDA events, byte bounds) and the peaks of
-     donated and undonated q1.
+     donated and undonated q1;
+ 13. ``casts_sf10``: Spark's CastStrings at SF10, from TPC-H's text.
+     Renders the q1 draws' l_quantity, l_extendedprice, l_discount and
+     l_tax as dbgen's ``.tbl`` strings on the card (held against numpy's
+     formatting on 1M rows); with the launch counts set to 0 casts them
+     (l_quantity to INT32 and INT64, the four to DECIMAL(12, 2), the price
+     to FLOAT64 and FLOAT32), runs phase 11's decimal q1 over the four
+     cast columns (H2), casts the FLOAT64 prices to strings and back, and
+     hashes l_orderkey through the engine bridge (``bridge.call``, B1);
+     checks every cast on all 60M rows (== the draws, the unscaled values,
+     the bits of cents / 100 in f64 and f32), q1 == numpy, the round trip
+     on every row, the card == the CPU on 1M-row prefixes
+     (float_to_string of both widths, format_number, both base casts, the
+     JAX package's own cast cell == Python's float()), an ANSI error's row,
+     and each of the bridge's 26 ops == the op called directly (the 5
+     others raise naming their ROADMAP item); then times each cast at 60M
+     rows (first, warm median of 5, byte bound, launches and idle share by
+     the profiler, peak memory), the price cast again over a column with
+     one string in 100 of 256 characters, and the bridge's murmur3 split
+     into marshalling and B1.
 
 Prints JSON lines (timings, then the {"kernels": [...]} line, whose
 entries give each kernel's launches by path) and, last,
@@ -401,8 +420,14 @@ def main():
     # ---- phase 12: Spark's runtime filter and the slice's features --------
     paths["spark_features_sf10"] = features_phase(dev, card, SF10_ROWS,
                                                   decimal_keep)
-    del decimal_keep
     phase_end("spark_features_sf10")
+
+    # ---- phase 13: Spark's casts from TPC-H text, and the bridge ----------
+    paths["casts_sf10"] = casts_phase(dev, card, SF10_ROWS,
+                                      decimal_keep["arrays"],
+                                      decimal_keep["q1_want"])
+    del decimal_keep
+    phase_end("casts_sf10")
     for entry, (_, wrapper, _, _) in zip(entries, K.KERNELS):
         entry["launches_by_path"] = {p: c[wrapper] for p, c in paths.items()}
     jline({"phase_seconds": PHASE_SECONDS})
@@ -3038,9 +3063,11 @@ def _decimal_phase(dev, card, rows, tmp):
                 dim.data.index_select(0, r_idx))),
     }
     del back, h_mm, h_xx, l_idx, r_idx, cpu_li, gen
-    # phase 12 prints the q1 result and 1M of the prices as strings
+    # phase 12 prints the q1 result and 1M of the prices as strings;
+    # phase 13 casts the same arrays from text and checks the same q1
     keep = {"q1": q1, "price_1m": Column(li[2].dtype, n1,
-                                         data=li[2].data[:n1].clone())}
+                                         data=li[2].data[:n1].clone()),
+            "arrays": a, "q1_want": want_q1}
 
     # 11d: H2 == plain on 1M seeded rows (the plain version on the card,
     # timed) and on the edge table (the plain version on the CPU)
@@ -3519,6 +3546,594 @@ def features_phase(dev, card, rows, decimal_keep):
     jline({"phase": "spark_features_sf10", "part": "seconds", **card,
            "counted_run_s": counted_s, **secs})
     return launches
+
+
+CAST_P, CAST_S = 12, -2     # TPC-H's DECIMAL(12, 2), cudf scale -2
+LONG_LEN = 256              # 13h: the long strings' length
+LONG_EVERY = 100            # 13h: one row in 100 is long
+ANSI_ROW = 500_000          # 13f: the bad row of the 1M-row column
+CAST_WARM = 5               # warm calls a cast is timed over (median)
+UNPORTED_OPS = {"histogram.create": "A1", "histogram.percentile": "A1",
+                "zorder.interleave": "A1", "json.get_json_object": "A13",
+                "json.from_json_map": "A13"}
+
+
+def _prefix(col, n, device):
+    """The first n rows of a column (a STRING's characters too) on
+    ``device``."""
+    from spark_rapids_jni_tpu_torch.columnar.column import Column
+    n = min(n, col.size)
+    validity = None if col.validity is None else col.validity[:n].to(device)
+    if col.offsets is None:
+        return Column(col.dtype, n, data=col.data[:n].to(device),
+                      validity=validity)
+    offs = col.offsets[:n + 1]
+    return Column(col.dtype, n, data=col.data[:int(offs[-1])].to(device),
+                  validity=validity, offsets=offs.to(device))
+
+
+def _same_on_host(a, b) -> bool:
+    """``_same_col`` of two columns wherever each lives."""
+    cpu = torch.device("cpu")
+    return _same_col(_prefix(a, a.size, cpu), _prefix(b, b.size, cpu))
+
+
+def _widen128(col):
+    """A DECIMAL32/64 column as DECIMAL128 (sign-extended limbs), as
+    Spark widens a DECIMAL(12, 2) operand for its decimal arithmetic."""
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column
+    from spark_rapids_jni_tpu_torch.ops import int128
+    return Column(dt.decimal128(col.dtype.scale), col.size,
+                  data=int128.storage(int128.from_int64(col.data)),
+                  validity=col.validity)
+
+
+def _tbl_numpy(vals, frac_digits):
+    """numpy's formatting of non-negative unscaled decimals in dbgen's
+    form: (characters, int64 offsets)."""
+    vals = np.asarray(vals, np.int64)
+    if frac_digits:
+        scale = 10 ** frac_digits
+        s = np.char.add(np.char.add((vals // scale).astype(str), "."),
+                        np.char.zfill((vals % scale).astype(str),
+                                      frac_digits))
+    else:
+        s = vals.astype(str)
+    offs = np.zeros(len(vals) + 1, np.int64)
+    np.cumsum(np.char.str_len(s), out=offs[1:])
+    return np.frombuffer("".join(s.tolist()).encode(), np.uint8), offs
+
+
+def _with_long_rows(col, length, every):
+    """The STRING column with every ``every``-th row left-padded with '0's
+    to ``length`` characters: the same numbers (so the same casts), and a
+    padded width of ``length``."""
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column
+    from spark_rapids_jni_tpu_torch.columnar.strings import row_of_position
+    dev = col.data.device
+    offs = col.offsets.to(torch.int64)
+    lens = offs[1:] - offs[:-1]
+    long = torch.arange(col.size, device=dev) % every == 0
+    new_lens = torch.where(long, length, lens)
+    new_offs = torch.zeros(col.size + 1, dtype=torch.int64, device=dev)
+    new_offs[1:] = torch.cumsum(new_lens, 0)
+    total = int(new_offs[-1])
+    row = row_of_position(new_offs, total).to(torch.int64)
+    k = torch.arange(total, device=dev) - new_offs[row]
+    pad = (new_lens - lens)[row]
+    src = (offs[row] + k - pad).clamp(min=0)
+    chars = torch.where(k < pad, ord("0"), col.data[src].to(torch.int64))
+    return Column(dt.STRING, col.size, data=chars.to(torch.uint8),
+                  validity=col.validity, offsets=new_offs.to(torch.int32))
+
+
+def _bits(col):
+    """A float column's bit patterns (int64 or int32)."""
+    return col.data.contiguous().view(
+        torch.int64 if col.data.element_size() == 8 else torch.int32)
+
+
+def cast_profile(fn):
+    """One warm call of fn() under torch.profiler: its device launches
+    (kernels; copies and fills counted apart), the device's busy time and
+    its idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t) * 1e3
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev_ev)
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    return {"launches_per_call": len(dev_ev) - copies,
+            "copies_and_fills_per_call": copies, "profiled_wall_ms": span_ms,
+            "device_busy_ms": busy, "device_idle_share": 1 - busy / span_ms}
+
+
+def bridge_cases(dev, n, seed):
+    """(cases, wire columns): for each of the 26 ops the port's bridge
+    runs, (op, args, input names, direct), with the inputs made with numpy
+    from ``seed`` at n rows; ``direct(cols)`` runs the port's op on the
+    marshalled columns without the bridge, as a caller of the op would."""
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.interop import (col_to_wire,
+                                                             wire_to_col)
+    from spark_rapids_jni_tpu_torch.ops import bloom_filter as BF
+    from spark_rapids_jni_tpu_torch.ops import cast_float_to_string as CF
+    from spark_rapids_jni_tpu_torch.ops import cast_string as CS
+    from spark_rapids_jni_tpu_torch.ops import cast_string_base as CB
+    from spark_rapids_jni_tpu_torch.ops import datetime_rebase as DR
+    from spark_rapids_jni_tpu_torch.ops import decimal128 as D
+    from spark_rapids_jni_tpu_torch.ops import hashing as H
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+    from spark_rapids_jni_tpu_torch.ops import timezones as TZ
+    from spark_rapids_jni_tpu_torch.ops.decimal_to_string import \
+        decimal_to_string
+    from spark_rapids_jni_tpu_torch.ops.zorder import hilbert_index
+    from spark_rapids_jni_tpu_torch.utils.datagen import decimal128_limbs
+
+    rng = np.random.default_rng(seed)
+    valid = (rng.random(n) > 0.05).astype(np.uint8).tobytes()
+
+    def fixed(name, arr, v=None):
+        return (name, n, np.ascontiguousarray(arr).tobytes(), None, v)
+
+    ints = rng.integers(-10 ** 9, 10 ** 9, n)
+    words = np.array(["42", "-7", " 12 ", "bogus", "1.5", "99999999999", "",
+                      "+3", "1F", "ff", "1e3", "-0.25", "21168.23"])
+    strs = words[rng.integers(0, len(words), n)]
+    soffs = np.zeros(n + 1, np.int64)
+    np.cumsum(np.char.str_len(strs), out=soffs[1:])
+    floats = rng.standard_normal(n) * 10.0 ** rng.integers(-5, 6, n)
+    w = {"i64": fixed("int64", ints, valid),
+         "keys": fixed("int64", rng.integers(0, 10 ** 6, n)),
+         "i32": fixed("int32", (ints // 7).astype(np.int32)),
+         "f64": fixed("float64", floats.view(np.uint64), valid),
+         "str": ("string", n, "".join(strs.tolist()).encode(),
+                 soffs.tobytes(), valid),
+         "dec_a": fixed("decimal128:2", decimal128_limbs(
+             rng.integers(-10 ** 12, 10 ** 12, n)), valid),
+         "dec_b": fixed("decimal128:2", decimal128_limbs(
+             rng.integers(1, 10 ** 6, n) * rng.choice([-1, 1], n))),
+         "days": fixed("timestamp_days", rng.integers(
+             -200_000, 50_000, n).astype(np.int32)),
+         "micros": fixed("timestamp_us", rng.integers(
+             -10 ** 16, 2 * 10 ** 15, n)),
+         "h32": fixed("int32", rng.integers(0, 1 << 12, n).astype(np.int32)),
+         "h32b": fixed("int32", rng.integers(0, 1 << 12, n).astype(np.int32))}
+    bloom = {"num_hashes": 3, "num_longs": 1 << 14}
+
+    def put(col):
+        return BF.bloom_filter_put(BF.bloom_filter_create(3, 1 << 14, dev),
+                                   col)
+
+    def blob(f):
+        data = torch.from_numpy(np.frombuffer(BF.serialize(f), np.uint8)
+                                .copy()).to(dev)
+        return Column(dt.UINT8, int(data.shape[0]), data=data)
+
+    def filt(c):
+        return BF.deserialize(c.to_numpy().tobytes(), dev)
+
+    w["blob"] = col_to_wire(blob(put(wire_to_col(w["keys"], dev))))
+    w["blob2"] = col_to_wire(blob(put(wire_to_col(w["i64"], dev))))
+    batches = R.convert_to_rows(Table((wire_to_col(w["i64"], dev),)))
+    rc = batches[0]
+    rows_blob = Column(dt.UINT8, rc.children[0].size,
+                       data=rc.children[0].data.view(torch.uint8))
+    rows_offs = ("int64", int(rc.offsets.shape[0]), rc.offsets.cpu().numpy()
+                 .astype(np.int64).tobytes(), None, None)
+    w["rows_blob"], w["rows_offs"] = col_to_wire(rows_blob), rows_offs
+    kolkata = TZ.make_transition_table(
+        [[(TZ.INT64_MIN, TZ.INT64_MIN, KOLKATA_LMT)] + KOLKATA],
+        ["Asia/Kolkata"])
+
+    def dec(fn, *a):
+        t = fn(*a)
+        return [t.columns[0], t.columns[1]]
+
+    def from_rows(c):
+        rows = Column.list_of(Column(dt.UINT8, c[0].size, data=c[0].data),
+                              c[1].data.to(torch.int32))
+        return list(R.convert_from_rows(rows, [dt.INT64]).columns)
+
+    cases = [
+        ("engine.echo", {}, ["i64", "str", "dec_a", "f64"], lambda c: c),
+        ("hash.murmur3", {"seed": 42}, ["i64", "i32", "str", "f64"],
+         lambda c: [H.murmur_hash3_32(Table(tuple(c)), seed=42)]),
+        ("hash.xxhash64", {}, ["i64", "i32", "str", "f64"],
+         lambda c: [H.xxhash64(Table(tuple(c)), seed=42)]),
+        ("bloom.build", bloom, ["keys"], lambda c: [blob(put(c[0]))]),
+        ("bloom.probe", {}, ["i64", "blob"],
+         lambda c: [BF.bloom_filter_probe(c[0], filt(c[1]))]),
+        ("bloom.merge", {}, ["blob", "blob2"],
+         lambda c: [blob(BF.bloom_filter_merge([filt(x) for x in c]))]),
+        ("cast.string_to_integer", {"type": "int32"}, ["str"],
+         lambda c: [CS.string_to_integer(c[0], dt.INT32)]),
+        ("cast.string_to_float", {"type": "float64"}, ["str"],
+         lambda c: [CS.string_to_float(c[0], dt.FLOAT64)]),
+        ("cast.string_to_decimal", {"precision": CAST_P, "scale": CAST_S},
+         ["str"], lambda c: [CS.string_to_decimal(c[0], CAST_P, CAST_S)]),
+        ("cast.string_to_integer_base", {"base": 16, "type": "int64"},
+         ["str"], lambda c: [CB.to_integers_with_base(c[0], 16, dt.INT64)]),
+        ("cast.integer_to_string_base", {"base": 16}, ["i32"],
+         lambda c: [CB.from_integers_with_base(c[0], 16)]),
+        ("cast.float_to_string", {}, ["f64"],
+         lambda c: [CF.float_to_string(c[0])]),
+        ("cast.format_number", {"digits": 2}, ["f64"],
+         lambda c: [CF.format_number(c[0], 2)]),
+        ("cast.decimal_to_string", {}, ["dec_a"],
+         lambda c: [decimal_to_string(c[0])]),
+        ("decimal.add", {"scale": 2}, ["dec_a", "dec_b"],
+         lambda c: dec(D.add_decimal128, c[0], c[1], 2)),
+        ("decimal.subtract", {"scale": 2}, ["dec_a", "dec_b"],
+         lambda c: dec(D.sub_decimal128, c[0], c[1], 2)),
+        ("decimal.multiply", {"scale": 4}, ["dec_a", "dec_b"],
+         lambda c: dec(D.multiply_decimal128, c[0], c[1], 4, False)),
+        ("decimal.divide", {"scale": 4}, ["dec_a", "dec_b"],
+         lambda c: dec(D.divide_decimal128, c[0], c[1], 4)),
+        ("decimal.integer_divide", {}, ["dec_a", "dec_b"],
+         lambda c: dec(D.integer_divide_decimal128, c[0], c[1])),
+        ("decimal.remainder", {"scale": 2}, ["dec_a", "dec_b"],
+         lambda c: dec(D.remainder_decimal128, c[0], c[1], 2)),
+        ("rowconv.to_rows", {}, ["i64"],
+         lambda c: ([rows_blob, rows_offs],
+                    {"n_batches": len(batches), "rows": rc.size})),
+        ("rowconv.from_rows", {"types": ["int64"]}, ["rows_blob",
+                                                     "rows_offs"], from_rows),
+        ("zorder.hilbert", {"num_bits": 12}, ["h32", "h32b"],
+         lambda c: [hilbert_index(12, c)]),
+        ("datetime.rebase", {"direction": "gregorian_to_julian"}, ["days"],
+         lambda c: [DR.rebase_gregorian_to_julian(c[0])]),
+        ("tz.to_utc", {"zone": "Asia/Kolkata"}, ["micros"],
+         lambda c: [TZ.convert_timestamp_to_utc(c[0], kolkata, 0)]),
+        ("tz.from_utc", {"zone": "Asia/Kolkata"}, ["micros"],
+         lambda c: [TZ.convert_utc_timestamp_to_timezone(c[0], kolkata, 0)]),
+    ]
+    return cases, w
+
+
+def bridge_checks(dev, n):
+    """13g: each of the 26 ops through ``bridge.call`` on ``dev`` equal,
+    wire byte for wire byte and meta JSON, to the op called directly;
+    each op's wall ms through the bridge; the 5 ops the port does not run
+    raise NotImplementedError naming their ROADMAP item."""
+    from spark_rapids_jni_tpu_torch import bridge
+    from spark_rapids_jni_tpu_torch.columnar.interop import (col_to_wire,
+                                                             wire_to_col)
+    cases, w = bridge_cases(dev, n, 21)
+    same, ms = {}, {}
+    for op, args, names, direct in cases:
+        wires = [w[k] for k in names]
+        (got, meta), ms[op] = wall(lambda: bridge.call(
+            op, json.dumps(args), wires, device=dev), dev)
+        want = direct([wire_to_col(x, dev) for x in wires])
+        want_meta = {}
+        if isinstance(want, tuple):
+            want, want_meta = want
+        want = [x if isinstance(x, tuple) else col_to_wire(x) for x in want]
+        same[op] = got == want and json.loads(meta) == want_meta
+    raised = {}
+    for op, item in UNPORTED_OPS.items():
+        try:
+            bridge.call(op, "{}", [w["str"]], device=dev)
+            raised[op] = False
+        except NotImplementedError as e:
+            raised[op] = f"ROADMAP {item}" in str(e)
+    return same, raised, ms, sorted(bridge.ops())
+
+
+def casts_phase(dev, card, rows, arrays=None, q1_want=None):
+    """Phase 13 (``casts_sf10``): SF10 lineitem read from its TPC-H text
+    and cast. Renders l_quantity, l_extendedprice, l_discount and l_tax of
+    the q1 draws as dbgen's ``.tbl`` strings on the card
+    (``datagen.tbl_decimal_strings``, held against numpy's formatting on a
+    1M-row prefix); with the launch counts set to 0 casts them (13a:
+    l_quantity to INT32 and INT64, the four to DECIMAL(12, 2), the price
+    to FLOAT64 and FLOAT32), runs phase 11's decimal q1 over the four cast
+    columns (13b, kernel H2), casts the FLOAT64 prices to strings and back
+    (13c) and hashes l_orderkey through ``bridge.call("hash.murmur3")``
+    (13d, B1); reads the counts; then checks every 60M-row cast exactly,
+    q1 against numpy and the round trip on every row, the card against
+    the CPU on 1M-row prefixes (13e), an ANSI error's row (13f) and the
+    bridge's 26 ops against direct calls (13g); then times each cast at
+    60M rows (first, warm, bound, launches, idle share, peak memory), the
+    price cast over a column with one string in 100 of 256 characters
+    (13h), and the bridge's murmur3 split into marshalling and B1 (13i).
+    ``arrays`` and ``q1_want``: phase 11's ``decimal_lineitem_arrays(rows)``
+    and its numpy q1, made here when not given. Returns the launches of
+    the counted run."""
+    from spark_rapids_jni_tpu_torch import bridge
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.interop import (col_to_wire,
+                                                             wire_to_col)
+    from spark_rapids_jni_tpu_torch.columnar.strings import pack_byte_rows
+    from spark_rapids_jni_tpu_torch.ops import cast_float_to_string as CF
+    from spark_rapids_jni_tpu_torch.ops import cast_string as CS
+    from spark_rapids_jni_tpu_torch.ops import cast_string_base as CB
+    from spark_rapids_jni_tpu_torch.ops import hashing as H
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.utils import datagen
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    n1 = min(rows, 1_000_000)
+    secs, t_part = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = now - t_part[0]
+        t_part[0] = now
+
+    a = decimal_lineitem_arrays(rows) if arrays is None else arrays
+    money = {k: torch.from_numpy(a[k]).to(dev) for k in MONEY}
+    frac = {"l_quantity": 0, "l_extendedprice": 2, "l_discount": 2,
+            "l_tax": 2}
+    text = {k: datagen.tbl_decimal_strings(
+        money[k] // 100 if frac[k] == 0 else money[k], frac[k])
+        for k in MONEY}
+    other = {k: Column.from_numpy(a[k], device=dev) for k in (
+        "l_orderkey", "l_returnflag", "l_linestatus", "l_shipdate")}
+    _sync(dev)
+    lap("generate")
+    checks = {}
+    for k in MONEY:
+        chars, offs = _tbl_numpy(a[k][:n1] // (100 if frac[k] == 0 else 1),
+                                 frac[k])
+        got = _prefix(text[k], n1, cpu)
+        checks[f"render_{k}_equals_numpy_1m"] = (
+            np.array_equal(got.data.numpy(), chars)
+            and np.array_equal(got.offsets.numpy().astype(np.int64), offs))
+    jline({"phase": "casts_sf10", "part": "text", **card, "rows": rows,
+           "bytes": {k: int(text[k].data.numel()) for k in MONEY},
+           "first_rows": {k: _prefix(text[k], 3, cpu).to_pylist()
+                          for k in MONEY}})
+
+    # ---- the counted run --------------------------------------------------
+    first, peaks = {}, {}
+
+    def timed(name, fn):
+        """fn()'s first call, on the wall clock, with its peak memory."""
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        out, first[name] = wall(fn, dev)
+        if cuda:
+            peaks[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        return out
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    # each first call pads its column itself (a fresh Column object)
+    qty32 = timed("s2i_int32", lambda: CS.string_to_integer(
+        _fresh(text["l_quantity"]), dt.INT32))
+    qty64 = timed("s2i_int64", lambda: CS.string_to_integer(
+        _fresh(text["l_quantity"]), dt.INT64))
+    decs = {k: timed(f"s2d_{k}", lambda k=k: CS.string_to_decimal(
+        _fresh(text[k]), CAST_P, CAST_S)) for k in MONEY}
+    f64 = timed("s2f_float64", lambda: CS.string_to_float(
+        _fresh(text["l_extendedprice"]), dt.FLOAT64))
+    f32 = timed("s2f_float32", lambda: CS.string_to_float(
+        _fresh(text["l_extendedprice"]), dt.FLOAT32))
+    li = Table((other["l_orderkey"],) + tuple(_widen128(decs[k])
+                                              for k in MONEY)
+               + (other["l_returnflag"], other["l_linestatus"],
+                  other["l_shipdate"]))
+    (q1, _, over), first["q1_decimal"] = wall(lambda: q1_decimal(li), dev)
+    price_text = timed("f2s_float64", lambda: CF.float_to_string(f64))
+    back = CS.string_to_float(price_text, dt.FLOAT64)
+    key_wire = [col_to_wire(other["l_orderkey"])]
+    (hashed, _), first["bridge_murmur3"] = wall(lambda: bridge.call(
+        "hash.murmur3", "{}", key_wire, device=dev), dev)
+    _sync(dev)
+    counted_s = time.perf_counter() - t0
+    launches = _kernel_counts()
+    log(f"phase 13 launches: {launches}")
+    for wrapper in ("murmur3_fixed_rows", "decimal128_op"):
+        if cuda and launches[wrapper] < 1:
+            raise AssertionError(f"phase 13 never launched {wrapper}")
+    lap("counted_run")
+
+    # ---- checks ----------------------------------------------------------
+    qty = money["l_quantity"] // 100  # whole units; money holds x 100
+    checks["s2i_int32_equals_draws"] = bool(
+        (qty32.data == qty.to(torch.int32)).all() and qty32.validity.all())
+    checks["s2i_int64_equals_draws"] = bool(
+        (qty64.data == qty).all() and qty64.validity.all())
+    for k in MONEY:
+        d = decs[k]
+        checks[f"s2d_{k}_equals_unscaled"] = bool(
+            d.dtype == dt.decimal64(2) and (d.data == money[k]).all()
+            and d.validity.all())
+    # numpy's division on the host: one correctly rounded IEEE division
+    # of two exact integers (torch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not)
+    cents = a["l_extendedprice"]
+    for name, col, want in (
+            ("float64", f64, (cents.astype(np.float64) / np.float64(100))
+             .view(np.int64)),
+            ("float32", f32, (cents.astype(np.float32) / np.float32(100))
+             .view(np.int32))):
+        checks[f"s2f_{name}_equals_cents_div_100"] = bool(
+            np.array_equal(_bits(col).cpu().numpy(), want)
+            and col.validity.all())
+    checks["q1_over_cast_columns_equals_numpy"] = _q1_rows(q1) == (
+        numpy_q1_decimal(a) if q1_want is None else q1_want)
+    checks["q1_no_overflow"] = not bool(over)
+    checks["round_trip_bits_every_row"] = bool(
+        (_bits(back) == _bits(f64)).all() and back.validity.all())
+    del back, price_text, li
+    checks["bridge_murmur3_equals_direct"] = hashed == [col_to_wire(
+        H.murmur_hash3_32([other["l_orderkey"]]))]
+    lap("checks_60m")
+
+    # 13e: the card against the CPU on 1M-row prefixes
+    p64, p32 = _prefix(f64, n1, dev), _prefix(f32, n1, dev)
+    for name, fn, col in (
+            ("f2s_float64", CF.float_to_string, p64),
+            ("f2s_float32", CF.float_to_string, p32),
+            ("format_number_2", lambda c: CF.format_number(c, 2), p64)):
+        checks[f"{name}_equals_cpu_1m"] = _same_on_host(
+            fn(col), fn(_prefix(col, n1, cpu)))
+    keys = _prefix(other["l_orderkey"], n1, dev)
+    for base in (10, 16):
+        s_dev = CB.from_integers_with_base(keys, base)
+        s_cpu = CB.from_integers_with_base(_prefix(keys, n1, cpu), base)
+        checks[f"from_integers_base{base}_equals_cpu_1m"] = _same_on_host(
+            s_dev, s_cpu)
+        i_dev = CB.to_integers_with_base(s_dev, base, dt.INT64)
+        checks[f"to_integers_base{base}_equals_cpu_1m"] = _same_on_host(
+            i_dev, CB.to_integers_with_base(s_cpu, base, dt.INT64))
+        checks[f"to_integers_base{base}_round_trip"] = bool(
+            (i_dev.data == keys.data).all())
+    rng = np.random.default_rng(0)  # the JAX package's cast cell, seed 0
+    cell = rng.standard_normal(n1) * 10.0 ** rng.integers(-5, 6, n1)
+    cell_s = [f"{v:.6f}" for v in cell]
+    cell_col = pack_byte_rows([s.encode() for s in cell_s], device=dev)
+    cell_dev = CS.string_to_float(cell_col, dt.FLOAT64)
+    checks["cast_cell_equals_cpu_1m"] = _same_on_host(
+        cell_dev, CS.string_to_float(_prefix(cell_col, n1, cpu),
+                                     dt.FLOAT64))
+    checks["cast_cell_equals_python_float_1m"] = np.array_equal(
+        cell_dev.data.cpu().numpy().view(np.uint64),
+        np.array([float(s) for s in cell_s]).view(np.uint64))
+    del cell, cell_s, cell_col, cell_dev
+    lap("checks_1m")
+
+    # 13f: ANSI mode names its first bad row
+    bad = _prefix(text["l_quantity"], n1, dev)
+    start = int(bad.offsets[min(ANSI_ROW, n1 - 1)])
+    bad.data = bad.data.clone()
+    bad.data[start] = ord("x")
+    row = min(ANSI_ROW, n1 - 1)
+    try:
+        CS.string_to_integer(bad, dt.INT32, ansi_mode=True)
+        checks["ansi_raises_on_its_row"] = False
+    except CS.CastException as e:
+        checks["ansi_raises_on_its_row"] = (
+            e.row_number == row and e.string_with_error.startswith("x"))
+    # 13g: the bridge's 26 ops against direct calls, the 5 others raise
+    same, raised, bridge_ms, ops = bridge_checks(dev, n1)
+    checks["bridge_26_ops_equal_direct_calls"] = (
+        len(same) == 26 and all(same.values()))
+    checks["bridge_5_unported_ops_raise_their_item"] = all(raised.values())
+    checks["bridge_has_31_ops"] = len(ops) == 31
+    lap("checks_bridge")
+    jline({"phase": "casts_sf10", "part": "checks", **card, "rows": rows,
+           "q1_first_row": _q1_rows(q1)[0], "bridge_ops_equal": same,
+           "bridge_unported_raise": raised, **checks})
+    failed = [k for k, ok in checks.items() if ok is not True]
+    if failed:
+        raise AssertionError(f"phase 13: {failed}")
+    log("check phase 13: every 60M-row cast exact; decimal q1 over the "
+        "cast columns == numpy; the round trip on every row; the card == "
+        "the CPU on 1M rows; ANSI names its row; the bridge == direct "
+        "calls")
+    jline({"phase": "casts_sf10", "part": "bridge_ops_wall_ms", **card,
+           "rows": n1, **bridge_ms})
+    del qty, qty32, qty64, f32, q1, p64, p32, keys, bad
+
+    # ---- times (the card only) -------------------------------------------
+    if not cuda:
+        return launches
+    str_bytes = {k: int(text[k].data.numel()) + 4 * (rows + 1)
+                 for k in MONEY}
+    long_text = _with_long_rows(text["l_extendedprice"], LONG_LEN,
+                                LONG_EVERY)
+    work = [
+        ("s2i_int32", lambda c: CS.string_to_integer(c, dt.INT32),
+         "l_quantity", 4 + 1),
+        ("s2i_int64", lambda c: CS.string_to_integer(c, dt.INT64),
+         "l_quantity", 8 + 1)] + [
+        (f"s2d_{k}", lambda c: CS.string_to_decimal(c, CAST_P, CAST_S),
+         k, 8 + 1) for k in MONEY] + [
+        ("s2f_float64", lambda c: CS.string_to_float(c, dt.FLOAT64),
+         "l_extendedprice", 8 + 1),
+        ("s2f_float32", lambda c: CS.string_to_float(c, dt.FLOAT32),
+         "l_extendedprice", 4 + 1)]
+    for name, fn, src, out_row in work:
+        col = text[src]
+        in_bytes = str_bytes[src]
+        _time_cast(card, name, lambda: fn(_fresh(col)), rows,
+                   in_bytes + out_row * rows, first.get(name),
+                   peaks.get(name), CAST_WARM)
+    f2s_out = CF.float_to_string(f64)
+    _time_cast(card, "f2s_float64", lambda: CF.float_to_string(f64), rows,
+               (8 + 2) * rows + int(f2s_out.data.numel()) + 4 * (rows + 1),
+               first.get("f2s_float64"), peaks.get("f2s_float64"), CAST_WARM)
+    del f2s_out
+    long_bytes = int(long_text.data.numel()) + 4 * (rows + 1)
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got_long, long_first = wall(lambda: CS.string_to_float(
+        _fresh(long_text), dt.FLOAT64), dev)
+    long_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if not bool((_bits(got_long) == _bits(f64)).all()):
+        raise AssertionError("phase 13: the long strings cast to other bits")
+    del got_long
+    _time_cast(card, "s2f_float64_1pct_256_chars", lambda: CS.string_to_float(
+        _fresh(long_text), dt.FLOAT64), rows, long_bytes + 9 * rows,
+        long_first, long_peak, 3, profiled=False,
+        extra={"long_rows": rows // LONG_EVERY, "long_len": LONG_LEN})
+    del long_text
+    lap("cast_times")
+
+    # 13i: the bridge's murmur3 at 60M rows: marshalling and B1
+    key = other["l_orderkey"]
+    total = sorted(wall(lambda: bridge.call("hash.murmur3", "{}", key_wire,
+                                            device=dev), dev)[1]
+                   for _ in range(3))[1]
+    to_card = sorted(wall(lambda: wire_to_col(key_wire[0], dev), dev)[1]
+                     for _ in range(3))[1]
+    out_col = H.murmur_hash3_32([key])
+    to_wire = sorted(wall(lambda: col_to_wire(out_col), dev)[1]
+                     for _ in range(3))[1]
+    op_ms = cuda_ms(lambda: H.murmur_hash3_32([key]), reps=5)
+    schema = _schema([key], False)
+    b1_ms = cuda_ms(lambda: K.murmur3_fixed_rows(schema, 42, rows), reps=5)
+    jline({"phase": "casts_sf10", "part": "bridge_murmur3_time", **card,
+           "rows": rows, "first_ms": first["bridge_murmur3"],
+           "warm_ms": total, "wire_to_card_ms": to_card,
+           "card_to_wire_ms": to_wire, "murmur_hash3_32_ms": op_ms,
+           "b1_kernel_ms": b1_ms,
+           "marshalling_share": (to_card + to_wire) / total,
+           "b1_share": b1_ms / total,
+           "wire_bytes_in": len(key_wire[0][2]), "wire_bytes_out": 4 * rows})
+    lap("bridge_time")
+    jline({"phase": "casts_sf10", "part": "seconds", **card,
+           "counted_run_s": counted_s, "first_ms": first, **secs})
+    return launches
+
+
+def _time_cast(card, name, fn, rows, nbytes, first_ms, peak_gb, warm,
+               profiled=True, extra=None):
+    """One cast at 60M rows: warm median of ``warm`` calls by CUDA events,
+    its byte bound and (``profiled``) one call under the profiler
+    (launches, idle share)."""
+    times = []
+    for _ in range(warm):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    b_ms, b_by = bound_ms(nbytes, 0)
+    warm_ms = sorted(times)[len(times) // 2]
+    jline({"phase": "casts_sf10", "part": "cast_time", **card, "cast": name,
+           "rows": rows, "first_ms": first_ms, "warm_ms": warm_ms,
+           "warm_all_ms": times, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_share": b_ms / warm_ms, "bytes": nbytes,
+           "peak_memory_gb": peak_gb,
+           **(cast_profile(fn) if profiled else {}), **(extra or {})})
 
 
 def numpy_q1(a, cutoff=2400):

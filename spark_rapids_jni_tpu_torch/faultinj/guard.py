@@ -59,10 +59,14 @@ config can target, in addition to the injector's patched op entry points):
   * ``plan/executor.py`` — "plan_execute" (the plan engine's single
                          fused-program boundary; op cores inside the
                          program are pure and carry no guards)
+  * ``parquet/reader.py`` — "parquet_page_decode",
+                         "parquet_device_decode"
+  * ``bridge.py``        — each engine op by its name ("hash.murmur3",
+                         "cast.string_to_float", ...), around the op
+                         and after the columns are marshalled
 
-The JAX package's other surfaces (the engine bridge, the sharded
-exchange, the parquet reader, parse_uri) are not ported yet (ROADMAP
-A11b, A13-A15, A17).
+The JAX package's other surfaces (the sharded exchange, parse_uri) are
+not ported yet (ROADMAP A11b, A13, A15).
 
 Payload bit-flip surfaces (``injectionType: 3`` rules consumed by the
 memory/integrity.py hooks, not by exception checkpoints): "spill",

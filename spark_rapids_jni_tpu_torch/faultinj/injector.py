@@ -344,9 +344,9 @@ class FaultInjector:
         ("spark_rapids_jni_tpu_torch.ops.row_conversion", "convert_to_rows"),
         ("spark_rapids_jni_tpu_torch.ops.row_conversion",
          "convert_from_rows"),
-        # not ported yet (A3, A13): skipped as a missing module is
         ("spark_rapids_jni_tpu_torch.ops.cast_float_to_string",
          "float_to_string"),
+        # not ported yet (A13): skipped as a missing module is
         ("spark_rapids_jni_tpu_torch.ops.get_json_object",
          "get_json_object"),
         ("spark_rapids_jni_tpu_torch.ops.sort", "sort_order"),

@@ -28,7 +28,8 @@ a supervised worker SUBPROCESS, behind ``guarded_dispatch``:
 Workers load their targets by file path (faultinj/_sandbox_targets.py):
 bare python + numpy, no torch, and no card visible to them. The JAX
 package's second worker group, which imports the engine package to run
-sandboxed bridge ops, waits for the port's bridge (ROADMAP A17).
+sandboxed bridge ops, is not ported: the port's bridge (bridge.py) runs
+every op in process (ROADMAP A11b).
 
 Config: ``sandbox.enabled`` (default off: in-process dispatch is
 bit-identical and faster when crash containment is not required),

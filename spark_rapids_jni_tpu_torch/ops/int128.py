@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .hashing import _lsr
+from .hashing import _lsr, _s64
 
 NLIMBS = 4
 M32 = 0xFFFFFFFF
@@ -64,6 +64,41 @@ def umul128(a: torch.Tensor, b: torch.Tensor):
     lo = (cross << 32) | (ll & M32)
     hi = hh + _lsr(hl, 32) + _lsr(lh, 32) + _lsr(cross, 32)
     return hi, lo
+
+
+_SIGN64 = -(1 << 63)
+_MAX63 = (1 << 63) - 1
+s64 = _s64  # a u64 constant as the int64 of the same bits
+
+
+def ult(a, b) -> torch.Tensor:
+    """a < b for u64 bits held in int64 (tensors or constants from
+    ``s64``): flipping the sign bit turns unsigned order into signed."""
+    return (a ^ _SIGN64) < (b ^ _SIGN64)
+
+
+def lsr(x: torch.Tensor, s) -> torch.Tensor:
+    """Logical right shift of u64 bits in int64 by a tensor (or int) of
+    shift counts in [0, 64]."""
+    if not isinstance(s, torch.Tensor):
+        s = torch.tensor(s, dtype=torch.int64, device=x.device)
+    return torch.where(s == 0, x, ((x >> 1) & _MAX63) >> (s - 1).clamp(min=0))
+
+
+def udivmod(x: torch.Tensor, d):
+    """(x // d, x % d) of u64 bits in int64 by a divisor 0 < d < 2^63 (a
+    tensor or an int): the top bit dropped, then one correction step.
+    x = 2h + b with h < 2^63, so x - 2(h // d)d = 2(h % d) + b < 2d. An
+    even int divisor needs no correction (x // d = h // (d / 2)), and an
+    int divisor under 2^62 keeps 2d in int64's range (a signed compare)."""
+    h = (x >> 1) & _MAX63
+    if isinstance(d, int) and d % 2 == 0:
+        q = h // (d >> 1)
+        return q, x - q * d
+    q = (h // d) << 1
+    r = x - q * d
+    over = (r >= d) if isinstance(d, int) and d < 1 << 62 else ~ult(r, d)
+    return q + over.to(torch.int64), torch.where(over, r - d, r)
 
 
 def limbs_const(value: int, nlimbs: int = NLIMBS) -> np.ndarray:

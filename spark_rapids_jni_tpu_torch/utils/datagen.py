@@ -668,3 +668,39 @@ def decimal128_division_cases(rows: int = 64, seed: int = 0,
             b.append(sign * y)
         case("add", (38, 0, 38 - k), a, b)
     return cases
+
+
+def tbl_decimal_strings(unscaled: torch.Tensor, frac_digits: int) -> Column:
+    """A STRING column of non-negative unscaled decimals as TPC-H dbgen
+    writes them in its ``.tbl`` files: ``frac_digits`` = 0 gives "17",
+    2 gives "21168.23" and "0.04". Rendered on ``unscaled``'s device in
+    torch digit ops (one character column at a time), independent of the
+    casts that parse it back; one host read, the widest row."""
+    v = unscaled.to(torch.int64)
+    if v.numel() and bool((v < 0).any()):
+        raise ValueError("tbl_decimal_strings renders non-negative values")
+    scale = 10 ** frac_digits
+    whole, frac = v // scale, v % scale
+    nd = torch.ones_like(whole)  # digits of the whole part (0 has one)
+    for k in range(1, 19):
+        nd += (whole >= 10 ** k).to(torch.int64)
+    point = 1 if frac_digits else 0
+    lengths = nd + point + frac_digits
+    width = int(lengths.max()) if v.numel() else 0
+    pow10 = torch.tensor([10 ** k for k in range(19)], dtype=torch.int64,
+                         device=v.device)
+    mat = torch.zeros((v.shape[0], width), dtype=torch.uint8,
+                      device=v.device)
+    for j in range(width):
+        e_whole = nd - 1 - j                      # the whole digit's power
+        e_frac = frac_digits - (j - nd - point) - 1
+        d_whole = (whole // pow10[e_whole.clamp(0, 18)]) % 10
+        d_frac = (frac // pow10[e_frac.clamp(0, 18)]) % 10
+        ch = torch.where(j < nd, 48 + d_whole,
+                         torch.where(j < nd + point, ord("."), 48 + d_frac))
+        mat[:, j] = torch.where(j < lengths, ch, 0).to(torch.uint8)
+    keep = torch.arange(width, device=v.device)[None, :] < lengths[:, None]
+    offsets = torch.zeros(v.shape[0] + 1, dtype=torch.int32, device=v.device)
+    offsets[1:] = torch.cumsum(lengths, 0).to(torch.int32)
+    return Column(dt.STRING, int(v.shape[0]), data=mat[keep],
+                  offsets=offsets)

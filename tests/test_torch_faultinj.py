@@ -192,6 +192,8 @@ def test_install_wraps_the_ports_op_entry_points(tmp_path):
     try:
         patched = sorted(f"{m.__name__}.{a}" for m, a, _ in inj._patched)
         assert patched == [
+            "spark_rapids_jni_tpu_torch.ops.cast_float_to_string."
+            "float_to_string",
             "spark_rapids_jni_tpu_torch.ops.hashing.murmur_hash3_32",
             "spark_rapids_jni_tpu_torch.ops.hashing.xxhash64",
             "spark_rapids_jni_tpu_torch.ops.row_conversion.convert_from_rows",
@@ -205,6 +207,37 @@ def test_install_wraps_the_ports_op_entry_points(tmp_path):
     finally:
         PF.uninstall()
     assert PH.murmur_hash3_32 is orig
+
+
+def test_install_wraps_float_to_string_as_the_jax_injector_does(tmp_path):
+    """cast_float_to_string.float_to_string is a target of both injectors:
+    install() wraps it in each package, a rule naming it fires through
+    the bridge's handler (which looks it up at call time), and
+    uninstall() restores it."""
+    from spark_rapids_jni_tpu.ops import cast_float_to_string as JCF
+    from spark_rapids_jni_tpu_torch import bridge as PB
+    from spark_rapids_jni_tpu_torch.ops import cast_float_to_string as PCF
+    origs = (JCF.float_to_string, PCF.float_to_string)
+    cfg = _write(tmp_path, "f2s.json", {"xlaRuntimeFaults": {
+        "float_to_string": {"percent": 100, "injectionType": 2,
+                            "substituteReturnCode": 5,
+                            "interceptionCount": 1}}})
+    wire = ("float64", 1, b"\x00" * 7 + b"\x40", None, None)  # 2.0
+    for p, mod in ((PKGS["jax"], JCF), (PKGS["port"], PCF)):
+        p["I"].install(cfg, seed=0)
+        try:
+            assert hasattr(mod.float_to_string, "__wrapped_for_faultinj__")
+        finally:
+            p["I"].uninstall()
+    PI.install(cfg, seed=0)
+    try:
+        with pytest.raises(PI.InjectedApiError):
+            PB._f2s({}, [PB.wire_to_col(wire, "cpu")], "cpu")
+        out, _ = PB.call("cast.float_to_string", "{}", [wire], device="cpu")
+        assert out[0][2] == b"2.0"  # the rule's one interception is spent
+    finally:
+        PI.uninstall()
+    assert (JCF.float_to_string, PCF.float_to_string) == origs
 
 
 # ---------------------------------------------------------------------------

@@ -807,12 +807,20 @@ def test_decimal128_rows_round_trip(cuda):
 def _on(cols, device):
     return [Column(c.dtype, c.size, data=c.data.to(device),
                    validity=None if c.validity is None
-                   else c.validity.to(device)) for c in cols]
+                   else c.validity.to(device),
+                   offsets=None if c.offsets is None
+                   else c.offsets.to(device)) for c in cols]
 
 
 def _same(a, b):
-    return (torch.equal(a.data.cpu(), b.data.cpu())
-            and torch.equal(a.valid_mask().cpu(), b.valid_mask().cpu()))
+    """Same value bytes (NaN payloads too), validity bits and (a
+    STRING's) offsets."""
+    return (torch.equal(a.data.cpu().contiguous().view(torch.uint8),
+                        b.data.cpu().contiguous().view(torch.uint8))
+            and torch.equal(a.valid_mask().cpu(), b.valid_mask().cpu())
+            and (a.offsets is None) == (b.offsets is None)
+            and (a.offsets is None
+                 or torch.equal(a.offsets.cpu(), b.offsets.cpu())))
 
 
 def test_bloom_filter_on_card_equals_plain(cuda):
@@ -908,3 +916,95 @@ def test_decimal_to_string_on_card_equals_cpu(cuda):
     assert got.data.device.type == "cuda"
     assert torch.equal(got.data.cpu(), want.data)
     assert torch.equal(got.offsets.cpu(), want.offsets)
+
+
+def _strings_cpu(strs, validity=None):
+    return Column.from_pylist([s if validity is None or validity[i] else None
+                               for i, s in enumerate(strs)], dt.STRING,
+                              device="cpu")
+
+
+def _cast_strings(n, seed):
+    """Integer, decimal and float strings with signs, exponents, padding,
+    junk and nulls."""
+    rng = np.random.default_rng(seed)
+    words = ["42", "-7", " 12 ", "bogus", "1.5", "99999999999", "", "+3",
+             "1e3", "-0.25", "21168.23", "0.04", "NaN", "-Infinity", "1.0f",
+             "4.9e-324", "1e-40", "18446744073709551615", "-1.0E14",
+             "123456789012345678901234567890123456.01"]
+    strs = [words[i] for i in rng.integers(0, len(words), n)]
+    vals = rng.standard_normal(n) * 10.0 ** rng.integers(-30, 30, n)
+    strs = [s if i % 3 else f"{v:.17g}" for i, (s, v) in enumerate(
+        zip(strs, vals))]
+    return _strings_cpu(strs, rng.random(n) > 0.05)
+
+
+@pytest.mark.parametrize("t", ["INT8", "INT32", "UINT64", "INT64"])
+def test_string_to_integer_on_card_equals_cpu(cuda, t):
+    from spark_rapids_jni_tpu_torch.ops import cast_string as CS
+    col = _cast_strings(50_001, 31)
+    assert _same(CS.string_to_integer(col, getattr(dt, t)),
+                 CS.string_to_integer(_on([col], cuda)[0], getattr(dt, t)))
+
+
+@pytest.mark.parametrize("precision,scale", [(5, 0), (12, -2), (18, -9),
+                                             (30, -4), (38, 2)])
+def test_string_to_decimal_on_card_equals_cpu(cuda, precision, scale):
+    from spark_rapids_jni_tpu_torch.ops import cast_string as CS
+    col = _cast_strings(50_001, 32)
+    assert _same(CS.string_to_decimal(col, precision, scale),
+                 CS.string_to_decimal(_on([col], cuda)[0], precision, scale))
+
+
+@pytest.mark.parametrize("t", ["FLOAT32", "FLOAT64"])
+def test_string_to_float_on_card_equals_cpu(cuda, t):
+    from spark_rapids_jni_tpu_torch.ops import cast_string as CS
+    col = _cast_strings(50_001, 33)
+    got = CS.string_to_float(_on([col], cuda)[0], getattr(dt, t))
+    assert got.data.device.type == "cuda"
+    assert _same(CS.string_to_float(col, getattr(dt, t)), got)
+
+
+def test_float_to_string_and_base_casts_on_card_equal_cpu(cuda):
+    from spark_rapids_jni_tpu_torch.ops import cast_float_to_string as CF
+    from spark_rapids_jni_tpu_torch.ops import cast_string_base as CB
+    rng = np.random.default_rng(34)
+    n = 20_001
+    bits = rng.integers(0, 2**63, n, dtype=np.int64)
+    for vals, d in ((bits.view(np.float64), dt.FLOAT64),
+                    (bits.astype(np.int32).view(np.float32), dt.FLOAT32)):
+        col = Column.from_numpy(vals, d, validity=rng.random(n) > 0.1,
+                                device="cpu")
+        assert _same(CF.float_to_string(col),
+                     CF.float_to_string(_on([col], cuda)[0]))
+        assert _same(CF.format_number(col, 3),
+                     CF.format_number(_on([col], cuda)[0], 3))
+    ints = Column.from_numpy(bits, dt.INT64, device="cpu")
+    for base in (10, 16):
+        want = CB.from_integers_with_base(ints, base)
+        got = CB.from_integers_with_base(_on([ints], cuda)[0], base)
+        assert _same(want, got)
+        assert _same(CB.to_integers_with_base(want, base, dt.INT64),
+                     CB.to_integers_with_base(got, base, dt.INT64))
+
+
+def test_ansi_cast_on_card_raises_its_row(cuda):
+    from spark_rapids_jni_tpu_torch.ops import cast_string as CS
+    col = Column.from_pylist(["1", "2", None, "x3", "4y"], dt.STRING,
+                             device=cuda)
+    with pytest.raises(CS.CastException) as ei:
+        CS.string_to_integer(col, dt.INT32, ansi_mode=True)
+    assert (ei.value.row_number, ei.value.string_with_error) == (3, "x3")
+
+
+def test_bridge_on_card_equals_cpu(cuda):
+    """Every op the port's bridge runs (chip_smoke's cases at 20K rows),
+    on the card and on the CPU: equal wire bytes and meta."""
+    import json
+    import chip_smoke
+    from spark_rapids_jni_tpu_torch import bridge
+    cases, wires = chip_smoke.bridge_cases(torch.device("cpu"), 20_000, 35)
+    for op, args, names, _ in cases:
+        ws = [wires[k] for k in names]
+        want = bridge.call(op, json.dumps(args), ws, device="cpu")
+        assert bridge.call(op, json.dumps(args), ws) == want, op

@@ -15,6 +15,7 @@ columns too.
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -63,6 +64,68 @@ def jitted_jax_decimal():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JI, "divmod_unsigned", jax.jit(JI.divmod_unsigned))
         mp.setattr(JD, "precision10", jax.jit(JD.precision10))
+        yield
+
+
+class _Traced:
+    """A traced integer that answers the storage-class and sign questions
+    (``precision <= 9``, ``precision <= 18``, ``scale > 0``) from a static
+    table and is arithmetic otherwise."""
+
+    def __init__(self, t, answers):
+        self.t, self.answers = t, answers
+
+    def __le__(self, o):
+        return self.answers[("<=", o)]
+
+    def __gt__(self, o):
+        return self.answers[(">", o)]
+
+    def __lt__(self, o):  # array > self, reflected
+        return self.t < o
+
+    def __add__(self, o):
+        return self.t + (o.t if isinstance(o, _Traced) else o)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self.t - o
+
+    def __rsub__(self, o):
+        return o - self.t
+
+    def __neg__(self):
+        return -self.t
+
+
+@pytest.fixture(scope="module")
+def jax_decimal_any_scale():
+    """The JAX package's string -> decimal cast for one test module,
+    compiled once per storage class (precision <= 9, <= 18, <= 38) and
+    sign of the scale, not once per (precision, scale) (~4 s each on the
+    CPU): the same function, unchanged, under one ``jax.jit`` with the
+    precision and scale as traced scalars. It asks only those three
+    questions of them as Python bools and uses them in arithmetic
+    otherwise, so how often it compiles changes, not what it computes."""
+    from spark_rapids_jni_tpu.ops import cast_string as JC
+    raw = JC._string_to_decimal_core.__wrapped__
+
+    def core(mat, lengths, in_valid, p, s, *, cls):
+        return raw(mat, lengths, in_valid,
+                   precision=_Traced(p, {("<=", 9): cls[0],
+                                         ("<=", 18): cls[1]}),
+                   scale=_Traced(s, {(">", 0): cls[2]}), strip=cls[3])
+
+    jcore = jax.jit(core, static_argnames="cls")
+
+    def patched(mat, lengths, in_valid, *, precision, scale, strip):
+        return jcore(mat, lengths, in_valid, jnp.int64(precision),
+                     jnp.int64(scale), cls=(precision <= 9, precision <= 18,
+                                            scale > 0, strip))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JC, "_string_to_decimal_core", patched)
         yield
 
 
