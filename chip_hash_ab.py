@@ -12,9 +12,13 @@ version, then times it: its own device time by torch.profiler
 (chip_smoke.cuda_ms). The calls: B2 over the STRING key of strings_60m
 (60M rows, 0-32 bytes) and over 16M strings of random bytes of 0-100
 bytes; B2 and B1 over SF10's l_orderkey (60M rows); B1 over the 60M-row
-STRING key; B3 over SF10's lineitem. The helpers come from this script's
-own chip_smoke.py. Prints one JSON line per tree and call. Exits 2
-without a CUDA device.
+STRING key; B3 over SF10's lineitem; and, in a tree whose B1 takes a LIST
+entry, B1 at chip_smoke.py phase 14's shapes, made on the card from a
+fixed seed: a STRUCT key of 15M rows (INT64 and INT32 fields, 1% null
+rows), LIST<INT64> of 15M rows with Poisson(4) lengths (~60M elements),
+and the same lists with one row in 10,000 of 4,096 elements. The helpers
+come from this script's own chip_smoke.py. Prints one JSON line per tree
+and call. Exits 2 without a CUDA device.
 """
 
 import importlib.util
@@ -24,6 +28,35 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+NESTED_ROWS = 15_000_000   # SF10's orders
+
+
+def nested_cases(torch, dev):
+    """{label: B1 schema} at phase 14's shapes: the STRUCT key flattened
+    into two fixed-width entries, and two LIST entries over one offsets
+    tensor each."""
+    n = NESTED_ROWS
+    gen = torch.Generator(device=dev).manual_seed(14)
+    valid = torch.rand(n, generator=gen, device=dev) >= 0.01
+    cust = torch.randint(0, 1_500_000, (n,), generator=gen, device=dev)
+    date = torch.randint(0, 2400, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens = torch.poisson(torch.full((n,), 4.0, device=dev),
+                         generator=gen).to(torch.int32)
+    out = {"B1 STRUCT key (15M)": [("u64", cust, valid),
+                                   ("u32", date, valid)]}
+    for label, every in (("B1 LIST<INT64> (15M rows, ~60M elements)", None),
+                         ("B1 LIST, skewed", 10_000)):
+        ln = lens.clone()
+        if every:
+            ln[::every] = 4096
+        offs = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        torch.cumsum(ln, 0, dtype=torch.int32, out=offs[1:])
+        leaf = torch.randint(-(1 << 62), 1 << 62, (int(offs[-1]),),
+                             generator=gen, device=dev)
+        out[label] = [("list", (offs[:-1], offs[1:], "u64", leaf, None),
+                       None)]
+    return out
 
 
 def one_tree(tree):
@@ -69,6 +102,12 @@ def one_tree(tree):
             lambda: K.rowconv_fixed_words(*li_args),
             lambda: K.rowconv_fixed_words_plain(*li_args)),
     }
+    if hasattr(K, "_LIST_KIND"):   # B1 takes LIST entries
+        for label, sch in nested_cases(torch, dev).items():
+            calls[label] = (
+                lambda s=sch: K.murmur3_fixed_rows(s, 42, NESTED_ROWS),
+                lambda s=sch: K.murmur3_fixed_rows_plain(s, 42,
+                                                         NESTED_ROWS))
     wrapper = {"B1": "murmur3_fixed_rows", "B2": "xxhash64_fixed_rows",
                "B3": "rowconv_fixed_words"}
     for label, (run, plain) in calls.items():

@@ -1,6 +1,12 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py PHASE [ROWS]
+
+With no argument, the whole run below. With a phase name (memory_sf10,
+parquet_sf10, decimal_sf10, casts_sf10 or nested_sf10) and optionally a
+lineitem row count (SF10's 60M by default), phases 1 and 2 and then that
+phase alone, ending with its seconds.
 
 Drives the port's main path (spark_rapids_jni_tpu_torch) once on the card
 at TPC-H SF10 scale and checks it, in phases; any failure raises and the
@@ -160,12 +166,35 @@ run exits non-zero:
      on every row, the card == the CPU on 1M-row prefixes
      (float_to_string of both widths, format_number, both base casts, the
      JAX package's own cast cell == Python's float()), an ANSI error's row,
-     and each of the bridge's 26 ops == the op called directly (the 5
+     and each of the bridge's 29 ops == the op called directly (the 2
      others raise naming their ROADMAP item); then times each cast at 60M
      rows (first, warm median of 5, byte bound, launches and idle share by
      the profiler, peak memory), the price cast again over a column with
      one string in 100 of 256 characters, and the bridge's murmur3 split
-     into marshalling and B1.
+     into marshalling and B1;
+ 14. ``nested_sf10``: nested columns. Groups SF10's lineitem draws
+     (stably sorted on l_orderkey) into the 15M orders as o_orderkey, the
+     STRUCT key o_key (o_custkey, o_orderdate), LIST<INT64> o_linekeys
+     and LIST<STRUCT> o_lines (l_quantity, l_extendedprice, l_shipdate),
+     with 1% null o_lines rows, l_quantity elements and o_key rows, and
+     writes them with the port's writer (repetition and definition
+     levels); with the launch counts set to 0 reads the file through
+     ParquetReader in several chunks (o_linekeys on the device tier, the
+     others through parquet/nested.py), hashes o_key (B1 over the
+     flattened struct) and o_linekeys (B1's LIST entry), sorts the orders
+     on o_orderdate and filters them to a cutoff carrying o_lines, takes
+     the percentiles of each order's quantities and a histogram of the
+     60M quantities, interleaves three lineitem columns (Z-order) and
+     calls the three ops through the bridge at 1M rows; reads the
+     counts; checks every column against the draws, B1 against its plain
+     version (also on a copy where one list in 10,000 holds 4,096
+     elements, and at 70 units across two launches, B2 too), each step
+     against numpy and the bridge against direct calls, the percentiles
+     on the card against the CPU on 1M rows of values where a fused
+     multiply-add rounds apart; then times the read (its split, idle
+     share), each step (first and warm median of 5, bounds, launches,
+     idle share, peak memory), B1 in each case (events, profiler, plain,
+     byte bound) and the bridge's ops.
 
 Prints JSON lines (timings, then the {"kernels": [...]} line, whose
 entries give each kernel's launches by path) and, last,
@@ -240,14 +269,31 @@ def cuda_ms(fn, reps=10, warm=2):
     return start.elapsed_time(end) / reps
 
 
+# torch.cuda._sleep's kernel: the sentinels launched at both ends of a
+# profiled session. On the H100 (torch 2.11, CUDA 12.8) a CUDA-only
+# session after a process's first loses one device event at its start,
+# which a pair of sentinels takes; late in a whole chip_smoke run
+# sessions lose more, at the start and within, which the sentinels show
+# only in part. Phase 14's profiler readings are taken from the phase
+# run alone (``python3 chip_smoke.py nested_sf10``).
+SENTINEL_KERNEL = "spin_kernel"
+
+
+def _sentinels(count=2):
+    for _ in range(count):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def kernel_ms(calls, reps=5):
     """Mean device time per call of each (fn, kernel) in ``calls``: the
     CUDA kernel whose name holds ``kernel``, which fn() launches once, timed
     by torch.profiler — the kernel alone, without the host gaps that cuda_ms
     counts when the wrapper's host work is the longer. One profiler session
-    for all calls; the kernels are attributed in launch order. A session
-    that misses launches is run once more; a kernel it still misses reads
-    None (not measured: the CUDA-event time ``ms`` stands)."""
+    for all calls, between sentinel pairs (``_profiled``); the kernels are
+    attributed in launch order. A session that misses launches is run once
+    more; a kernel it still misses reads None (not measured: the
+    CUDA-event time ``ms`` stands)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for fn, _ in calls:
@@ -257,10 +303,12 @@ def kernel_ms(calls, reps=5):
     events = []
     for attempt in range(2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _sentinels()
             for fn, _ in calls:
                 for _ in range(reps):
                     fn()
             torch.cuda.synchronize()
+            _sentinels()
         events = sorted((e for e in prof.events()
                          if e.device_type == DeviceType.CUDA
                          and any(k in e.name for k in names)),
@@ -329,7 +377,15 @@ def wall(fn, dev):
     return out, (time.perf_counter() - t) * 1e3
 
 
-def main():
+def main(argv=()):
+    # one phase alone: (dev, card, rows) -> the phase's lines
+    alone = {"memory_sf10": memory_phase, "parquet_sf10": parquet_phase,
+             "decimal_sf10": decimal_phase, "casts_sf10": casts_phase,
+             "nested_sf10": nested_phase}
+    if argv and (argv[0] not in alone or len(argv) > 2):
+        print(f"usage: chip_smoke.py [{'|'.join(alone)} [ROWS]]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -364,6 +420,11 @@ def main():
                 log(f"  {src}.cu: {line.strip()}")
 
     phase_end("build")
+    if argv:
+        alone[argv[0]](dev, card, int(argv[1]) if argv[1:] else SF10_ROWS)
+        phase_end(argv[0])
+        jline({"phase_seconds": PHASE_SECONDS})
+        return 0
 
     # ---- phases 3 and 4 ---------------------------------------------------
     state = check_kernels(dev, SF10_ROWS)
@@ -428,6 +489,10 @@ def main():
                                       decimal_keep["q1_want"])
     del decimal_keep
     phase_end("casts_sf10")
+
+    # ---- phase 14: nested columns -----------------------------------------
+    paths["nested_sf10"] = nested_phase(dev, card, SF10_ROWS)
+    phase_end("nested_sf10")
     for entry, (_, wrapper, _, _) in zip(entries, K.KERNELS):
         entry["launches_by_path"] = {p: c[wrapper] for p, c in paths.items()}
     jline({"phase_seconds": PHASE_SECONDS})
@@ -2185,19 +2250,53 @@ def _read(path, dev, tier, encoded=False, timings=None, **kw):
         return table, r.routes, (time.perf_counter() - t) * 1e3
 
 
-def _read_profile(fn):
-    """One fn() call under torch.profiler: its CUDA kernel launches and
-    copies, the device's busy time and idle share, and the aten ops that
-    hold the device (inclusive device ms, top 6)."""
+def _profiled(fn, activities):
+    """(profiler, fn()'s device events in start order, fn()'s wall ms) of
+    one fn() call under torch.profiler, the call bracketed by two sentinel
+    kernels on each side outside the timed span; a session counts only
+    where the profiler's first and last device events are sentinels and
+    fn() shows a device event of its own (else it dropped events: a
+    session that misses launches reads a device busier or idler than it
+    was). Run once more if not; (None, None, None) when neither session
+    counts: the reading is not measured."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
+    from torch.profiler import profile
+    for attempt in range(2):
         torch.cuda.synchronize()
-        span_ms = (time.perf_counter() - t) * 1e3
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=activities) as prof:
+            _sentinels()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            span_ms = (time.perf_counter() - t) * 1e3
+            _sentinels()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        at = [i for i, e in enumerate(ev) if SENTINEL_KERNEL in e.name]
+        if (len(at) >= 2 and at[0] == 0 and at[-1] == len(ev) - 1
+                and len(ev) > len(at)):
+            return prof, [e for e in ev if SENTINEL_KERNEL not in e.name], \
+                span_ms
+        log(f"the profiler showed sentinels at {at} of {len(ev)} device "
+            f"events (session {attempt + 1}): not a whole session")
+    return None, None, None
+
+
+def _read_profile(fn):
+    """One fn() call under torch.profiler (``_profiled``): its CUDA kernel
+    launches and copies, the device's busy time and idle share, and the
+    aten ops that hold the device (inclusive device ms, top 6); every
+    field None where no session was whole."""
+    from torch.profiler import ProfilerActivity
+    prof, ev, span_ms = _profiled(fn, [ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+    if prof is None:
+        return {"device_kernel_launches": None,
+                "device_copies_and_memsets": None, "wall_ms": None,
+                "device_busy_ms": None, "device_idle_share": None,
+                "top_aten_ops_inclusive_device_ms": None,
+                "top_device_kernels_ms": None}
     copies = sum(1 for e in ev if e.name.startswith(("Memcpy", "Memset")))
     busy_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
     avg = prof.key_averages()
@@ -3553,9 +3652,8 @@ LONG_LEN = 256              # 13h: the long strings' length
 LONG_EVERY = 100            # 13h: one row in 100 is long
 ANSI_ROW = 500_000          # 13f: the bad row of the 1M-row column
 CAST_WARM = 5               # warm calls a cast is timed over (median)
-UNPORTED_OPS = {"histogram.create": "A1", "histogram.percentile": "A1",
-                "zorder.interleave": "A1", "json.get_json_object": "A13",
-                "json.from_json_map": "A13"}
+UNPORTED_OPS = {"json.get_json_object": "A13", "json.from_json_map": "A13"}
+BRIDGE_OPS = 29             # the ops the port's bridge runs (31 less json.*)
 
 
 def _prefix(col, n, device):
@@ -3636,17 +3734,16 @@ def _bits(col):
 
 
 def cast_profile(fn):
-    """One warm call of fn() under torch.profiler: its device launches
-    (kernels; copies and fills counted apart), the device's busy time and
-    its idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        span_ms = (time.perf_counter() - t) * 1e3
-    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    """One warm call of fn() under torch.profiler (``_profiled``): its
+    device launches (kernels; copies and fills counted apart), the
+    device's busy time and its idle share; every field None where no
+    session was whole."""
+    from torch.profiler import ProfilerActivity
+    _, dev_ev, span_ms = _profiled(fn, [ProfilerActivity.CUDA])
+    if dev_ev is None:
+        return {"launches_per_call": None, "copies_and_fills_per_call": None,
+                "profiled_wall_ms": None, "device_busy_ms": None,
+                "device_idle_share": None}
     copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev_ev)
     busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
     return {"launches_per_call": len(dev_ev) - copies,
@@ -3655,7 +3752,7 @@ def cast_profile(fn):
 
 
 def bridge_cases(dev, n, seed):
-    """(cases, wire columns): for each of the 26 ops the port's bridge
+    """(cases, wire columns): for each of the 29 ops the port's bridge
     runs, (op, args, input names, direct), with the inputs made with numpy
     from ``seed`` at n rows; ``direct(cols)`` runs the port's op on the
     marshalled columns without the bridge, as a caller of the op would."""
@@ -3670,11 +3767,13 @@ def bridge_cases(dev, n, seed):
     from spark_rapids_jni_tpu_torch.ops import datetime_rebase as DR
     from spark_rapids_jni_tpu_torch.ops import decimal128 as D
     from spark_rapids_jni_tpu_torch.ops import hashing as H
+    from spark_rapids_jni_tpu_torch.ops import histogram as HI
     from spark_rapids_jni_tpu_torch.ops import row_conversion as R
     from spark_rapids_jni_tpu_torch.ops import timezones as TZ
     from spark_rapids_jni_tpu_torch.ops.decimal_to_string import \
         decimal_to_string
-    from spark_rapids_jni_tpu_torch.ops.zorder import hilbert_index
+    from spark_rapids_jni_tpu_torch.ops.zorder import (hilbert_index,
+                                                       interleave_bits)
     from spark_rapids_jni_tpu_torch.utils.datagen import decimal128_limbs
 
     rng = np.random.default_rng(seed)
@@ -3705,8 +3804,34 @@ def bridge_cases(dev, n, seed):
          "micros": fixed("timestamp_us", rng.integers(
              -10 ** 16, 2 * 10 ** 15, n)),
          "h32": fixed("int32", rng.integers(0, 1 << 12, n).astype(np.int32)),
-         "h32b": fixed("int32", rng.integers(0, 1 << 12, n).astype(np.int32))}
+         "h32b": fixed("int32", rng.integers(0, 1 << 12, n).astype(np.int32)),
+         "freq": fixed("int64", rng.integers(0, 4, n))}
     bloom = {"num_hashes": 3, "num_longs": 1 << 14}
+    pcts = {"percentages": [0.25, 0.5, 0.75], "as_list": True}
+
+    def offs_wire(col):
+        o = col.offsets.cpu().numpy().astype(np.int64)
+        return ("int64", int(o.shape[0]), o.tobytes(), None, None)
+
+    def list_parts(col, children):
+        # the bridge's wire layout of a LIST: offsets, children, validity
+        tail = [] if col.validity is None else [Column(
+            dt.BOOL8, col.size, data=col.validity.to(torch.uint8))]
+        return [offs_wire(col), *children, *tail]
+
+    def hist_create(c):
+        h = HI.create_histogram_if_valid(c[0], c[1], True)
+        return list_parts(h, h.children[0].children)
+
+    def hist_pct(c):
+        h = Column.list_of(Column.struct_of([c[1], c[2]]),
+                           c[0].data.to(torch.int32))
+        p = HI.percentile_from_histogram(h, pcts["percentages"], True)
+        return list_parts(p, p.children)
+
+    def interleave(c):
+        z = interleave_bits(c)
+        return [offs_wire(z), z.children[0]]
 
     def put(col):
         return BF.bloom_filter_put(BF.bloom_filter_create(3, 1 << 14, dev),
@@ -3729,6 +3854,10 @@ def bridge_cases(dev, n, seed):
     rows_offs = ("int64", int(rc.offsets.shape[0]), rc.offsets.cpu().numpy()
                  .astype(np.int64).tobytes(), None, None)
     w["rows_blob"], w["rows_offs"] = col_to_wire(rows_blob), rows_offs
+    hist = hist_create([wire_to_col(w["f64"], dev),
+                        wire_to_col(w["freq"], dev)])
+    w["hist_offs"], w["hist_vals"], w["hist_freqs"] = [
+        x if isinstance(x, tuple) else col_to_wire(x) for x in hist]
     kolkata = TZ.make_transition_table(
         [[(TZ.INT64_MIN, TZ.INT64_MIN, KOLKATA_LMT)] + KOLKATA],
         ["Asia/Kolkata"])
@@ -3788,6 +3917,11 @@ def bridge_cases(dev, n, seed):
                                                      "rows_offs"], from_rows),
         ("zorder.hilbert", {"num_bits": 12}, ["h32", "h32b"],
          lambda c: [hilbert_index(12, c)]),
+        ("zorder.interleave", {}, ["h32", "h32b"], interleave),
+        ("histogram.create", {"as_lists": True}, ["f64", "freq"],
+         hist_create),
+        ("histogram.percentile", pcts, ["hist_offs", "hist_vals",
+                                        "hist_freqs"], hist_pct),
         ("datetime.rebase", {"direction": "gregorian_to_julian"}, ["days"],
          lambda c: [DR.rebase_gregorian_to_julian(c[0])]),
         ("tz.to_utc", {"zone": "Asia/Kolkata"}, ["micros"],
@@ -3799,9 +3933,9 @@ def bridge_cases(dev, n, seed):
 
 
 def bridge_checks(dev, n):
-    """13g: each of the 26 ops through ``bridge.call`` on ``dev`` equal,
+    """13g: each of the 29 ops through ``bridge.call`` on ``dev`` equal,
     wire byte for wire byte and meta JSON, to the op called directly;
-    each op's wall ms through the bridge; the 5 ops the port does not run
+    each op's wall ms through the bridge; the 2 ops the port does not run
     raise NotImplementedError naming their ROADMAP item."""
     from spark_rapids_jni_tpu_torch import bridge
     from spark_rapids_jni_tpu_torch.columnar.interop import (col_to_wire,
@@ -3841,7 +3975,7 @@ def casts_phase(dev, card, rows, arrays=None, q1_want=None):
     (13d, B1); reads the counts; then checks every 60M-row cast exactly,
     q1 against numpy and the round trip on every row, the card against
     the CPU on 1M-row prefixes (13e), an ANSI error's row (13f) and the
-    bridge's 26 ops against direct calls (13g); then times each cast at
+    bridge's 29 ops against direct calls (13g); then times each cast at
     60M rows (first, warm, bound, launches, idle share, peak memory), the
     price cast over a column with one string in 100 of 256 characters
     (13h), and the bridge's murmur3 split into marshalling and B1 (13i).
@@ -4018,11 +4152,11 @@ def casts_phase(dev, card, rows, arrays=None, q1_want=None):
     except CS.CastException as e:
         checks["ansi_raises_on_its_row"] = (
             e.row_number == row and e.string_with_error.startswith("x"))
-    # 13g: the bridge's 26 ops against direct calls, the 5 others raise
+    # 13g: the bridge's 29 ops against direct calls, the 2 others raise
     same, raised, bridge_ms, ops = bridge_checks(dev, n1)
-    checks["bridge_26_ops_equal_direct_calls"] = (
-        len(same) == 26 and all(same.values()))
-    checks["bridge_5_unported_ops_raise_their_item"] = all(raised.values())
+    checks["bridge_29_ops_equal_direct_calls"] = (
+        len(same) == BRIDGE_OPS and all(same.values()))
+    checks["bridge_2_unported_ops_raise_their_item"] = all(raised.values())
     checks["bridge_has_31_ops"] = len(ops) == 31
     lap("checks_bridge")
     jline({"phase": "casts_sf10", "part": "checks", **card, "rows": rows,
@@ -4136,6 +4270,591 @@ def _time_cast(card, name, fn, rows, nbytes, first_ms, peak_gb, warm,
            **(cast_profile(fn) if profiled else {}), **(extra or {})})
 
 
+# ---- phase 14: nested columns ---------------------------------------------
+NESTED_CUTOFF = 1200        # 14d: orders with o_orderdate before this day
+NESTED_PCTS = [0.25, 0.5, 0.75]
+NESTED_WARM = 5             # warm calls a timed step's median is taken of
+NESTED_READ_WARM = 1        # warm reads (the first under the profiler)
+SKEW_EVERY, SKEW_LEN = 10_000, 4096   # 14c's skewed copy
+WIDE_UNITS = 70             # the 64-unit repair's schema width
+BRIDGE_ROWS = 1_000_000     # 14g
+Z_CHECK_EVERY = 8           # 14f: numpy checks every 8th of the 60M rows
+
+
+def nested_orders_arrays(rows, dev):
+    """Phase 14's orders: SF10's lineitem draws (tpch.q3_arrays, and
+    l_quantity of tpch.q1_arrays) stably sorted on l_orderkey on ``dev``
+    and grouped into the rows / 4 orders, with the seeded nulls TPC-H
+    lacks (1% of o_lines rows, 1% of l_quantity elements, 1% of o_key
+    rows). Host numpy arrays: per order ``offsets`` (rows + 1),
+    ``o_custkey``, ``o_orderdate``, ``lines_valid``, ``key_valid``; per
+    lineitem, in order, ``l_linekey`` (l_orderkey x 64 + its line
+    number), ``l_quantity`` (int32), ``q_valid``, ``l_extendedprice``,
+    ``l_shipdate``, ``l_discount``."""
+    from spark_rapids_jni_tpu_torch import tpch
+    a = tpch.q3_arrays(rows, 0)
+    q = tpch.q1_arrays(rows, 0)["l_quantity"]
+    nord = a["o_orderkey"].shape[0]
+    key = torch.from_numpy(a["l_orderkey"]).to(dev)
+    perm = torch.sort(key, stable=True).indices
+    key = key.index_select(0, perm)
+    counts = torch.bincount(key, minlength=nord)
+    offsets = torch.zeros(nord + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    line = torch.arange(rows, device=dev) - offsets.index_select(0, key)
+    out = {"offsets": offsets, "l_linekey": key * 64 + line}
+    for name, arr in (("l_quantity", q.astype(np.int32)),
+                      ("l_extendedprice", a["l_extendedprice"]),
+                      ("l_shipdate", a["l_shipdate"]),
+                      ("l_discount", a["l_discount"])):
+        out[name] = torch.from_numpy(arr).to(dev).index_select(0, perm)
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    rng = np.random.default_rng(14)
+    out.update(o_custkey=a["o_custkey"], o_orderdate=a["o_orderdate"],
+               lines_valid=rng.random(nord) >= 0.01,
+               q_valid=rng.random(rows) >= 0.01,
+               key_valid=rng.random(nord) >= 0.01)
+    return out
+
+
+def nested_orders_columns(o):
+    """The writer's columns of phase 14's orders table."""
+    from spark_rapids_jni_tpu_torch.utils import datagen_parquet as W
+    nord = o["o_custkey"].shape[0]
+    return [
+        W.ParquetColumn("o_orderkey", values=np.arange(nord,
+                                                       dtype=np.int64)),
+        W.StructField("o_key", [
+            W.ParquetColumn("o_custkey", values=o["o_custkey"]),
+            W.ParquetColumn("o_orderdate", values=o["o_orderdate"],
+                            converted=W.DATE)], valid=o["key_valid"]),
+        W.ListField("o_linekeys", o["offsets"],
+                    W.ParquetColumn("l_linekey", values=o["l_linekey"])),
+        W.ListField("o_lines", o["offsets"], W.StructField("line", [
+            W.ParquetColumn("l_quantity", values=o["l_quantity"],
+                            valid=o["q_valid"]),
+            W.ParquetColumn("l_extendedprice", values=o["l_extendedprice"]),
+            W.ParquetColumn("l_shipdate", values=o["l_shipdate"],
+                            converted=W.DATE)]), valid=o["lines_valid"]),
+    ]
+
+
+def numpy_interleave3(cols):
+    """Z-order bytes of three int32 arrays, column 0 most significant, by
+    numpy's unpackbits (independent of the port)."""
+    be = np.stack([c.astype(">i4").view(np.uint8).reshape(-1, 4)
+                   for c in cols], axis=1)             # [n, 3, 4]
+    bits = np.unpackbits(be, axis=2)                   # [n, 3, 32]
+    return np.packbits(bits.transpose(0, 2, 1).reshape(len(cols[0]), -1),
+                       axis=1)                         # [n, 12]
+
+
+def numpy_list_percentiles(offsets, values, valid, pcts):
+    """Per row, numpy's linear percentile of its valid values (NaN for a
+    row with none; the values small non-negative ints): the items at
+    floor and ceil of p x (k - 1) of the row's sorted values,
+    interpolated. The rows' values sort as one key, row x 64 + value,
+    which the rows' order leaves nearly sorted (a stable sort's runs)."""
+    n = offsets.shape[0] - 1
+    lens = np.diff(offsets)
+    row = np.repeat(np.arange(n, dtype=np.int64), lens)[valid]
+    v = values[valid].astype(np.int64)
+    assert v.size == 0 or (v.min() >= 0 and v.max() < 64)
+    key = np.sort(row * 64 + v, kind="stable")
+    v, row = key & 63, key >> 6
+    k = np.bincount(row, minlength=n)
+    start = np.concatenate([[0], np.cumsum(k)[:-1]])
+    out = np.full((n, len(pcts)), np.nan)
+    has = k > 0
+    for j, p in enumerate(pcts):
+        pos = p * (k[has] - 1)
+        lo, hi = np.floor(pos), np.ceil(pos)
+        vlo = v[start[has] + lo.astype(np.int64)].astype(np.float64)
+        vhi = v[start[has] + hi.astype(np.int64)].astype(np.float64)
+        out[has, j] = vlo + (vhi - vlo) * (pos - lo)
+    return out, has
+
+
+def nested_phase(dev, card, rows):
+    """Phase 14 (``nested_sf10``): nested columns at SF10. Writes the
+    orders table of ``nested_orders_arrays`` (o_orderkey, the STRUCT key
+    o_key, LIST<INT64> o_linekeys, LIST<STRUCT> o_lines) with the port's
+    writer; with the launch counts set to 0 reads it through
+    ParquetReader in several chunks (14a), hashes o_key (14b: Spark's
+    HashPartitioning on a struct, B1) and o_linekeys (14c: B1's LIST
+    entry), sorts the orders on o_orderdate and filters them to a cutoff
+    carrying o_lines (14d), takes percentiles of each order's quantities
+    and a histogram of the 60M quantities (14e), interleaves three
+    lineitem columns (14f) and calls the three ops through the bridge
+    (14g); reads the counts; then checks each step against the draws and
+    numpy, B1 against its plain version (also on a skewed copy and at 70
+    units, the 64-unit repair), the card against the CPU on 1M-row
+    prefixes, and times each step. Returns the launches of the counted
+    run."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="nested_sf10_")
+    try:
+        return _nested_phase(dev, card, rows, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _nested_phase(dev, card, rows, tmp):
+    import os
+    from spark_rapids_jni_tpu_torch import bridge
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.interop import col_to_wire
+    from spark_rapids_jni_tpu_torch.columnar.table_ops import (
+        concat_tables, filter_table)
+    from spark_rapids_jni_tpu_torch.ops import hashing as H
+    from spark_rapids_jni_tpu_torch.ops import histogram as HI
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.ops.sort import sort_table
+    from spark_rapids_jni_tpu_torch.ops.zorder import interleave_bits
+    from spark_rapids_jni_tpu_torch.parquet.reader import ParquetReader
+    from spark_rapids_jni_tpu_torch.utils import datagen_parquet as W
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    secs, t_part = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = now - t_part[0]
+        t_part[0] = now
+
+    o = nested_orders_arrays(rows, dev)
+    nord = o["o_custkey"].shape[0]
+    lap("generate")
+    path = os.path.join(tmp, "orders.parquet")
+    # parquet-mr's row groups (128 MiB) at SF10; four at a rehearsal's
+    # few rows, so that the read still takes several chunks
+    info = W.write_parquet(path, nested_orders_columns(o),
+                           row_group_rows=None if rows >= 10_000_000
+                           else -(-nord // 4))
+    lap("write")
+    jline({"phase": "nested_sf10", "part": "file", **card, "orders": nord,
+           "lineitems": rows, "bytes": info["bytes"],
+           "row_groups": len(info["row_groups"]),
+           "empty_orders": int((np.diff(o["offsets"]) == 0).sum()),
+           "longest_order": int(np.diff(o["offsets"]).max()),
+           "null_rows": {"o_lines": int((~o["lines_valid"]).sum()),
+                         "o_key": int((~o["key_valid"]).sum()),
+                         "l_quantity": int((~o["q_valid"]).sum())},
+           "encodings": info["encodings"], "write_s": secs["write"]})
+    budget = info["bytes"] // 3 + 1   # three or more chunks
+
+    def read(timings=None):
+        with ParquetReader(path, device=dev, timings=timings) as r:
+            chunks = list(r.iter_chunks(byte_budget=budget))
+            return concat_tables(chunks), len(chunks), r.routes
+
+    def hash_key(t):
+        return H.murmur_hash3_32([t[1]])
+
+    def hash_lines(t):
+        return H.murmur_hash3_32([t[2]])
+
+    def sort_filter(t):
+        od = t[1].children[1]
+        s = sort_table(Table((t[0], od, t[3])), [1])
+        keep = s[1].valid_mask() & (s[1].data < NESTED_CUTOFF)
+        return filter_table(s, keep)
+
+    def histograms(t):
+        lines = t[3]
+        q = lines.children[0].children[0]
+        freq = Column(dt.INT64, q.size, data=q.valid_mask().to(torch.int64))
+        vals = Column(q.dtype, q.size, data=q.data)
+        return Column.list_of(Column.struct_of([vals, freq]), lines.offsets,
+                              lines.validity)
+
+    def percentiles(t):
+        return HI.percentile_from_histogram(histograms(t), NESTED_PCTS,
+                                            True)
+
+    qty_col = Column(dt.INT32, rows, data=torch.from_numpy(
+        o["l_quantity"]).to(dev), validity=torch.from_numpy(
+        o["q_valid"]).to(dev))
+    ones = Column(dt.INT64, rows, data=torch.ones(rows, dtype=torch.int64,
+                                                  device=dev))
+    z_cols = [Column(dt.INT32, rows, data=torch.from_numpy(
+        np.ascontiguousarray(o[k])).to(dev))
+        for k in ("l_quantity", "l_shipdate", "l_discount")]
+    n_b = min(BRIDGE_ROWS, rows)
+    b_vals = Column(dt.INT32, n_b, data=qty_col.data[:n_b].clone(),
+                    validity=qty_col.validity[:n_b].clone())
+    b_freq = Column(dt.INT64, n_b, data=torch.from_numpy(
+        np.random.default_rng(15).integers(0, 4, n_b)).to(dev))
+    b_wires = [col_to_wire(b_vals), col_to_wire(b_freq)]
+    z_wires = [col_to_wire(Column(dt.INT32, n_b, data=c.data[:n_b].clone()))
+               for c in z_cols]
+    _sync(dev)
+    lap("inputs")
+
+    # ---- the counted run --------------------------------------------------
+    K.reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    first, out = {}, {}
+    tm_first = {}
+    (t, n_chunks, routes), first["read"] = wall(lambda: read(tm_first), dev)
+    b1_steps = {}   # B1's launches in each step of this run
+    for name, fn in (("hash_o_key", hash_key),
+                     ("hash_o_linekeys", hash_lines),
+                     ("sort_filter", sort_filter),
+                     ("percentiles", percentiles)):
+        b1_before = K.murmur3_fixed_rows.launches
+        out[name], first[name] = wall(lambda fn=fn: fn(t), dev)
+        b1_steps[name] = K.murmur3_fixed_rows.launches - b1_before
+    out["create_histogram"], first["create_histogram"] = wall(
+        lambda: HI.create_histogram_if_valid(qty_col, ones, True), dev)
+    out["interleave"], first["interleave"] = wall(
+        lambda: interleave_bits(z_cols), dev)
+    bridge_out = {}
+    for name, op, args, wires in (
+            ("histogram.create", "histogram.create", {"as_lists": True},
+             b_wires),
+            ("zorder.interleave", "zorder.interleave", {}, z_wires)):
+        bridge_out[name], first[f"bridge_{name}"] = wall(
+            lambda op=op, args=args, wires=wires: bridge.call(
+                op, json.dumps(args), wires, device=dev), dev)
+    pct_args = {"percentages": NESTED_PCTS, "as_list": True}
+    bridge_out["histogram.percentile"], first[
+        "bridge_histogram.percentile"] = wall(lambda: bridge.call(
+            "histogram.percentile", json.dumps(pct_args),
+            bridge_out["histogram.create"][0][:3], device=dev), dev)
+    launches = {w: getattr(K, w).launches for _, w, _, _ in K.KERNELS}
+    peak = ((torch.cuda.max_memory_allocated() - base) / 1e9
+            if cuda else None)
+    lap("counted_run")
+    if cuda and (launches["murmur3_fixed_rows"] != 2
+                 or b1_steps["hash_o_key"] != 1
+                 or b1_steps["hash_o_linekeys"] != 1):
+        raise AssertionError(f"phase 14's path launched B1 "
+                             f"{launches['murmur3_fixed_rows']} times "
+                             f"({b1_steps}), not once in 14b and once in "
+                             f"14c")
+
+    # ---- checks -----------------------------------------------------------
+    checks = {}
+    dev_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    lens = np.diff(o["offsets"])
+    checks["read_in_chunks"] = n_chunks >= 2
+    checks["routes"] = not cuda or (
+        routes["o_linekeys"]["tier"] == "device"
+                        and routes["o_orderkey"]["tier"] == "device"
+        and all(routes[f"o_key.{f}"]["tier"] == "host"
+                for f in ("o_custkey", "o_orderdate")))
+    ok_col, key, linekeys, lines = t.columns
+    checks["o_orderkey"] = bool(torch.equal(ok_col.data, torch.arange(
+        nord, device=dev)))
+    kv = dev_t(o["key_valid"])
+    cust, od = key.children
+    checks["o_key"] = (bool(torch.equal(key.valid_mask(), kv))
+                       and all(bool(torch.equal(c.valid_mask(), kv))
+                               for c in key.children)
+                       and bool(torch.equal(cust.data[kv],
+                                            dev_t(o["o_custkey"])[kv]))
+                       and bool(torch.equal(od.data[kv],
+                                            dev_t(o["o_orderdate"])[kv])))
+    checks["o_linekeys"] = (
+        bool(torch.equal(linekeys.offsets, dev_t(o["offsets"]).to(
+            torch.int32)))
+        and bool(linekeys.valid_mask().all())
+        and bool(torch.equal(linekeys.children[0].data,
+                             dev_t(o["l_linekey"]))))
+    lv = o["lines_valid"]
+    keep_el = np.repeat(lv, lens)
+    want_offs = np.zeros(nord + 1, np.int64)
+    np.cumsum(np.where(lv, lens, 0), out=want_offs[1:])
+    q, price, ship = lines.children[0].children
+    qv = o["q_valid"][keep_el]
+    checks["o_lines"] = (
+        bool(torch.equal(lines.valid_mask(), dev_t(lv)))
+        and bool(torch.equal(lines.offsets, dev_t(want_offs).to(
+            torch.int32)))
+        and bool(torch.equal(q.valid_mask(), dev_t(qv)))
+        and bool(torch.equal(q.data[dev_t(qv)],
+                             dev_t(o["l_quantity"][keep_el][qv])))
+        and bool(torch.equal(price.data, dev_t(o["l_extendedprice"]
+                                               [keep_el])))
+        and bool(torch.equal(ship.data, dev_t(o["l_shipdate"][keep_el]))))
+    lap("check_read")
+
+    # 14b: the struct key, B1 against its plain version and against the
+    # flattened fields with the parent's nulls laid over
+    kmask = key.valid_mask()
+    schema_key = [("u64", cust.data, kmask & cust.valid_mask()),
+                  ("u32", od.data, kmask & od.valid_mask())]
+    plain_key = K.murmur3_fixed_rows_plain(schema_key, 42, nord)
+    flat = H.murmur_hash3_32([
+        Column(dt.INT64, nord, data=cust.data,
+               validity=kmask & cust.valid_mask()),
+        Column(dt.INT32, nord, data=od.data,
+               validity=kmask & od.valid_mask())])
+    checks["hash_o_key_equals_plain"] = bool(torch.equal(
+        out["hash_o_key"].data, plain_key))
+    checks["hash_o_key_equals_flattened"] = bool(torch.equal(
+        out["hash_o_key"].data, flat.data))
+    # 14c: B1's LIST entry, and the skewed copy
+    lk = linekeys.children[0]
+    starts, ends = linekeys.offsets[:-1], linekeys.offsets[1:]
+    schema_list = [("list", (starts, ends, "u64", lk.data, None), None)]
+    checks["hash_o_linekeys_equals_plain"] = bool(torch.equal(
+        out["hash_o_linekeys"].data,
+        K.murmur3_fixed_rows_plain(schema_list, 42, nord)))
+    skew_lens = torch.from_numpy(lens.copy()).to(dev)
+    skew_lens[::SKEW_EVERY] = SKEW_LEN
+    skew_offs = torch.zeros(nord + 1, dtype=torch.int32, device=dev)
+    torch.cumsum(skew_lens, 0, dtype=torch.int32, out=skew_offs[1:])
+    gen = torch.Generator(device=dev).manual_seed(16)
+    skew_leaf = torch.randint(-(1 << 62), 1 << 62, (int(skew_offs[-1]),),
+                              generator=gen, device=dev)
+    schema_skew = [("list", (skew_offs[:-1], skew_offs[1:], "u64",
+                             skew_leaf, None), None)]
+    skew_hash = K.murmur3_fixed_rows(schema_skew, 42, nord)
+    checks["hash_skewed_equals_plain"] = bool(torch.equal(
+        skew_hash, K.murmur3_fixed_rows_plain(schema_skew, 42, nord)))
+    # the 64-unit repair: 70 INT32 units, on 1M rows
+    n1 = min(rows, 1_000_000)
+    wide = [("u32", torch.randint(-1000, 1000, (n1,), generator=gen,
+                                  device=dev, dtype=torch.int32),
+             torch.rand(n1, generator=gen, device=dev) > 0.1)
+            for _ in range(WIDE_UNITS)]
+    before = (K.murmur3_fixed_rows.launches, K.xxhash64_fixed_rows.launches)
+    checks["b1_70_units_equals_plain"] = bool(torch.equal(
+        K.murmur3_fixed_rows(wide, 42, n1),
+        K.murmur3_fixed_rows_plain(wide, 42, n1)))
+    checks["b2_70_units_equals_plain"] = bool(torch.equal(
+        K.xxhash64_fixed_rows(wide, 42, n1),
+        K.xxhash64_fixed_rows_plain(wide, 42, n1)))
+    wide_launches = (K.murmur3_fixed_rows.launches - before[0],
+                     K.xxhash64_fixed_rows.launches - before[1])
+    if cuda:
+        checks["wide_launches_2_each"] = wide_launches == (2, 2)
+    lap("check_hashes")
+
+    # 14d: numpy's stable sort on (null first, o_orderdate), then the cutoff
+    odv = np.where(o["key_valid"], o["o_orderdate"], -1)
+    order = np.argsort((odv + 1).astype(np.int16), kind="stable")
+    rows_d = order[(odv[order] >= 0) & (odv[order] < NESTED_CUTOFF)]
+    sf = out["sort_filter"]
+    got_lens = np.diff(sf[2].offsets.cpu().numpy())
+    want_lens = np.where(lv, lens, 0)[rows_d]
+    el_first = want_offs[:-1][rows_d]
+    el_idx = np.repeat(el_first - np.concatenate([[0], np.cumsum(
+        want_lens)[:-1]]), want_lens) + np.arange(int(want_lens.sum()))
+    checks["sort_filter_equals_numpy"] = (
+        np.array_equal(sf[0].data.cpu().numpy(), rows_d)
+        and np.array_equal(got_lens, want_lens)
+        and np.array_equal(sf[2].validity.cpu().numpy() if sf[2].validity
+                           is not None else np.ones(len(rows_d), bool),
+                           lv[rows_d])
+        and np.array_equal(
+            sf[2].children[0].children[1].data.cpu().numpy(),
+            o["l_extendedprice"][keep_el][el_idx]))
+    # 14e: the percentiles against numpy's, the histogram of 60M
+    pct = out["percentiles"]
+    want_pct, has = numpy_list_percentiles(
+        want_offs, o["l_quantity"][keep_el], qv, NESTED_PCTS)
+    has &= lv
+    got_valid = pct.validity.cpu().numpy()
+    got_vals = pct.children[0].data.cpu().numpy().reshape(-1,
+                                                          len(NESTED_PCTS))
+    checks["percentiles_equal_numpy"] = (
+        np.array_equal(got_valid, has)
+        and np.array_equal(got_vals, want_pct[has]))
+    ch = out["create_histogram"]
+    qvalid_all = o["q_valid"]
+    checks["create_histogram_60m"] = (
+        np.array_equal(np.diff(ch.offsets.cpu().numpy()),
+                       qvalid_all.astype(np.int32))
+        and np.array_equal(ch.children[0].children[0].data.cpu().numpy(),
+                           o["l_quantity"][qvalid_all]))
+    # the card against the CPU at 1M prefixes, on values where a fused
+    # multiply-add rounds apart from a multiply then an add
+    rng = np.random.default_rng(17)
+    n_f = min(nord, 1_000_000)
+    f_lens = rng.integers(1, 8, n_f)
+    f_offs = np.concatenate([[0], np.cumsum(f_lens)]).astype(np.int32)
+    f_vals = rng.standard_normal(int(f_offs[-1])) * 1e3
+    f_freq = rng.integers(1, 6, int(f_offs[-1]))
+    f_pcts = [0.1, 0.3, 0.5, 0.7, 0.9]
+
+    def f_hist(d):
+        return Column.list_of(Column.struct_of([
+            Column.from_numpy(f_vals, dt.FLOAT64, device=d),
+            Column.from_numpy(f_freq, dt.INT64, device=d)]),
+            torch.from_numpy(f_offs).to(d))
+
+    f_card = HI.percentile_from_histogram(f_hist(dev), f_pcts, False)
+    f_cpu = HI.percentile_from_histogram(f_hist(cpu), f_pcts, False)
+    checks["percentile_card_equals_cpu_1m"] = bool(torch.equal(
+        f_card.data.cpu().view(torch.int64), f_cpu.data.view(torch.int64)))
+    # 14f: against numpy's bit interleave, on every Z_CHECK_EVERY-th row
+    # of the 60M (and every row of a rehearsal's few)
+    step = Z_CHECK_EVERY if rows >= 10_000_000 else 1
+    z = out["interleave"].children[0].data.view(-1, 12)[::step]
+    zc = [o[k][::step] for k in ("l_quantity", "l_shipdate", "l_discount")]
+    checks["interleave_equals_numpy"] = np.array_equal(
+        z.cpu().numpy(), numpy_interleave3(zc))
+    # 14g: the bridge's three ops == the direct calls
+    direct_h = HI.create_histogram_if_valid(b_vals, b_freq, True)
+    hw = bridge_out["histogram.create"][0]
+    checks["bridge_histogram_create"] = (
+        hw[0][2] == direct_h.offsets.cpu().numpy().astype(np.int64)
+        .tobytes()
+        and hw[1] == col_to_wire(direct_h.children[0].children[0])
+        and hw[2] == col_to_wire(direct_h.children[0].children[1]))
+    direct_p = HI.percentile_from_histogram(direct_h, NESTED_PCTS, True)
+    pw = bridge_out["histogram.percentile"][0]
+    checks["bridge_histogram_percentile"] = (
+        pw[0][2] == direct_p.offsets.cpu().numpy().astype(np.int64)
+        .tobytes() and pw[1] == col_to_wire(direct_p.children[0]))
+    direct_z = interleave_bits([Column(dt.INT32, n_b, data=c.data[:n_b])
+                                for c in z_cols])
+    zw = bridge_out["zorder.interleave"][0]
+    checks["bridge_zorder_interleave"] = (
+        zw[1] == col_to_wire(direct_z.children[0]))
+    lap("check_rest")
+    jline({"phase": "nested_sf10", "part": "checks", **card,
+           "checks": checks, "launches": launches,
+           "b1_launches_by_step": b1_steps,
+           "wide_launches": wide_launches, "peak_memory_gb": peak,
+           "read_chunks": n_chunks, "routes": routes,
+           "first_read_split_ms": tm_first})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 14 checks failed: {failed}")
+
+    # ---- times ------------------------------------------------------------
+    if cuda:
+        reads = []
+        for i in range(NESTED_READ_WARM):
+            tm = {}
+            if i == 0:
+                prof = _read_profile(lambda: read(tm))
+            else:
+                reads.append(wall(lambda: read(tm), dev)[1])
+            jline({"phase": "nested_sf10", "part": "read_time", **card,
+                   "first_ms": first["read"], "read": i, "split_ms": tm,
+                   **({"profile": prof} if i == 0 else {"wall_ms":
+                                                        reads[-1]})})
+        steps = [("hash_o_key", lambda: hash_key(t),
+                  _b1_bytes(schema_key, nord)),
+                 ("hash_o_linekeys", lambda: hash_lines(t),
+                  _b1_bytes(schema_list, nord)),
+                 ("sort_filter", lambda: sort_filter(t), None),
+                 ("percentiles", lambda: percentiles(t), None),
+                 ("create_histogram", lambda: HI.create_histogram_if_valid(
+                     qty_col, ones, True), None),
+                 ("interleave", lambda: interleave_bits(z_cols),
+                  12 * rows + 12 * rows + 4 * (rows + 1))]
+        for name, fn, nbytes in steps:
+            _nested_time(card, name, fn, first[name], nbytes)
+        # each case with its launches in the counted run (the skewed
+        # copy is not on the path)
+        b1_lines = [("STRUCT key (15M)", schema_key, b1_steps["hash_o_key"]),
+                    ("LIST<INT64> (15M rows, ~60M elements)", schema_list,
+                     b1_steps["hash_o_linekeys"]),
+                    ("LIST, skewed", schema_skew, None)]
+        # one profiler session a case: a session that misses a launch
+        # reads None for its case alone
+        kms = [kernel_ms([(lambda s=s: K.murmur3_fixed_rows(s, 42, nord),
+                           "murmur3_rows_kernel")], reps=5)[0]
+               for _, s, _ in b1_lines]
+        for (case, schema, on_path), km in zip(b1_lines, kms):
+            nbytes = _b1_bytes(schema, nord)
+            b1_before = K.murmur3_fixed_rows.launches
+            ms = cuda_ms(lambda s=schema: K.murmur3_fixed_rows(s, 42, nord),
+                         reps=5, warm=1)
+            per_call = (K.murmur3_fixed_rows.launches - b1_before) / 6
+            plain = cuda_ms(lambda s=schema: K.murmur3_fixed_rows_plain(
+                s, 42, nord), reps=1, warm=0)
+            b_ms, b_by = bound_ms(nbytes, 0)
+            jline({"phase": "nested_sf10", "part": "b1_time", **card,
+                   "case": case, "rows": nord,
+                   "elements": None if schema[0][0] != "list" else
+                   int(schema[0][1][3].numel()),
+                   "launches": on_path, "launches_per_timed_call": per_call,
+                   "ms": ms, **profiler_fields(km, ms),
+                   "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_share": b_ms / ms, "bytes": nbytes,
+                   "library_ms": None})
+        for name, op, args, wires in (
+                ("histogram.create", "histogram.create",
+                 {"as_lists": True}, b_wires),
+                ("histogram.percentile", "histogram.percentile", pct_args,
+                 bridge_out["histogram.create"][0][:3]),
+                ("zorder.interleave", "zorder.interleave", {}, z_wires)):
+            walls = sorted(wall(lambda: bridge.call(
+                op, json.dumps(args), wires, device=dev), dev)[1]
+                for _ in range(3))
+            jline({"phase": "nested_sf10", "part": "bridge_time", **card,
+                   "op": name, "rows": n_b,
+                   "first_ms": first[f"bridge_{name}"],
+                   "warm_ms": walls[1]})
+        lap("times")
+    jline({"phase": "nested_sf10", "part": "seconds", **card, **secs})
+    return launches
+
+
+def _b1_bytes(schema, n):
+    """Bytes B1 must move for a schema: each entry's words (a LIST's row
+    starts and ends and its leaf's words), validity bytes, the output.
+    Ends that are the starts shifted by one (both views of one offsets
+    tensor) are one read of n + 1 offsets."""
+    total = 4 * n
+    for kind, words, v in schema:
+        if kind == "list":
+            s, e, _, leaf, lvalid = words
+            shared = (e.numel() == s.numel()
+                      and e.data_ptr() == s.data_ptr() + 4)
+            total += (4 * (s.numel() + 1) if shared
+                      else 4 * s.numel() + 4 * e.numel())
+            total += leaf.numel() * leaf.element_size()
+            if lvalid is not None:
+                total += lvalid.numel()
+        else:
+            total += words.numel() * words.element_size()
+        if v is not None:
+            total += v.numel()
+    return total
+
+
+def _nested_time(card, name, fn, first_ms, nbytes):
+    """A phase-14 step: warm median of NESTED_WARM calls by CUDA events,
+    its byte bound where it has one, peak memory and one call under the
+    profiler (launches, idle share)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(NESTED_WARM):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    warm = sorted(times)[len(times) // 2]
+    line = {"phase": "nested_sf10", "part": "step_time", **card,
+            "step": name, "first_ms": first_ms, "warm_ms": warm,
+            "warm_all_ms": times, "peak_memory_gb": peak,
+            **cast_profile(fn)}
+    if nbytes is not None:
+        b_ms, b_by = bound_ms(nbytes, 0)
+        line.update(bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / warm,
+                    bytes=nbytes)
+    jline(line)
+
+
 def numpy_q1(a, cutoff=2400):
     """q1 over the generator's arrays, independent of the port: per
     (returnflag, linestatus) in ascending order, the four int64 sums, the
@@ -4218,4 +4937,4 @@ def numpy_q3(a, cutoff=1200, segment=1, k=10):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

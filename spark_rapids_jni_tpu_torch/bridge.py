@@ -12,10 +12,12 @@ meta_json)``. Nested results are decomposed by each handler into flat
 wire columns (offsets column + children).
 
 The op names, their arguments, their outputs and their meta JSON are the
-JAX package's, all 31 of them. The port runs 26; ``histogram.create``,
-``histogram.percentile`` and ``zorder.interleave`` (LIST results, ROADMAP
-A1) and ``json.get_json_object`` and ``json.from_json_map`` (ROADMAP A13)
-raise ``NotImplementedError`` naming their item. The JAX package's
+JAX package's, all 31 of them. The port runs 29; ``json.get_json_object``
+and ``json.from_json_map`` (ROADMAP A13) raise ``NotImplementedError``
+naming their item. A LIST result or argument crosses decomposed, as in
+the JAX package: its offsets as an INT64 column, then its children's
+columns, then its validity as a BOOL8 column where it has one
+(``_list_parts``). The JAX package's
 sandboxed dispatch of bridge ops (config ``sandbox.bridge_ops``) is not
 ported: the port's config has no such key, and every op runs in process
 (ROADMAP A11b). The C ABI that embeds the bridge
@@ -77,6 +79,17 @@ def call(op_name: str, args_json: str, wire_cols: Sequence[WireCol],
 def _i64_wire(t: torch.Tensor) -> WireCol:
     a = t.cpu().numpy().astype(np.int64)
     return ("int64", int(a.shape[0]), a.tobytes(), None, None)
+
+
+def _list_parts(col: Column):
+    """A LIST column's offsets (an INT64 wire column of n + 1 rows) and
+    its validity as a BOOL8 column, or None; the caller adds the
+    children."""
+    vcol = None
+    if col.validity is not None:
+        vcol = Column(dt.BOOL8, col.size,
+                      data=col.validity.to(torch.uint8))
+    return _i64_wire(col.offsets), vcol
 
 
 def _u8_column(blob: bytes, device) -> Column:
@@ -277,20 +290,51 @@ def _from_rows(args, cols, device):
 
 @op("histogram.create")
 def _hist_create(args, cols, device):
-    """Histogram.createHistogramIfValid (LIST<STRUCT> result)."""
-    raise dt.not_ported("histogram.create (a LIST<STRUCT> result)", "A1")
+    """Histogram.createHistogramIfValid -> (offsets INT64, values, freqs
+    INT64[, validity BOOL8])."""
+    from .ops.histogram import create_histogram_if_valid
+    h = create_histogram_if_valid(cols[0], cols[1],
+                                  bool(args.get("as_lists", True)))
+    offs_w, vcol = _list_parts(h)
+    struct = h.children[0]
+    out = [offs_w, struct.children[0], struct.children[1]]
+    if vcol is not None:
+        out.append(vcol)
+    return out
 
 
 @op("histogram.percentile")
 def _hist_pct(args, cols, device):
-    """Histogram.percentileFromHistogram (LIST<STRUCT> input)."""
-    raise dt.not_ported("histogram.percentile (a LIST<STRUCT> input)", "A1")
+    """Histogram.percentileFromHistogram: (offsets INT64, values, freqs
+    INT64) in; FLOAT64 percentiles out, a decomposed list when
+    ``as_list``."""
+    from .ops.histogram import percentile_from_histogram
+    offsets, values, freqs = cols[:3]
+    hist = Column.list_of(Column.struct_of([values, freqs]),
+                          offsets.data.to(torch.int32))
+    as_list = bool(args.get("as_list", True))
+    out = percentile_from_histogram(
+        hist, [float(p) for p in args["percentages"]], as_list)
+    if not as_list:
+        return [out]
+    offs_w, vcol = _list_parts(out)
+    res = [offs_w, out.children[0]]
+    if vcol is not None:
+        res.append(vcol)
+    return res
 
 
 @op("zorder.interleave")
 def _zorder(args, cols, device):
-    """ZOrder.interleaveBits (LIST<UINT8> result)."""
-    raise dt.not_ported("zorder.interleave (a LIST<UINT8> result)", "A1")
+    """ZOrder.interleaveBits -> (offsets INT64, bytes UINT8). With zero
+    columns (the interleaveBits(numRows) overload) the row count rides
+    ``args["num_rows"]``."""
+    from .ops.zorder import interleave_bits
+    out = interleave_bits(
+        cols, num_rows=int(args["num_rows"]) if "num_rows" in args else None,
+        device=device)
+    offs_w, _ = _list_parts(out)
+    return [offs_w, out.children[0]]
 
 
 @op("zorder.hilbert")

@@ -18,16 +18,20 @@ Fields of a Column:
   validity: ``bool[n]`` mask (True = valid), or None when every row is.
   offsets:  ``int32[n+1]`` row offsets of a STRING or LIST column, else
             None: row i is ``data[offsets[i]:offsets[i+1]]``.
-  children: the child column of a LIST column; the shared dictionary of a
+  children: the child column of a LIST column; the field columns of a
+            STRUCT column (which has no data and no offsets); the shared dictionary of a
             DICT32 column (values, ranks: columnar/dictionary.py); the run
             values and lengths of an RLE column and the reference header
             of a FOR column (columnar/encodings.py). Children are shared
             by reference and never changed in place.
 
 A null STRING row may hold bytes (its offsets say how many); every op
-carries them as they are, as the JAX package does. The only LIST column
-in the port is the LIST<INT8> column of JCUDF rows that
-ops/row_conversion.convert_to_rows returns.
+carries them as they are, as the JAX package does. A null LIST row may
+likewise own elements, and a STRUCT's validity is its own: a null STRUCT
+row keeps its children's values and validity as they are (only the row
+hashes lay the parent's nulls over the children, ops/hashing.py). The
+LIST<INT8> columns of JCUDF rows (ops/row_conversion.convert_to_rows)
+are LIST columns whose child is a view of kernel B3's words.
 
 A column may carry advisory ``ColumnStats`` (``with_stats``/``stats``),
 which the plan engine's planner reads. They are not a field: every derived
@@ -210,9 +214,22 @@ class Column:
     @staticmethod
     def list_of(child: "Column", offsets: torch.Tensor,
                 validity: Optional[torch.Tensor] = None) -> "Column":
+        """LIST column: row i is ``child[offsets[i]:offsets[i+1]]``
+        (``offsets``: n + 1 entries, made int32)."""
         return Column(dt.LIST, int(offsets.shape[0]) - 1, data=None,
                       validity=validity, offsets=offsets.to(torch.int32),
                       children=(child,))
+
+    @staticmethod
+    def struct_of(children: Sequence["Column"],
+                  validity: Optional[torch.Tensor] = None) -> "Column":
+        """STRUCT column of equal-length field columns."""
+        assert children, "struct needs at least one child"
+        n = children[0].size
+        for c in children:
+            assert c.size == n, "struct children must share row count"
+        return Column(dt.STRUCT, n, data=None, validity=validity,
+                      children=tuple(children))
 
     # ---- host readback ----------------------------------------------------
     def host_offsets(self) -> Optional[np.ndarray]:
@@ -236,9 +253,9 @@ class Column:
         if self.dtype.is_encoded:
             raise ValueError("an RLE or FOR column holds no row values: "
                              "decode it (columnar/encodings.materialize)")
-        if not self.dtype.is_stored:
-            raise dt.not_ported(f"to_numpy of {self.dtype.id.value}",
-                                "A1, nested columns")
+        if self.dtype.is_nested:
+            raise ValueError("a LIST or STRUCT column has no flat values: "
+                             "read its offsets and children, or to_pylist()")
         host = self.data.detach().cpu().numpy()
         return host.view(self.dtype.np_dtype)
 
@@ -259,8 +276,12 @@ class Column:
             return materialize(self).to_pylist()
         if self.dtype.id is TypeId.LIST:
             child = self.children[0].to_pylist()
-            offs = self.offsets.cpu().numpy()
+            offs = self.host_offsets()
             return [child[offs[i]:offs[i + 1]] if valid[i] else None
+                    for i in range(self.size)]
+        if self.dtype.id is TypeId.STRUCT:
+            fields = [c.to_pylist() for c in self.children]
+            return [tuple(f[i] for f in fields) if valid[i] else None
                     for i in range(self.size)]
         arr = self.to_numpy()
         if self.dtype.id is TypeId.DECIMAL128:

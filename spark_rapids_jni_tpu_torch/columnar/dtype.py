@@ -3,13 +3,15 @@
 The type ids and their wire names are the JAX package's (a column crosses
 between the two packages as ``(dtype_str, rows, data, offsets, validity)``;
 see columnar/interop.py), so every id is declared here. The port stores
-the fixed-width ids, DECIMAL128, STRING (uint8 characters + int32
-offsets, see columnar/column.py) and the encoded ids DICT32, RLE, FOR32
-and FOR64 (columns with children: columnar/dictionary.py,
-columnar/encodings.py); the others raise ``NotImplementedError`` naming
-the ROADMAP queue item that brings them. ``require_stored`` admits the fixed-width and encoded
-ids: a STRING column raises TypeError there, in every op that reads
-values as fixed-width elements.
+every id: the fixed-width ids, DECIMAL128, STRING (uint8 characters +
+int32 offsets, see columnar/column.py), the encoded ids DICT32, RLE,
+FOR32 and FOR64 (columns with children: columnar/dictionary.py,
+columnar/encodings.py), and the nested ids LIST (int32 offsets + one
+child) and STRUCT (children only). ``require_stored`` admits the
+fixed-width and encoded ids: a STRING column raises TypeError there, and
+a LIST or STRUCT column ``KeyError(type id)``, the error the JAX
+package's ops raise when they look a nested id up in their fixed-width
+tables (a nested sort or groupby key, for one).
 
 Storage (``DType.torch_dtype``): each fixed-width id is held in the torch
 dtype of its byte size and signedness. torch's kernels lack arithmetic and
@@ -89,13 +91,6 @@ _FIXED = {
     TypeId.FOR64: (np.int64, torch.int64),
 }
 
-# where each id the port does not store yet is queued (ROADMAP.md queue A)
-_QUEUED = {
-    TypeId.LIST: "A1, nested columns",
-    TypeId.STRUCT: "A1, nested columns",
-}
-
-
 def not_ported(what: str, item: str) -> NotImplementedError:
     """The error every unported type or option raises, naming its queue
     item in ROADMAP.md."""
@@ -144,16 +139,15 @@ class DType:
         return self.id in _FIXED
 
     def require_stored(self) -> "DType":
-        """self; TypeError for STRING, NotImplementedError naming the
-        queue item that ports a nested type."""
+        """self; TypeError for STRING, KeyError for LIST and STRUCT."""
         self._fixed()
         return self
 
     def _fixed(self):
         if self.id is TypeId.STRING:
             raise TypeError("string columns have no fixed-width elements")
-        if self.id not in _FIXED:
-            raise not_ported(f"{self.id.value} columns", _QUEUED[self.id])
+        if self.id not in _FIXED:  # LIST, STRUCT
+            raise KeyError(self.id)
         return _FIXED[self.id]
 
     @property
@@ -191,6 +185,7 @@ UINT64 = DType(TypeId.UINT64)
 FLOAT32 = DType(TypeId.FLOAT32)
 FLOAT64 = DType(TypeId.FLOAT64)
 LIST = DType(TypeId.LIST)
+STRUCT = DType(TypeId.STRUCT)
 STRING = DType(TypeId.STRING)
 DICT32 = DType(TypeId.DICT32)
 RLE = DType(TypeId.RLE)

@@ -58,8 +58,9 @@ def wire_to_col(w: WireCol, device="cuda") -> Column:
 
 def col_to_wire(col: Column) -> WireCol:
     """Port Column -> wire tuple (fixed-width and STRING types)."""
-    if col.dtype.id is TypeId.LIST:
-        raise ValueError("nested columns must be decomposed by the caller")
+    if col.dtype.is_nested:
+        raise ValueError(
+            "nested columns must be decomposed by the op handler")
     validity = None
     if col.validity is not None:
         validity = col.validity.cpu().numpy().astype(np.uint8).tobytes()

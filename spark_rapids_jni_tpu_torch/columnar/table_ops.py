@@ -1,8 +1,10 @@
-"""Gather, concatenate, slice and filter of tables of fixed-width, STRING
-and encoded columns (the JAX package's columnar/table_ops.py). Every op
-runs on the device of its input. A gather keeps DICT32 codes on their
-dictionary and decodes RLE/FOR (ops/sort.gather); a concat keeps RLE and
-aligned FOR columns encoded and puts DICT32 columns on one dictionary."""
+"""Gather, concatenate, slice and filter of tables of fixed-width, STRING,
+encoded and nested columns (the JAX package's columnar/table_ops.py).
+Every op runs on the device of its input. A gather keeps DICT32 codes on
+their dictionary and decodes RLE/FOR (ops/sort.gather); a concat keeps
+RLE and aligned FOR columns encoded and puts DICT32 columns on one
+dictionary. A LIST concatenates its children and shifts its offsets, a
+STRUCT concatenates field by field."""
 
 from __future__ import annotations
 
@@ -45,11 +47,26 @@ def _concat_validity(cols: Sequence[Column]):
     return torch.cat([c.valid_mask() for c in cols])
 
 
+def _concat_offsets(cols: Sequence[Column], what: str) -> torch.Tensor:
+    """The offsets of STRING or LIST columns one after the other: each
+    column's shifted by the last offsets of the columns before it (one
+    host read of those last offsets, as the JAX package reads them).
+    Raises where the total passes int32 offsets."""
+    ends = torch.stack([c.offsets[-1].to(torch.int64)
+                        for c in cols]).tolist()
+    bases = [0]
+    for e in ends[:-1]:
+        bases.append(bases[-1] + e)
+    if bases[-1] + ends[-1] >= 1 << 31:
+        raise ValueError(f"concatenated {what} column exceeds int32 "
+                         f"offsets")
+    return torch.cat([torch.zeros_like(cols[0].offsets[:1])] + [
+        c.offsets[1:] + b for c, b in zip(cols, bases)])
+
+
 def concat_columns(cols: Sequence[Column]) -> Column:
-    """Equal-type columns, one after the other. STRING characters are
-    concatenated whole and each column's offsets shifted by the last
-    offsets of the columns before it (one host read of those last
-    offsets, as the JAX package reads them)."""
+    """Equal-type columns, one after the other (a STRING or LIST column's
+    offsets by ``_concat_offsets``)."""
     cols = list(cols)
     if not cols:
         raise ValueError("concat of zero columns")
@@ -73,18 +90,18 @@ def concat_columns(cols: Sequence[Column]) -> Column:
     n = sum(c.size for c in cols)
     validity = _concat_validity(cols)
     if d.id is TypeId.STRING:
-        ends = torch.stack([c.offsets[-1].to(torch.int64)
-                            for c in cols]).tolist()
-        bases = [0]
-        for e in ends[:-1]:
-            bases.append(bases[-1] + e)
-        if bases[-1] + ends[-1] >= 1 << 31:
-            raise ValueError("concatenated STRING column exceeds int32 "
-                             "offsets")
-        offsets = torch.cat([torch.zeros_like(cols[0].offsets[:1])] + [
-            c.offsets[1:] + b for c, b in zip(cols, bases)])
         return Column(d, n, data=torch.cat([c.data for c in cols]),
-                      validity=validity, offsets=offsets)
+                      validity=validity,
+                      offsets=_concat_offsets(cols, "STRING"))
+    if d.id is TypeId.LIST:
+        offsets = _concat_offsets(cols, "LIST")
+        child = concat_columns([c.children[0] for c in cols])
+        return Column(d, n, validity=validity, offsets=offsets,
+                      children=(child,))
+    if d.id is TypeId.STRUCT:
+        return Column(d, n, validity=validity, children=tuple(
+            concat_columns([c.children[i] for c in cols])
+            for i in range(len(cols[0].children))))
     if d.id is TypeId.DICT32:
         # co-dictionary columns keep sharing their dictionary; others are
         # re-encoded onto the union of their entries first

@@ -1,5 +1,5 @@
-// B1 and B2: Spark row hashes over fixed-width and STRING columns, for
-// Hopper (sm_90a).
+// B1 and B2: Spark row hashes over fixed-width and STRING columns, and
+// (B1) LIST columns, for Hopper (sm_90a).
 //
 // Replaces, in the JAX package's ops/pallas_kernels.py:
 //   B1 srjt_murmur3_rows  <- build_murmur3_fixed_kernel (:37)
@@ -70,7 +70,26 @@
 // rows of different lengths, whose lanes diverge, adds to it.
 // ops/kernels.py (xxhash64_tile_plan, xxhash64_staged_emulation) mirrors
 // the tile plan and the word reads in Python for the CPU tests. The schema
-// (at most 64 columns) rides in the kernel's parameter space.
+// (at most 64 columns) rides in the kernel's parameter space; a longer
+// schema takes successive launches, each seeded per row by the hashes of
+// the one before (the `seeds` argument: a per-row seed in place of
+// `seed`).
+//
+// B1's LIST entries (kinds kListU32, kListU64, kListStr): Spark's murmur3
+// of a LIST column, which the JAX package hashes in an XLA fori_loop
+// (ops/hashing.py _apply_unit). A row's elements are [starts[i], ends[i])
+// of a flat leaf (the offsets of nested LIST levels composed into one
+// range by the caller); the thread that owns the row runs over them in
+// order, each element's hash the seed of the next, skipping null elements
+// (elem_valid) and the whole row when it is null. The leaf is read as a
+// u32, u64 or string entry, as a flat column of that kind. A row's
+// elements are consecutive, so a warp reads 32 short runs of the leaf; a
+// long row holds its thread while the rest of the warp waits (the chain
+// is serial: each element's hash seeds the next; the skewed case is
+// measured in PERF.md §6, where loading a row's elements in batches of 8
+// ahead of their mixes is measured too: it cost the common case more than
+// it gave the long rows). B2 refuses LIST entries (fill_schema): xxhash64
+// of a nested column is an error.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -79,12 +98,19 @@ namespace {
 
 constexpr int kMaxCols = 64;
 
-enum Kind { kU32 = 0, kU64 = 1, kStr = 2 };
+enum Kind {
+  kU32 = 0, kU64 = 1, kStr = 2,
+  kListU32 = 3, kListU64 = 4, kListStr = 5  // kList + the leaf's kind
+};
+constexpr int kList = kListU32;
 
 struct HashSchema {
   const void* words[kMaxCols];        // u32 or u64 words, or characters
-  const int* offsets[kMaxCols];       // int32[n + 1] of a string column
+  const int* offsets[kMaxCols];       // int32[rows + 1] of a string leaf
   const unsigned char* valid[kMaxCols];  // bool[n] or null (all valid)
+  const int* starts[kMaxCols];        // a list's int32[n] row starts
+  const int* ends[kMaxCols];          // a list's int32[n] row ends
+  const unsigned char* elem_valid[kMaxCols];  // a list leaf's bool or null
   int kind[kMaxCols];                 // Kind
   int ncols;
 };
@@ -149,29 +175,54 @@ __device__ __forceinline__ uint32_t mm_bytes(uint32_t h,
   return mm_fmix(h, (uint32_t)len);
 }
 
-// kStrings: the schema has a string column. The fixed-width kernel is a
-// separate instantiation: the string code's registers would otherwise cut
-// its occupancy (the row hashes are bound by device-memory bytes).
+// Mixes element i of column c, read as `kind` (kU32, kU64 or kStr), into
+// h.
 template <bool kStrings>
+__device__ __forceinline__ uint32_t mm_element(const HashSchema& s, int c,
+                                               int kind, long long i,
+                                               uint32_t h) {
+  if (kind == kU32) {
+    uint32_t k = __ldg(static_cast<const uint32_t*>(s.words[c]) + i);
+    return mm_fmix(mm_block(h, k), 4u);
+  }
+  if (kind == kU64) {
+    uint64_t k = __ldg(static_cast<const unsigned long long*>(s.words[c]) +
+                       i);
+    return mm_fmix(mm_block(mm_block(h, (uint32_t)k), (uint32_t)(k >> 32)),
+                   8u);
+  }
+  if constexpr (kStrings) {
+    int len;
+    const unsigned char* p = str_at(s, c, i, &len);
+    return mm_bytes(h, p, len);
+  }
+  return h;
+}
+
+// kStrings: the schema has a string column or string list leaf; kLists: it
+// has a LIST entry. The fixed-width kernel is a separate instantiation: the
+// string and list code's registers would otherwise cut its occupancy (the
+// row hashes are bound by device-memory bytes).
+template <bool kStrings, bool kLists>
 __global__ void murmur3_rows_kernel(HashSchema s, long long n, uint32_t seed,
+                                    const uint32_t* __restrict__ seeds,
                                     uint32_t* __restrict__ out) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
-    uint32_t h = seed;
+    uint32_t h = seeds == nullptr ? seed : __ldg(seeds + i);
     for (int c = 0; c < s.ncols; ++c) {
       if (!is_valid(s, c, i)) continue;  // a null passes the hash through
-      if (s.kind[c] == kU32) {
-        uint32_t k = __ldg(static_cast<const uint32_t*>(s.words[c]) + i);
-        h = mm_fmix(mm_block(h, k), 4u);
-      } else if (s.kind[c] == kU64) {
-        uint64_t k = __ldg(
-            static_cast<const unsigned long long*>(s.words[c]) + i);
-        h = mm_fmix(mm_block(mm_block(h, (uint32_t)k), (uint32_t)(k >> 32)),
-                    8u);
-      } else if constexpr (kStrings) {
-        int len;
-        const unsigned char* p = str_at(s, c, i, &len);
-        h = mm_bytes(h, p, len);
+      const int kind = s.kind[c];
+      if (kLists && kind >= kList) {
+        const int leaf = kind - kList;
+        const int e = __ldg(s.ends[c] + i);
+        const unsigned char* ev = s.elem_valid[c];
+        for (int k = __ldg(s.starts[c] + i); k < e; ++k) {
+          if (ev != nullptr && __ldg(ev + k) == 0) continue;  // a null
+          h = mm_element<kStrings>(s, c, leaf, k, h);
+        }
+      } else {
+        h = mm_element<kStrings>(s, c, kind, i, h);
       }
     }
     out[i] = h;
@@ -216,10 +267,11 @@ __device__ __forceinline__ uint64_t xx_stripe_lane(uint64_t v, uint64_t k) {
 // The kernel for a fixed-width schema; a schema with a STRING column takes
 // xxhash64_staged_rows_kernel below.
 __global__ void xxhash64_rows_kernel(HashSchema s, long long n, uint64_t seed,
+                                     const uint64_t* __restrict__ seeds,
                                      uint64_t* __restrict__ out) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
-    uint64_t h = seed;
+    uint64_t h = seeds == nullptr ? seed : __ldg(seeds + i);
     for (int c = 0; c < s.ncols; ++c) {
       if (!is_valid(s, c, i)) continue;  // a null passes the hash through
       if (s.kind[c] == kU32) {
@@ -478,6 +530,7 @@ __device__ __forceinline__ void xx_string_tile(const HashSchema& s, int c,
 
 __global__ void __launch_bounds__(kXxWarps * 32, kXxBlocksPerSm)
     xxhash64_staged_rows_kernel(HashSchema s, long long n, uint64_t seed,
+                                const uint64_t* __restrict__ seeds,
                                 uint64_t* __restrict__ out) {
   __shared__ __align__(16) unsigned char stages[kXxWarps][kXxStage + kXxPad];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -488,7 +541,10 @@ __global__ void __launch_bounds__(kXxWarps * 32, kXxBlocksPerSm)
     const int rows = static_cast<int>(min((long long)kXxTile, n - r0));
     uint64_t h[kXxRowsPerLane];
 #pragma unroll
-    for (int k = 0; k < kXxRowsPerLane; ++k) h[k] = seed;
+    for (int k = 0; k < kXxRowsPerLane; ++k) {
+      const int j = 32 * k + lane;
+      h[k] = seeds != nullptr && j < rows ? __ldg(seeds + r0 + j) : seed;
+    }
     for (int c = 0; c < s.ncols; ++c) {
       if (s.kind[c] == kStr) {
         xx_string_tile(s, c, r0, rows, lane, h, stages[warp]);
@@ -518,22 +574,35 @@ int grid_for(long long n, int threads) {
   return (int)(want < cap ? want : cap);
 }
 
-// Fills the schema; false on a bad schema. *strings: it has a string
-// column.
+// Fills the schema; false on a bad schema (a LIST entry where `lists` is
+// false: B2 takes none). *strings: it has a string column or string list
+// leaf; *has_lists: it has a LIST entry.
 bool fill_schema(HashSchema* s, const void* const* words,
                  const void* const* offsets, const int* kinds,
-                 const void* const* valid, int ncols, bool* strings) {
+                 const void* const* valid, const void* const* starts,
+                 const void* const* ends, const void* const* elem_valid,
+                 int ncols, bool lists, bool* strings, bool* has_lists) {
   if (ncols < 0 || ncols > kMaxCols) return false;
   s->ncols = ncols;
   *strings = false;
+  *has_lists = false;
   for (int c = 0; c < ncols; ++c) {
-    *strings = *strings || kinds[c] == kStr;
-    if (kinds[c] < kU32 || kinds[c] > kStr) return false;
-    if (kinds[c] == kStr && offsets[c] == nullptr) return false;
+    const int kind = kinds[c];
+    if (kind < kU32 || kind > (lists ? kListStr : kStr)) return false;
+    const bool is_list = kind >= kList;
+    const int leaf = is_list ? kind - kList : kind;
+    *strings = *strings || leaf == kStr;
+    *has_lists = *has_lists || is_list;
+    if (leaf == kStr && offsets[c] == nullptr) return false;
+    if (is_list && (starts[c] == nullptr || ends[c] == nullptr)) return false;
     s->words[c] = words[c];
     s->offsets[c] = static_cast<const int*>(offsets[c]);
-    s->kind[c] = kinds[c];
+    s->kind[c] = kind;
     s->valid[c] = static_cast<const unsigned char*>(valid[c]);
+    s->starts[c] = is_list ? static_cast<const int*>(starts[c]) : nullptr;
+    s->ends[c] = is_list ? static_cast<const int*>(ends[c]) : nullptr;
+    s->elem_valid[c] =
+        is_list ? static_cast<const unsigned char*>(elem_valid[c]) : nullptr;
   }
   return true;
 }
@@ -546,31 +615,42 @@ const char* srjt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched). `seeds`:
+// uint32[n] per-row seeds in place of `seed`, or null.
 int srjt_murmur3_rows(const void* const* words, const void* const* offsets,
-                      const int* kinds, const void* const* valid, int ncols,
-                      long long n, unsigned int seed, void* out,
+                      const int* kinds, const void* const* valid,
+                      const void* const* starts, const void* const* ends,
+                      const void* const* elem_valid, int ncols, long long n,
+                      unsigned int seed, const void* seeds, void* out,
                       void* stream) {
   HashSchema s;
-  bool strings;
-  if (!fill_schema(&s, words, offsets, kinds, valid, ncols, &strings))
+  bool strings, lists;
+  if (!fill_schema(&s, words, offsets, kinds, valid, starts, ends,
+                   elem_valid, ncols, true, &strings, &lists))
     return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  auto kernel = strings ? murmur3_rows_kernel<true>
-                        : murmur3_rows_kernel<false>;
+  auto kernel = strings ? (lists ? murmur3_rows_kernel<true, true>
+                                 : murmur3_rows_kernel<true, false>)
+                        : (lists ? murmur3_rows_kernel<false, true>
+                                 : murmur3_rows_kernel<false, false>);
   kernel<<<grid_for(n, threads), threads, 0,
            static_cast<cudaStream_t>(stream)>>>(
-      s, n, seed, static_cast<uint32_t*>(out));
+      s, n, seed, static_cast<const uint32_t*>(seeds),
+      static_cast<uint32_t*>(out));
   return (int)cudaGetLastError();
 }
 
+// `seeds`: uint64[n] per-row seeds in place of `seed`, or null.
 int srjt_xxhash64_rows(const void* const* words, const void* const* offsets,
-                       const int* kinds, const void* const* valid, int ncols,
-                       long long n, unsigned long long seed, void* out,
+                       const int* kinds, const void* const* valid,
+                       const void* const* starts, const void* const* ends,
+                       const void* const* elem_valid, int ncols, long long n,
+                       unsigned long long seed, const void* seeds, void* out,
                        void* stream) {
   HashSchema s;
-  bool strings;
-  if (!fill_schema(&s, words, offsets, kinds, valid, ncols, &strings))
+  bool strings, lists;
+  if (!fill_schema(&s, words, offsets, kinds, valid, starts, ends,
+                   elem_valid, ncols, false, &strings, &lists))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (strings) {
@@ -579,11 +659,13 @@ int srjt_xxhash64_rows(const void* const* words, const void* const* offsets,
                                                kXxRowsPerLane,
                                            threads),
                                   threads, 0, st>>>(
-        s, n, seed, static_cast<uint64_t*>(out));
+        s, n, seed, static_cast<const uint64_t*>(seeds),
+        static_cast<uint64_t*>(out));
   } else {
     const int threads = 256;
     xxhash64_rows_kernel<<<grid_for(n, threads), threads, 0, st>>>(
-        s, n, seed, static_cast<uint64_t*>(out));
+        s, n, seed, static_cast<const uint64_t*>(seeds),
+        static_cast<uint64_t*>(out));
   }
   return (int)cudaGetLastError();
 }

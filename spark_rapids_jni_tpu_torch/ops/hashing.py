@@ -1,8 +1,8 @@
-"""Spark row hashes over fixed-width and STRING columns: MurmurHash3_32
-and XXHash64.
+"""Spark row hashes over fixed-width, STRING and nested columns:
+MurmurHash3_32 and XXHash64.
 
-The JAX package's ops/hashing.py for flat columns. Spark's rules, as that
-module reproduces them:
+The JAX package's ops/hashing.py. Spark's rules, as that module
+reproduces them:
 
   * the running hash is chained across columns as the next column's seed,
     and a null element passes it through unchanged;
@@ -16,15 +16,26 @@ module reproduces them:
   * a string hashes its bytes: murmur3 mixes 4-byte little-endian blocks,
     then each tail byte SIGN-EXTENDED as a full block (not standard
     murmur3), then fmix with the length; xxhash64 runs 32-byte stripes,
-    8-, 4- and 1-byte rounds (``_mm_bytes``, ``_xx_bytes``).
+    8-, 4- and 1-byte rounds (``_mm_bytes``, ``_xx_bytes``);
+  * murmur3 of nested columns (Hash.java's flattening, ``_flatten_units``):
+    a STRUCT hashes its fields depth first, each leaf with the STRUCT's
+    validity ANDed over its own; a LIST hashes its leaf elements in order,
+    each element's hash the seed of the next, null elements skipped and a
+    null row passing the running hash through; a LIST<LIST<...>> composes
+    its offsets into one element range per row (``_compose_chain``). A
+    LIST of STRUCT raises ValueError, nesting deeper than
+    ``MAX_STACK_DEPTH`` raises ValueError, and xxhash64 of any nested
+    column raises TypeError.
 
 The per-type normalization (``_fixed_element_words``) runs here in torch;
 the chained mixing of whole rows, strings included, runs in the CUDA
 kernels B1 (murmur3) and B2 (xxhash64) behind ops/kernels.py, whose plain
 versions are built from the mixing functions below (strings over their
 zero-padded bytes, columnar/strings.py). A DECIMAL128 column enters
-them as a "str" entry of its Java bytes. LIST and STRUCT hashing are
-ROADMAP A2.
+them as a "str" entry of its Java bytes, a flattened STRUCT leaf as the
+entry of its type with the combined validity, and a LIST unit as B1's
+"list" entry: each row's [start, end) range over the leaf and the leaf's
+own entry and validity.
 
 torch has no shift, add or compare for uint32/uint64, so these mixing
 functions hold a u32 value in an int64 tensor masked to its low 32 bits,
@@ -35,7 +46,7 @@ CPU and on the card.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -46,6 +57,7 @@ from . import kernels
 
 DEFAULT_MURMUR_SEED = 42  # Hash.java:33
 DEFAULT_XXHASH64_SEED = 42
+MAX_STACK_DEPTH = 8  # Hash.java:28
 
 _M32 = 0xFFFFFFFF
 
@@ -312,8 +324,6 @@ def _fixed_element_words(col_dtype: DType, data: torch.Tensor,
         raise TypeError(f"a {tid.name} column hashes its bytes (the "
                         f"\"str\" schema entry of _hash_rows), not "
                         f"fixed-width words")
-    if tid in (TypeId.LIST, TypeId.STRUCT):
-        raise dt.not_ported(f"{tid.value} hashing", "A2, nested row hashes")
     # DICT32, RLE and FOR: the JAX package's TypeError (a join aligns
     # dictionary codes, and decodes run and packed keys, before hashing)
     raise TypeError(f"unsupported hash element type {col_dtype}")
@@ -361,27 +371,95 @@ def _normalize_input(table: Union[Table, Sequence[Column]]
     return tuple(table)
 
 
+class _HashUnit:
+    """A flattened hashable column: a leaf column, its effective validity
+    (the parents' ANDed over its own) and, for a LIST unit, the offsets of
+    its LIST levels from the outer one in."""
+
+    def __init__(self, col: Column, valid: Optional[torch.Tensor],
+                 list_chain: Sequence[torch.Tensor] = ()):
+        self.col = col
+        self.valid = valid
+        self.list_chain = tuple(list_chain)
+
+
+def _and_valid(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return a & b
+
+
+def _flatten_units(col: Column, parent_valid: Optional[torch.Tensor],
+                   depth: int = 0) -> List[_HashUnit]:
+    if depth > MAX_STACK_DEPTH:
+        raise ValueError("max nesting depth exceeded")
+    eff = _and_valid(parent_valid, col.validity)
+    tid = col.dtype.id
+    if tid is TypeId.STRUCT:
+        units: List[_HashUnit] = []
+        for ch in col.children:
+            units.extend(_flatten_units(ch, eff, depth + 1))
+        return units
+    if tid is TypeId.LIST:
+        chain = [col.offsets]
+        cur = col.children[0]
+        while cur.dtype.id is TypeId.LIST:
+            chain.append(cur.offsets)
+            cur = cur.children[0]
+        if cur.dtype.id is TypeId.STRUCT:
+            raise ValueError(
+                "Cannot compute hash of a table with a LIST of STRUCT "
+                "columns.")
+        return [_HashUnit(cur, eff, chain)]
+    return [_HashUnit(col, eff)]
+
+
+def _compose_chain(chain: Sequence[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int32 [start, end) of each outer row over the innermost leaf."""
+    starts, ends = chain[0][:-1], chain[0][1:]
+    for offs in chain[1:]:
+        starts = offs.index_select(0, starts.to(torch.int64))
+        ends = offs.index_select(0, ends.to(torch.int64))
+    return starts.contiguous(), ends.contiguous()
+
+
+def _leaf_entry(col: Column, for_xx: bool):
+    """(kind, words) of a flat column: "str" for STRING and DECIMAL128
+    bytes, else its fixed-width words."""
+    if col.dtype.id is TypeId.STRING:
+        return "str", (col.offsets, col.data)
+    if col.dtype.id is TypeId.DECIMAL128:
+        return "str", dec128_hash_words(col)
+    return _fixed_element_words(col.dtype, col.data, for_xx)
+
+
 def _hash_rows(columns: Tuple[Column, ...], seed: int, algo: str) -> Column:
-    """Seed-chain ``algo`` ("mm" or "xx") across the columns; the mixing
-    runs in kernel B1 or B2 (ops/kernels.py), one launch for the whole
-    row. Every column is flat here, so each is its own hash unit
-    (STRUCT/LIST flattening is queued with nested hashing and raises in
-    _fixed_element_words)."""
+    """Seed-chain ``algo`` ("mm" or "xx") across the columns' hash units
+    (``_flatten_units``); the mixing runs in kernel B1 or B2
+    (ops/kernels.py), one launch for the whole row (more past
+    ``kernels.MAX_HASH_COLUMNS`` units)."""
     for_xx = algo == "xx"
     out_dt = dt.INT64 if for_xx else dt.INT32
     if not columns:
         return Column(out_dt, 0, data=torch.zeros(0,
                                                   dtype=out_dt.torch_dtype))
     n = columns[0].size
-    schema = []
+    units: List[_HashUnit] = []
     for c in columns:
-        if c.dtype.id is TypeId.STRING:
-            kind, words = "str", (c.offsets, c.data)
-        elif c.dtype.id is TypeId.DECIMAL128:
-            kind, words = "str", dec128_hash_words(c)
-        else:
-            kind, words = _fixed_element_words(c.dtype, c.data, for_xx)
-        schema.append((kind, words, c.validity))
+        if for_xx and c.dtype.is_nested:
+            raise TypeError("xxhash64 does not support nested types")
+        units.extend(_flatten_units(c, None))
+    schema = []
+    for u in units:
+        kind, words = _leaf_entry(u.col, for_xx)
+        if u.list_chain:
+            starts, ends = _compose_chain(u.list_chain)
+            words = (starts, ends, kind, words, u.col.validity)
+            kind = "list"
+        schema.append((kind, words, u.valid))
     if for_xx:
         h = kernels.xxhash64_fixed_rows(schema, seed, n)
     else:

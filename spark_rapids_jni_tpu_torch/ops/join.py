@@ -211,6 +211,10 @@ def inner_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
             raise TypeError(f"join key types differ: {lc.dtype} and "
                             f"{rc.dtype}")
     for c in (*left_keys, *right_keys):
+        if c.dtype.is_nested:
+            # the JAX package's join hashes its keys with xxhash64 first,
+            # which refuses a nested column
+            raise TypeError("xxhash64 does not support nested types")
         if c.dtype.id is not TypeId.STRING:
             c.dtype.require_stored()
     left_mask = _check_mask(left_mask, left_keys, "left")

@@ -54,12 +54,14 @@ _lock = threading.Lock()
 
 _VP = ctypes.c_void_p
 _SIGNATURES = {
-    # (schema pointers, offsets pointers, kinds, validity pointers, ncols,
-    #  n, seed, out, stream)
-    "srjt_murmur3_rows": [_VP, _VP, _VP, _VP, ctypes.c_int,
-                          ctypes.c_longlong, ctypes.c_uint, _VP, _VP],
-    "srjt_xxhash64_rows": [_VP, _VP, _VP, _VP, ctypes.c_int,
-                           ctypes.c_longlong, ctypes.c_ulonglong, _VP, _VP],
+    # (schema pointers, offsets pointers, kinds, validity pointers, list
+    #  row starts, list row ends, element validity pointers, ncols, n,
+    #  seed, per-row seeds or null, out, stream)
+    "srjt_murmur3_rows": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int,
+                          ctypes.c_longlong, ctypes.c_uint, _VP, _VP, _VP],
+    "srjt_xxhash64_rows": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int,
+                           ctypes.c_longlong, ctypes.c_ulonglong, _VP, _VP,
+                           _VP],
     # (device metadata, nslots, nwin, npairs, npieces, rows per tile,
     #  stage bytes, sub-tile rows, sub-tile bytes, n, out, stream)
     "srjt_rowconv_rows": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -178,6 +180,10 @@ def _where(tensors: Sequence[Optional[torch.Tensor]]) -> torch.device:
 def _schema_tensors(schema) -> List[Optional[torch.Tensor]]:
     out: List[Optional[torch.Tensor]] = []
     for kind, words, v in schema:
+        if kind == "list":
+            starts, ends, lkind, lwords, lvalid = words
+            out += [starts, ends, lvalid]
+            kind, words = lkind, lwords
         out += list(words) if kind == "str" else [words]
         out.append(v)
     return out
@@ -199,54 +205,87 @@ def reset_launches() -> None:
 # A hash schema is a list of (kind, words, validity): kind "u32" with int32
 # words or "u64" with int64 words (the bits _fixed_element_words made), or
 # kind "str" with words = (int32[n+1] offsets, uint8 characters) of a
-# STRING column; and a bool[n] validity or None. The wrappers keep the
-# names of the Pallas entries they replace, which hash fixed-width columns
-# only; here one launch hashes a whole mixed row, as the reference's CUDA
-# does (murmur_hash.cu:187, xxhash64.cu:109-175).
+# STRING column, or (B1 only) kind "list" with words = (int32[n] row
+# starts, int32[n] row ends, leaf kind, leaf words, leaf validity): row i
+# hashes leaf elements [starts[i], ends[i]) in order, each a "u32", "u64"
+# or "str" entry of the leaf, skipping null elements; and a bool[n]
+# validity or None (a null row passes the running hash through). The
+# wrappers keep the names of the Pallas entries they replace, which hash
+# fixed-width columns only; here one launch hashes a whole mixed row, as
+# the reference's CUDA does (murmur_hash.cu:187, xxhash64.cu:109-175). A
+# schema of more than MAX_HASH_COLUMNS entries takes successive launches,
+# each seeded per row by the hashes of the one before (``seeds``).
 
 MAX_HASH_COLUMNS = 64  # csrc/row_hash.cu: the schema rides in the params
 _HASH_KINDS = {"u32": 0, "u64": 1, "str": 2}
+_LIST_KIND = 3  # csrc kListU32; + the leaf's kind
+
+
+def _str_words(i: int, words, rows: int):
+    offsets, chars = words
+    if (offsets.dtype != torch.int32 or offsets.shape != (rows + 1,)
+            or chars.dtype != torch.uint8 or chars.dim() != 1):
+        raise ValueError(f"hash column {i}: str words must be "
+                         f"int32[{rows + 1}] offsets and uint8 characters")
+    return offsets.contiguous(), chars.contiguous()
+
+
+def _fixed_words(i: int, kind: str, words, rows: int) -> torch.Tensor:
+    want = torch.int32 if kind == "u32" else torch.int64
+    if words.dtype != want or words.shape != (rows,):
+        raise ValueError(f"hash column {i}: {kind} words must be "
+                         f"{want}[{rows}], got {words.dtype}"
+                         f"{list(words.shape)}")
+    return words.contiguous()
+
+
+def _bool_mask(i: int, v: torch.Tensor, rows: int) -> torch.Tensor:
+    if v.dtype != torch.bool or v.shape != (rows,):
+        raise ValueError(f"hash column {i}: validity must be bool[{rows}]")
+    return v.contiguous()
 
 
 def _hash_args(schema, n: int):
     if len(schema) > MAX_HASH_COLUMNS:
-        raise ValueError(f"row hash over {len(schema)} columns; the kernel "
+        raise ValueError(f"row hash over {len(schema)} columns; one launch "
                          f"takes at most {MAX_HASH_COLUMNS}")
+    k = len(schema)
     keep = []
-    ptrs = (ctypes.c_void_p * len(schema))()
-    offs = (ctypes.c_void_p * len(schema))()
-    kinds = (ctypes.c_int * len(schema))()
-    valid = (ctypes.c_void_p * len(schema))()
+    ptrs, offs, valid, starts, ends, evalid = (
+        (ctypes.c_void_p * k)() for _ in range(6))
+    kinds = (ctypes.c_int * k)()
     for i, (kind, words, v) in enumerate(schema):
+        rows, base = n, 0
+        if kind == "list":
+            s, e, kind, words, ev = words
+            for t in (s, e):
+                if t.dtype != torch.int32 or t.shape != (n,):
+                    raise ValueError(f"hash column {i}: list starts and "
+                                     f"ends must be int32[{n}]")
+            s, e = s.contiguous(), e.contiguous()
+            keep += [s, e]
+            starts[i], ends[i] = s.data_ptr(), e.data_ptr()
+            rows = (int(words[0].shape[0]) - 1 if kind == "str"
+                    else int(words.shape[0]))
+            if ev is not None:
+                ev = _bool_mask(i, ev, rows)
+                keep.append(ev)
+                evalid[i] = ev.data_ptr()
+            base = _LIST_KIND
         if kind == "str":
-            offsets, chars = words
-            if (offsets.dtype != torch.int32 or offsets.shape != (n + 1,)
-                    or chars.dtype != torch.uint8 or chars.dim() != 1):
-                raise ValueError(f"hash column {i}: str words must be "
-                                 f"int32[{n + 1}] offsets and uint8 "
-                                 f"characters")
-            offsets, chars = offsets.contiguous(), chars.contiguous()
-            keep += [offsets, chars]
-            offs[i] = offsets.data_ptr()
-            words = chars
+            o, words = _str_words(i, words, rows)
+            keep.append(o)
+            offs[i] = o.data_ptr()
         else:
-            want = torch.int32 if kind == "u32" else torch.int64
-            if words.dtype != want or words.shape != (n,):
-                raise ValueError(f"hash column {i}: {kind} words must be "
-                                 f"{want}[{n}], got {words.dtype}"
-                                 f"{list(words.shape)}")
-            words = words.contiguous()
-            keep.append(words)
+            words = _fixed_words(i, kind, words, rows)
+        keep.append(words)
         ptrs[i] = words.data_ptr()
-        kinds[i] = _HASH_KINDS[kind]
+        kinds[i] = base + _HASH_KINDS[kind]
         if v is not None:
-            if v.dtype != torch.bool or v.shape != (n,):
-                raise ValueError(f"hash column {i}: validity must be "
-                                 f"bool[{n}]")
-            v = v.contiguous()
+            v = _bool_mask(i, v, n)
             keep.append(v)
             valid[i] = v.data_ptr()
-    return keep, ptrs, offs, kinds, valid
+    return keep, (ptrs, offs, kinds, valid, starts, ends, evalid)
 
 
 def _padded(words) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -258,12 +297,77 @@ def _padded(words) -> Tuple[torch.Tensor, torch.Tensor]:
     return densify_offsets(chars, offsets, pad_width(max_len))
 
 
-def murmur3_fixed_rows_plain(schema, seed: int, n: int) -> torch.Tensor:
-    """Plain PyTorch version of B1: int32[n] Spark murmur3 row hashes."""
+def _mm_entry(kind: str, words):
+    """murmur3 of one schema entry's element i with per-row seeds h:
+    ``fn(h, i)`` (i int64 indices of the entry's elements)."""
     from . import hashing as H
-    dev = _schema_device(schema) if schema else torch.device("cpu")
-    h = torch.full((n,), seed & 0xFFFFFFFF, dtype=torch.int64, device=dev)
+    if kind == "str":
+        mat, lengths = _padded(words)
+        return lambda h, i: H._mm_bytes(h, mat.index_select(0, i),
+                                        lengths.index_select(0, i))
+    w = words.to(torch.int64)
+    if kind == "u32":
+        w = w & 0xFFFFFFFF
+        return lambda h, i: H._mm_u32(h, w.index_select(0, i))
+    return lambda h, i: H._mm_u64(h, w.index_select(0, i))
+
+
+def _mm_list_plain(h: torch.Tensor, words, v) -> torch.Tensor:
+    """A "list" entry of B1, plain: row i's leaf elements in order, each
+    hash the next one's seed, null elements skipped. The rows are visited
+    longest first, so step j touches only the rows with more than j
+    elements and the steps add up to the elements."""
+    starts, ends, lkind, lwords, lvalid = words
+    lens = (ends - starts).to(torch.int64)
+    if v is not None:
+        lens = torch.where(v, lens, 0)
+    if lens.numel() == 0 or int(lens.max()) <= 0:
+        return h
+    width = int(lens.max())
+    order = torch.argsort(lens, descending=True, stable=True)
+    # longer[j]: rows with more than j elements
+    longer = (lens.numel() - torch.cumsum(
+        torch.bincount(lens, minlength=width + 1), 0)).tolist()
+    hs = h.index_select(0, order)
+    first = starts.to(torch.int64).index_select(0, order)
+    elem = _mm_entry(lkind, lwords)
+    for j in range(width):
+        c = longer[j]
+        i = first[:c] + j
+        cur = hs[:c]
+        nh = elem(cur, i)
+        if lvalid is not None:
+            nh = torch.where(lvalid.index_select(0, i), nh, cur)
+        hs[:c] = nh
+    out = torch.empty_like(h)
+    out[order] = hs
+    return out
+
+
+def _seed_lanes(seed: int, n: int, seeds: Optional[torch.Tensor],
+                dev: torch.device, mask: int) -> torch.Tensor:
+    """int64 running hashes to start from: ``seeds`` (per row) or
+    ``seed``."""
+    if seeds is not None:
+        return seeds.to(torch.int64) & mask
+    from . import hashing as H
+    return torch.full((n,), H._s64(seed & mask), dtype=torch.int64,
+                      device=dev)
+
+
+def murmur3_fixed_rows_plain(schema, seed: int, n: int,
+                             seeds: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Plain PyTorch version of B1: int32[n] Spark murmur3 row hashes
+    (``seeds``: int32[n] per-row seeds in place of ``seed``)."""
+    from . import hashing as H
+    dev = (_schema_device(schema) if schema
+           else seeds.device if seeds is not None else torch.device("cpu"))
+    h = _seed_lanes(seed, n, seeds, dev, 0xFFFFFFFF)
     for kind, words, v in schema:
+        if kind == "list":
+            h = _mm_list_plain(h, words, v)
+            continue
         if kind == "str":
             nh = H._mm_bytes(h, *_padded(words))
         else:
@@ -275,37 +379,65 @@ def murmur3_fixed_rows_plain(schema, seed: int, n: int) -> torch.Tensor:
 
 
 def _launch_hash(fn: str, schema, seed: int, n: int,
+                 seeds: Optional[torch.Tensor],
                  out_dtype: torch.dtype) -> torch.Tensor:
     dev = _schema_device(schema)
     lib = _lib("row_hash")
-    keep, ptrs, offs, kinds, valid = _hash_args(schema, n)
+    keep, arrays = _hash_args(schema, n)
+    if seeds is not None:
+        if seeds.dtype != out_dtype or seeds.shape != (n,):
+            raise ValueError(f"per-row seeds must be {out_dtype}[{n}]")
+        seeds = seeds.contiguous()
+        keep.append(seeds)
     out = torch.empty(n, dtype=out_dtype, device=dev)
-    err = getattr(lib, fn)(ctypes.addressof(ptrs), ctypes.addressof(offs),
-                           ctypes.addressof(kinds), ctypes.addressof(valid),
-                           len(schema), n, seed, out.data_ptr(),
-                           _stream(dev))
+    err = getattr(lib, fn)(*(ctypes.addressof(a) for a in arrays),
+                           len(schema), n, seed,
+                           None if seeds is None else seeds.data_ptr(),
+                           out.data_ptr(), _stream(dev))
     _check(lib, err, fn)
     return out
 
 
-def murmur3_fixed_rows(schema, seed: int, n: int) -> torch.Tensor:
+def _launches(fn, schema, seed: int, n: int, seeds, name: str,
+              out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch per MAX_HASH_COLUMNS entries of the schema, each seeded
+    by the hashes of the one before; each adds one to ``fn.launches``."""
+    h = seeds
+    for at in range(0, len(schema), MAX_HASH_COLUMNS):
+        h = _launch_hash(name, schema[at:at + MAX_HASH_COLUMNS], seed, n, h,
+                         out_dtype)
+        fn.launches += 1
+    return h
+
+
+def murmur3_fixed_rows(schema, seed: int, n: int,
+                       seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B1: int32[n] Spark murmur3_32 row hashes of a schema of
-    fixed-width and STRING columns (seed chained across columns, null
-    rows pass the running hash)."""
+    fixed-width, STRING and LIST entries (seed chained across the
+    entries, null rows pass the running hash; ``seeds``: int32[n]
+    per-row seeds in place of ``seed``)."""
+    schema = list(schema)
     if n == 0 or not schema or _schema_device(schema).type == "cpu":
-        return murmur3_fixed_rows_plain(schema, seed, n)
-    out = _launch_hash("srjt_murmur3_rows", schema, seed & 0xFFFFFFFF, n,
-                       torch.int32)
-    murmur3_fixed_rows.launches += 1
-    return out
+        return murmur3_fixed_rows_plain(schema, seed, n, seeds)
+    return _launches(murmur3_fixed_rows, schema, seed & 0xFFFFFFFF, n, seeds,
+                     "srjt_murmur3_rows", torch.int32)
 
 
-def xxhash64_fixed_rows_plain(schema, seed: int, n: int) -> torch.Tensor:
+def _no_lists(schema) -> None:
+    if any(kind == "list" for kind, _, _ in schema):
+        raise ValueError("B2 (xxhash64) takes no LIST schema entry")
+
+
+def xxhash64_fixed_rows_plain(schema, seed: int, n: int,
+                              seeds: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """Plain PyTorch version of B2: int64[n] (u64 bits) Spark xxhash64
-    row hashes."""
+    row hashes (``seeds``: int64[n] per-row seeds in place of ``seed``)."""
     from . import hashing as H
-    dev = _schema_device(schema) if schema else torch.device("cpu")
-    h = torch.full((n,), H._s64(seed), dtype=torch.int64, device=dev)
+    _no_lists(schema)
+    dev = (_schema_device(schema) if schema
+           else seeds.device if seeds is not None else torch.device("cpu"))
+    h = _seed_lanes(seed, n, seeds, dev, (1 << 64) - 1)
     for kind, words, v in schema:
         if kind == "str":
             nh = H._xx_bytes(h, *_padded(words))
@@ -536,15 +668,17 @@ def xxhash64_staged_emulation(schema, seed: int, n: int,
                         dtype=torch.int64)
 
 
-def xxhash64_fixed_rows(schema, seed: int, n: int) -> torch.Tensor:
+def xxhash64_fixed_rows(schema, seed: int, n: int,
+                        seeds: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """B2: int64[n] (u64 bits) Spark xxhash64 row hashes of a schema of
     fixed-width and STRING columns, chained like B1."""
+    schema = list(schema)
+    _no_lists(schema)
     if n == 0 or not schema or _schema_device(schema).type == "cpu":
-        return xxhash64_fixed_rows_plain(schema, seed, n)
-    out = _launch_hash("srjt_xxhash64_rows", schema,
-                       seed & 0xFFFFFFFFFFFFFFFF, n, torch.int64)
-    xxhash64_fixed_rows.launches += 1
-    return out
+        return xxhash64_fixed_rows_plain(schema, seed, n, seeds)
+    return _launches(xxhash64_fixed_rows, schema, seed & 0xFFFFFFFFFFFFFFFF,
+                     n, seeds, "srjt_xxhash64_rows", torch.int64)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,9 @@ A DECIMAL128 key gives two lanes, its high 64 bits (signed) and its low
 gather in place of the byte lanes), a FOR key by its codes (one reference: code order is value
 order); an RLE key is decoded to rows first, as is an RLE or FOR column
 that a gather reorders (a permutation keeps neither runs nor packing).
+A LIST or STRUCT is no sort key (its type id is in no lane table: the
+JAX package's ``KeyError``); a gather carries one, a LIST through its
+rows' element ranges (``_segment_positions``), a STRUCT field by field.
 
 ``sort_lanes`` and ``select_topk_core`` are plan cores (plan/registry.py):
 the fused plan engine composes them, so the eager and fused paths order
@@ -149,42 +152,60 @@ def lexsort(lanes: Sequence[torch.Tensor], n: int,
 def gather(col: Column, idx: torch.Tensor) -> Column:
     """Rows ``idx`` (int64, in range) of a column. DICT32 gathers its codes
     and keeps sharing its dictionary; RLE and FOR decode here (the declared
-    boundary every eager compaction and fused output trim goes through)."""
+    boundary every eager compaction and fused output trim goes through).
+    A LIST gathers its child through the rows' element ranges, a STRUCT
+    each field; a parent's validity is gathered as it is (a null STRUCT
+    row keeps its fields' bits, as in the JAX package)."""
     if enc.is_encoded(col):
         return gather(enc.decoded_rows(col), idx)
     validity = (None if col.validity is None
                 else col.validity.index_select(0, idx))
+    m = int(idx.shape[0])
     if col.dtype.id is TypeId.STRING:
-        data, offsets = _gather_string_bytes(col.data, col.offsets, idx)
-        return Column(col.dtype, int(idx.shape[0]), data=data,
-                      validity=validity, offsets=offsets)
+        pos, offsets = _segment_positions(col.offsets, idx, "STRING")
+        data = col.data.index_select(0, pos)
+        return Column(col.dtype, m, data=data, validity=validity,
+                      offsets=offsets)
+    if col.dtype.id is TypeId.LIST:
+        pos, offsets = _segment_positions(col.offsets, idx, "LIST")
+        child = gather(col.children[0], pos.to(torch.int64))
+        return Column(col.dtype, m, validity=validity, offsets=offsets,
+                      children=(child,))
+    if col.dtype.id is TypeId.STRUCT:
+        return Column(col.dtype, m, validity=validity,
+                      children=tuple(gather(c, idx) for c in col.children))
     col.dtype.require_stored()
     if col.dtype.id is TypeId.DECIMAL128:
         from .int128 import take_rows
         data = take_rows(col.data, idx)
     else:
         data = col.data.index_select(0, idx)
-    return Column(col.dtype, int(idx.shape[0]), data=data,
-                  validity=validity, children=col.children)
+    return Column(col.dtype, m, data=data, validity=validity,
+                  children=col.children)
 
 
-def _gather_string_bytes(chars: torch.Tensor, offsets: torch.Tensor,
-                         idx: torch.Tensor):
-    """(characters, int32 offsets) of rows ``idx`` of a STRING column: a
-    flat gather of every output byte (int32 positions: the characters of
-    a column stay under 2^31). The output size is the one host sync."""
+def _segment_positions(offsets: torch.Tensor, idx: torch.Tensor,
+                       what: str):
+    """(int32 source positions, int32 offsets) of rows ``idx`` of a
+    STRING or LIST column: every output element's position in the flat
+    source (the JAX package's ``_segment_element_indices``). The output
+    size is the one host sync; an output past int32 offsets raises, as a
+    concatenation does."""
     starts = offsets[:-1].index_select(0, idx)
     lens = offsets[1:].index_select(0, idx) - starts
+    ends = torch.cumsum(lens, 0, dtype=torch.int64)
+    total = int(ends[-1]) if ends.numel() else 0
+    if total >= 1 << 31:
+        raise ValueError(f"gathered {what} column exceeds int32 offsets")
     out = torch.zeros(idx.shape[0] + 1, dtype=torch.int32,
                       device=offsets.device)
-    torch.cumsum(lens, 0, dtype=torch.int32, out=out[1:])
-    total = int(out[-1])
+    out[1:] = ends
     if total == 0:
-        return torch.zeros(0, dtype=torch.uint8, device=chars.device), out
+        return torch.zeros(0, dtype=torch.int32, device=offsets.device), out
     row = row_of_position(out, total)
     pos = (starts.index_select(0, row) - out.index_select(0, row)
-           + torch.arange(total, dtype=torch.int32, device=chars.device))
-    return chars.index_select(0, pos), out
+           + torch.arange(total, dtype=torch.int32, device=offsets.device))
+    return pos, out
 
 
 @plan_core("select_topk")

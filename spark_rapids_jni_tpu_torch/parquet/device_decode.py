@@ -38,7 +38,10 @@ from the page inventory by ``pages_supported``, the reference's routing
 contract): flat columns; PLAIN fixed-width (INT32/INT64/FLOAT/DOUBLE/
 BOOLEAN); PLAIN_DICTIONARY/RLE_DICTIONARY over fixed-width or BYTE_ARRAY
 dictionaries; v1 and v2 data pages; any codec the native tier
-decompresses. One-level LISTs wait for nested columns (ROADMAP A1).
+decompresses; and one-level LISTs of those, whose entries decode as a flat
+column of the element type and fold into a LIST by their levels
+(``_finish_list``: a repetition level 0 starts a row, a definition level
+at or past the repeated node's is an element).
 """
 
 from __future__ import annotations
@@ -386,7 +389,7 @@ def pages_supported(leaf, pages: List[_Page]) -> bool:
         return False
     if leaf.physical in (_PT_INT96, _PT_FLBA):
         return False
-    if leaf.dtype.id is TypeId.DECIMAL128:
+    if (leaf.elem_dtype or leaf.dtype).id is TypeId.DECIMAL128:
         return False
     return True
 
@@ -639,13 +642,16 @@ class HostChunk:
     idx: _Runs
     any_dict_data: bool
     walk_ms: float
+    reps: Optional[_Runs] = None  # a one-level LIST's repetition levels
+    list_rows: int = 0            # and its rows (the row group's)
 
 
-def prepare_chunk(leaf, blob: np.ndarray, pages: List[_Page],
-                  rows: int) -> HostChunk:
+def prepare_chunk(leaf, blob: np.ndarray, pages: List[_Page], rows: int,
+                  list_rows: int = 0) -> HostChunk:
     """Walk the run headers of every data page of a chunk the device
-    tier takes (``pages_supported``): definition levels and dictionary
-    indices, each on one axis over the chunk's rows."""
+    tier takes (``pages_supported``): definition levels, dictionary
+    indices and, for a one-level LIST of ``list_rows`` rows, repetition
+    levels, each on one axis over the chunk's entries."""
     t0 = time.perf_counter()
     data_pages = [p for p in pages if p.ptype != 2]
     n_rows = np.array([p.num_values for p in data_pages], np.int64)
@@ -654,9 +660,16 @@ def prepare_chunk(leaf, blob: np.ndarray, pages: List[_Page],
     bw_def = max(1, leaf.max_def.bit_length())
     defs = _Runs()
     idx = _Runs()
+    reps = _Runs() if leaf.max_rep == 1 else None
     any_dict_data = False
     for p, r0 in zip(data_pages, row0.tolist()):
         n = p.num_values
+        if reps is not None:
+            if p.rep_len > 0:
+                reps.add_page(_walk_runs(blob, p.rep_off, p.rep_len, n, 1),
+                              r0, n, 1)
+            else:
+                reps.add_zero(r0)
         if leaf.max_def > 0 and p.def_len > 0:
             defs.add_page(_walk_runs(blob, p.def_off, p.def_len, n, bw_def),
                           r0, n, bw_def)
@@ -673,23 +686,24 @@ def prepare_chunk(leaf, blob: np.ndarray, pages: List[_Page],
                 idx.add_page(_walk_runs(blob, p.val_off + 1, p.val_len - 1,
                                         n, ibw), r0, n, ibw)
     return HostChunk(blob, pages, rows, n_rows, row0, defs, idx,
-                     any_dict_data, (time.perf_counter() - t0) * 1e3)
+                     any_dict_data, (time.perf_counter() - t0) * 1e3, reps,
+                     list_rows)
 
 
 def decode_leaf_device(leaf, chunk: HostChunk, device: torch.device,
                        times: Optional[dict] = None) -> Column:
-    """Device decode of one flat column chunk whose host half is done
-    (``prepare_chunk``): the blob crosses to ``device`` once; everything
+    """Device decode of one column chunk (flat or a one-level LIST) whose
+    host half is done (``prepare_chunk``): the blob crosses to ``device``
+    once; everything
     after runs there (plus the sizing sync of a BYTE_ARRAY dictionary
     gather). With a ``times`` dict, adds the copy (``h2d_ms``) and the
     device work (``decode_ms``) in milliseconds, synchronizing the device
     at each boundary so the split is real (off the default path)."""
     dev = torch.device(device)
-    if leaf.max_rep != 0:
-        raise dt.not_ported("the device decode of LIST columns",
-                            "A1, nested columns")
+    is_list = leaf.max_rep == 1
+    lleaf, leaf = leaf, leaf.element()
     blob, pages, rows = chunk.blob, chunk.pages, chunk.rows
-    if _encoded_ints_enabled():
+    if not is_list and _encoded_ints_enabled():
         out = _try_encoded_ints(leaf, blob, pages, rows, dev)
         if out is not None:
             return out
@@ -711,6 +725,7 @@ def decode_leaf_device(leaf, chunk: HostChunk, device: torch.device,
 
     # validity: definition level == max_def, present whenever the column
     # is OPTIONAL (as the JAX package's device tier gives it)
+    defs_all = defs.expand(blob_dev, total) if is_list else None
     if leaf.max_def == 0:
         validity = None
         valid = None
@@ -718,7 +733,9 @@ def decode_leaf_device(leaf, chunk: HostChunk, device: torch.device,
         validity = torch.ones(total, dtype=torch.bool, device=dev)
         valid = None  # every row valid: the scatter is the identity
     else:
-        validity = defs.expand(blob_dev, total) == leaf.max_def
+        if defs_all is None:
+            defs_all = defs.expand(blob_dev, total)
+        validity = defs_all == leaf.max_def
         valid = validity
 
     if chunk.any_dict_data:
@@ -728,7 +745,7 @@ def decode_leaf_device(leaf, chunk: HostChunk, device: torch.device,
         if valid is not None:
             idx_rows = _scatter_nulls(idx_rows, valid, n_rows, row0, n_rows)
         column = _finish_dictionary(leaf, rows, idx_rows, dictionary,
-                                    validity)
+                                    validity, encoded=not is_list)
     else:
         if leaf.physical == _PT_BOOLEAN:
             # bit-packed booleans: page p's k-th stored value is bit k of
@@ -756,6 +773,10 @@ def decode_leaf_device(leaf, chunk: HostChunk, device: torch.device,
                 dense, torch.ones(total, dtype=torch.bool, device=dev),
                 n_rows, base, stored)
         column = _finish_fixed(leaf, rows, dense, validity)
+    if is_list:
+        column = _finish_list(lleaf, column, defs_all,
+                              chunk.reps.expand(blob_dev, total),
+                              chunk.list_rows)
     if times is not None:
         _sync(dev)
         t3 = time.perf_counter()
@@ -765,9 +786,42 @@ def decode_leaf_device(leaf, chunk: HostChunk, device: torch.device,
     return column
 
 
+def _finish_list(leaf, entries: Column, defs_all: torch.Tensor,
+                 reps_all: torch.Tensor, list_rows: int) -> Column:
+    """A one-level LIST from its decoded entries and their levels (the
+    host decoder's fold of the levels, the JAX package's
+    ``_finish_list``): an entry with rep 0 starts a row, valid iff its
+    def >= rep_def - 1; an entry is an element iff its def >= rep_def
+    (an element's own validity is in ``entries``). One host sync reads
+    the element count, the rep-0 count (checked against the footer's
+    rows: a corrupt repetition stream raises) and the valid rows."""
+    from ..columnar.table_ops import mask_indices_core
+    from ..ops.sort import gather
+    R = reps_all == 0
+    E = defs_all >= leaf.rep_def
+    row_starts = mask_indices_core(R, list_rows).to(torch.int64)
+    lvalid = defs_all.index_select(0, row_starts) >= leaf.rep_def - 1
+    n_elems, n_rows, n_lvalid = torch.stack(
+        [E.sum(), R.sum(), lvalid.sum()]).tolist()
+    if n_rows != list_rows:
+        raise ValueError(f"list levels corrupt: {n_rows} rep==0 entries vs "
+                         f"{list_rows} footer rows")
+    child = gather(entries, mask_indices_core(E, n_elems).to(torch.int64))
+    e32 = E.to(torch.int32)
+    before = torch.cumsum(e32, 0, dtype=torch.int32) - e32
+    offsets = torch.cat([before.index_select(0, row_starts),
+                         torch.full((1,), n_elems, dtype=torch.int32,
+                                    device=before.device)])
+    return Column(dt.LIST, list_rows,
+                  validity=None if n_lvalid == list_rows else lvalid,
+                  offsets=offsets, children=(child,))
+
+
 def _finish_dictionary(leaf, rows: int, idx_rows: torch.Tensor, dictionary,
-                       validity) -> Column:
-    """Row-aligned dictionary indices (0 at null rows) -> the column."""
+                       validity, encoded: bool = True) -> Column:
+    """Row-aligned dictionary indices (0 at null rows) -> the column
+    (DICT32 with ``parquet.encoded_strings``, unless ``encoded`` is
+    False: a LIST's elements are gathered, so they stay STRING)."""
     kind, payload = dictionary[0], dictionary[1]
     nd = (int(payload.shape[0]) if kind == "fixed"
           else int(dictionary[2].shape[0]) - 1)
@@ -778,7 +832,7 @@ def _finish_dictionary(leaf, rows: int, idx_rows: torch.Tensor, dictionary,
         return _finish_fixed(leaf, rows, payload.index_select(0, safe),
                              validity)
     _, flat, offs, host_flat, host_offs = dictionary
-    if _encoded_strings():
+    if encoded and _encoded_strings():
         return _finish_dict32(safe, host_flat, host_offs, validity,
                               flat.device)
     return _finish_string_dict(safe, flat, offs, validity)

@@ -29,16 +29,23 @@ A FIXED_LEN_BYTE_ARRAY DECIMAL column is read as DECIMAL128 on the host
 tier on every reader, as in the JAX package (the device tier declines
 FLBA, ``device_decode.pages_supported``): the native decode turns its
 big-endian bytes into 16-byte little-endian limbs, and the route is
-counted as ``host_columns_unsupported``. ``LIST`` and ``STRUCT`` columns
-(the JAX package's parquet/nested.py) wait for nested columns (ROADMAP
-A1): selecting one raises ``not_ported``.
+counted as ``host_columns_unsupported``.
+
+Nested columns split as in the JAX package. A flat primitive and a
+one-level LIST of a primitive (annotated 3-level, legacy 2-level or a bare
+repeated primitive) are "simple" plans: one leaf, either tier (the device
+tier assembles the LIST from its levels, ``device_decode._finish_list``;
+the host tier's native decode folds them). A STRUCT, a MAP and any deeper
+tree are "nested" plans: each leaf is decoded on the host with its raw
+definition and repetition levels (``want_levels``), and
+parquet/nested.py rebuilds the column tree from them, in numpy, before
+it crosses to the device (counted as ``host_columns_unsupported``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-import json
 import os
 import threading
 import time
@@ -59,6 +66,7 @@ from ..faultinj._sandbox_targets import (
     unpack_out,
 )
 from ..memory.reservation import device_reservation, release_barrier
+from ..memory.transport import to_device
 from ..utils import config
 from .device_decode import _sync
 
@@ -138,26 +146,40 @@ def _load():
 
 @dataclass
 class LeafSchema:
-    """One leaf column of the file schema."""
+    """One leaf column of the file schema (a one-level LIST leaf carries
+    its element type in ``elem_dtype``; ``dtype`` is then LIST)."""
 
     index: int
-    name: str          # dotted path
+    name: str          # dotted path; a LIST leaf the outer field's name
     dtype: DType
     physical: int
     type_length: int
     max_def: int
     max_rep: int
+    elem_dtype: Optional[DType] = None
+    nodes: list = None   # root -> leaf PathNodes (parquet/nested.py)
+    rep_def: int = 0     # def level at the repeated ancestor (lists)
+
+    def element(self) -> "LeafSchema":
+        """The leaf as a flat column of its element type (itself when it
+        is no LIST)."""
+        if self.max_rep != 1:
+            return self
+        return LeafSchema(self.index, self.name, self.elem_dtype,
+                          self.physical, self.type_length, self.max_def, 0)
 
 
 @dataclass
 class ColumnPlan:
-    """One top-level output column: a flat leaf ("simple"), or a LIST /
-    STRUCT tree over several levels ("nested", not ported: ROADMAP A1)."""
+    """One top-level output column: one leaf, flat or a one-level LIST
+    ("simple"), or a STRUCT / deeper tree rebuilt from its leaves' levels
+    ("nested", ``tree`` its parquet/nested.py TreeNode)."""
 
     name: str
     kind: str                    # "simple" | "nested"
     leaves: List[LeafSchema]
     dtype: DType = None          # top-level dtype
+    tree: object = None
 
 
 def _map_dtype(physical: int, converted: int, scale: int,
@@ -225,12 +247,6 @@ def _read_footer_bytes(f) -> bytes:
     return f.read(flen)
 
 
-def _check_ported(plan: ColumnPlan) -> None:
-    if plan.kind == "nested":
-        raise dt.not_ported(f"the Parquet column {plan.name!r} "
-                            f"({plan.dtype.id.value})", "A1, nested columns")
-
-
 class ParquetReader:
     """Chunked reader over one parquet file, building columns on
     ``device`` (a card unless the caller asks for the CPU).
@@ -286,44 +302,74 @@ class ParquetReader:
             self._selected_plans = [by_name[c] for c in columns]
         else:
             self._selected_plans = list(self._plans)
-        try:
-            for p in self._selected_plans:
-                _check_ported(p)
-        except NotImplementedError:
-            self.close()
-            raise
         self._selected = [l for p in self._selected_plans for l in p.leaves]
 
-    def _build_plans(self) -> List[ColumnPlan]:
-        """Leaves grouped into top-level columns by their root->leaf
-        paths: a lone required/optional primitive is "simple", anything
-        under a group or repeated is "nested"."""
-        plans: List[ColumnPlan] = []
-        by_top = {}
+    def _read_schema(self) -> List[LeafSchema]:
+        from .nested import parse_path
+        out = []
         for i in range(self._lib.pqd_num_leaves(self._h)):
             info = _LeafC()
             if self._lib.pqd_leaf_info(self._h, i, ctypes.byref(info)) != 0:
                 raise RuntimeError(f"leaf_info({i}) failed")
-            nodes = json.loads(info.path_json.decode())
-            leaf = LeafSchema(i, info.path.decode(),
-                              _map_dtype(info.physical, info.converted,
-                                         info.scale, info.precision),
-                              info.physical, info.type_length, info.max_def,
-                              info.max_rep)
-            top = nodes[0]
-            plan = by_top.get(top["name"])
-            if plan is None:
-                simple = len(nodes) == 1 and info.max_rep == 0
-                kind = "simple" if simple else "nested"
-                dtype = leaf.dtype if simple else (
-                    dt.LIST if (top["repetition"] == _REP_REPEATED
-                                or top["converted"] in _CT_GROUP_LIST)
-                    else DType(TypeId.STRUCT))
-                plan = ColumnPlan(top["name"], kind, [], dtype)
-                by_top[top["name"]] = plan
-                plans.append(plan)
-            plan.leaves.append(leaf)
+            name = info.path.decode()
+            dtype = _map_dtype(info.physical, info.converted, info.scale,
+                               info.precision)
+            elem_dtype = None
+            if info.max_rep == 1:
+                # one-level LIST: strip parquet's wrapper tail (3-level
+                # '.list.element', legacy 2-level '.array' / '.item'),
+                # keeping any enclosing struct path
+                elem_dtype, dtype = dtype, dt.LIST
+                parts = name.split(".")
+                name = ".".join(parts[:-2] if len(parts) >= 3
+                                else parts[:-1] if len(parts) == 2
+                                else parts)
+            out.append(LeafSchema(i, name, dtype, info.physical,
+                                  info.type_length, info.max_def,
+                                  info.max_rep, elem_dtype,
+                                  parse_path(info.path_json.decode()),
+                                  info.rep_def))
+        return out
+
+    def _build_plans(self) -> List[ColumnPlan]:
+        """Leaves grouped into top-level column plans by their root ->
+        leaf paths: "simple" (``_is_simple``) or "nested"."""
+        from .nested import REP_REPEATED, build_tree
+        leaves = self._read_schema()
+        by_id = {l.index: l for l in leaves}
+        plans = []
+        for tree in build_tree({l.index: l.nodes for l in leaves}):
+            mine = [by_id[i] for i in tree.leaf_ids]
+            if len(mine) == 1 and self._is_simple(mine[0]):
+                plans.append(ColumnPlan(tree.node.name, "simple", mine,
+                                        mine[0].dtype))
+            else:
+                top = (dt.LIST if tree.node.repetition == REP_REPEATED
+                       or tree.node.converted in _CT_GROUP_LIST
+                       else dt.STRUCT)
+                plans.append(ColumnPlan(tree.node.name, "nested", mine, top,
+                                        tree))
         return plans
+
+    @staticmethod
+    def _is_simple(leaf: LeafSchema) -> bool:
+        """The shapes one leaf assembles itself: a flat primitive, and a
+        one-level LIST of a primitive (annotated 3-level, legacy 2-level,
+        bare repeated primitive)."""
+        nodes = leaf.nodes
+        if leaf.max_rep == 0:
+            return len(nodes) == 1
+        if leaf.max_rep != 1:
+            return False
+        if len(nodes) == 1:  # bare repeated primitive
+            return nodes[0].repetition == _REP_REPEATED
+        if len(nodes) == 2:  # legacy 2-level: repeated group + leaf
+            return nodes[0].repetition == _REP_REPEATED
+        if len(nodes) == 3:  # annotated: wrapper group + repeated + leaf
+            return (nodes[1].repetition == _REP_REPEATED
+                    and (nodes[0].converted in _CT_GROUP_LIST
+                         or nodes[1].name in ("list", "array", "bag")))
+        return False
 
     # ---- info -------------------------------------------------------------
     @property
@@ -384,9 +430,12 @@ class ParquetReader:
     # CorruptionError propagates.
     _CRC_REREADS = 2
 
-    def _decode_leaf(self, f, rg: int, leaf: LeafSchema):
+    def _decode_leaf(self, f, rg: int, leaf: LeafSchema,
+                     want_levels: bool = False):
         """Decode one (row group, leaf) into host numpy buffers: (rows,
-        values, offsets, validity, None)."""
+        values, offsets, validity, lists). ``lists``: a one-level LIST's
+        (list rows, list offsets, list validity); with ``want_levels`` (a
+        nested plan) the raw (defs, reps) level streams instead."""
         from ..faultinj import sandbox
         from ..faultinj.guard import guarded_dispatch
         from ..memory.integrity import CorruptionError
@@ -407,7 +456,7 @@ class ParquetReader:
                             sandbox.file_target("parquet_decode_chunk"),
                             self._lib._name, self._footer, rg, leaf.index,
                             buf.tobytes(), leaf.physical, leaf.max_rep,
-                            False, verify,
+                            want_levels, verify,
                             quarantine_key=(
                                 f"{self._path}:{rg}:{leaf.index}"))
                     except sandbox.WorkerCrashError:
@@ -433,7 +482,8 @@ class ParquetReader:
                 rc = self._lib.pqd_decode_chunk2(
                     self._h, rg, leaf.index,
                     buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                    len(buf), 0, ctypes.byref(out), ctypes.byref(err))
+                    len(buf), 1 if want_levels else 0, ctypes.byref(out),
+                    ctypes.byref(err))
                 if rc != 0:
                     msg = err.value.decode() if err.value else "unknown error"
                     self._lib.pqd_free(err)
@@ -450,15 +500,25 @@ class ParquetReader:
                 last = e  # detection already counted by the guard
                 continue  # recovery: discard and re-read from source
             return unpack_out(self._lib, out, leaf.physical, leaf.max_rep,
-                              False)
+                              want_levels)
         raise last
 
     def _to_column(self, leaf: LeafSchema, rows: int, values: np.ndarray,
                    offsets: Optional[np.ndarray],
-                   validity: Optional[np.ndarray]) -> Column:
+                   validity: Optional[np.ndarray], lists=None) -> Column:
         """Host buffers -> a Column on the reader's device (one copy per
-        buffer)."""
+        buffer). A one-level LIST leaf's buffers are its elements, and
+        ``lists`` = (list rows, list offsets, list validity) wraps them."""
         dev = self._device
+        if leaf.max_rep == 1:
+            child = self._to_column(leaf.element(), rows, values, offsets,
+                                    validity)
+            lrows, loffs, lvalid = lists
+            return Column(dt.LIST, int(lrows),
+                          validity=None if lvalid is None else
+                          torch.from_numpy(lvalid.astype(bool)).to(dev),
+                          offsets=torch.from_numpy(loffs).to(dev),
+                          children=(child,))
         dtype = leaf.dtype
         vmask = None if validity is None else torch.from_numpy(
             validity.astype(bool)).to(dev)
@@ -477,12 +537,40 @@ class ParquetReader:
         and concatenate there (the JAX package concatenates them on the
         host first: the same column)."""
         from ..columnar.table_ops import concat_columns
-        cols = [self._to_column(leaf, *p[:4]) for p in parts]
+        cols = [self._to_column(leaf, *p) for p in parts]
         return cols[0] if len(cols) == 1 else concat_columns(cols)
 
     @staticmethod
     def _part_nbytes(p) -> int:
-        return sum(x.nbytes for x in p[1:4] if x is not None)
+        n = sum(x.nbytes for x in p[1:4] if x is not None)
+        if p[4] is not None:
+            n += sum(x.nbytes for x in p[4] if isinstance(x, np.ndarray))
+        return n
+
+    def _assemble_nested(self, plan: ColumnPlan, by_leaf) -> Column:
+        """Each leaf's row-group parts (level mode) joined on the host,
+        the column tree rebuilt from the levels (parquet/nested.py) in
+        numpy, then moved to the device."""
+        from .nested import LeafLevels, assemble_column
+        levels = {}
+        for leaf in plan.leaves:
+            parts = by_leaf[leaf.index]
+            rows = sum(p[0] for p in parts)
+            offsets = None
+            if leaf.physical == _PT_BYTE_ARRAY:
+                offsets = _rebase_offsets([(p[0], p[2]) for p in parts])
+            validity = None
+            if any(p[3] is not None for p in parts):
+                validity = np.concatenate([
+                    p[3] if p[3] is not None
+                    else np.ones(p[0], dtype=np.uint8) for p in parts])
+            elem = leaf.elem_dtype if leaf.max_rep == 1 else leaf.dtype
+            levels[leaf.index] = LeafLevels(
+                np.concatenate([p[4][0] for p in parts]),
+                np.concatenate([p[4][1] for p in parts]), rows,
+                np.concatenate([p[1] for p in parts]), offsets, validity,
+                elem, leaf.physical, leaf.max_def)
+        return assemble_column(plan.tree, levels, "cpu")
 
     # ---- predicate pushdown -------------------------------------------------
 
@@ -683,6 +771,12 @@ class ParquetReader:
                     keep.append(g)
                 else:
                     skipped.append((g,) + why)
+        if not keep and skipped \
+                and any(p.kind != "simple" for p in self._selected_plans):
+            # a nested column has no 0-row shape to build: keep one group
+            # (its rows are filtered downstream anyway), as the JAX
+            # package does
+            keep.append(skipped.pop()[0])
         for g, kind, n_data in skipped:
             reader_metrics.inc("row_groups_skipped")
             reader_metrics.inc(f"{kind}_skips")
@@ -718,12 +812,15 @@ class ParquetReader:
             yield self._read_groups(group)
 
     def _empty_plan_column(self, plan: ColumnPlan) -> Column:
-        """0-row Column for a plan (every row group was pruned)."""
+        """0-row Column for a simple plan (every row group was pruned)."""
         leaf = plan.leaves[0]
         offsets = (np.zeros(1, np.int32)
                    if leaf.physical == _PT_BYTE_ARRAY else None)
-        col = self._to_column(leaf, 0, np.zeros(0, np.uint8), offsets, None)
-        if (leaf.physical == _PT_BYTE_ARRAY
+        lists = ((0, np.zeros(1, np.int32), None)
+                 if leaf.max_rep == 1 else None)
+        col = self._to_column(leaf, 0, np.zeros(0, np.uint8), offsets, None,
+                              lists)
+        if (leaf.physical == _PT_BYTE_ARRAY and leaf.max_rep == 0
                 and self._device_tier_enabled()
                 and bool(config.get("parquet.encoded_strings"))):
             # keep the encoded shape: plans that resolved string literals
@@ -760,6 +857,16 @@ class ParquetReader:
                    else contextlib.nullcontext())
             leaf = plan.leaves[0]
             with ctx, open(self._path, "rb") as f:
+                if plan.kind == "nested":
+                    t = time.perf_counter()
+                    by_leaf = {}
+                    for lf in plan.leaves:
+                        self._route(lf, "host", "host_columns_unsupported")
+                        by_leaf[lf.index] = [self._decode_leaf(f, g, lf, True)
+                                             for g in groups]
+                    self._time("host_decode_ms",
+                               (time.perf_counter() - t) * 1e3)
+                    return {"nested": by_leaf}
                 if device_tier:
                     dev = self._extract_leaf_pages(f, groups, leaf)
                     if dev is not None:
@@ -776,13 +883,22 @@ class ParquetReader:
             leaf = plan.leaves[0]
             if "device" in by_leaf:
                 return self._ship_device(leaf, by_leaf["device"])
-            parts = by_leaf["host"]
+            parts = by_leaf.get("host")
+            if parts is None:
+                parts = [p for ps in by_leaf["nested"].values() for p in ps]
             est = sum(self._part_nbytes(p) for p in parts)
             t = time.perf_counter()
             with device_reservation(est) as took:
                 t_res = time.perf_counter() - t
                 t = time.perf_counter()
-                col = self._concat_parts(leaf, parts)
+                if plan.kind == "nested":
+                    col = self._assemble_nested(plan, by_leaf["nested"])
+                    self._time("assemble_ms",
+                               (time.perf_counter() - t) * 1e3)
+                    t = time.perf_counter()
+                    col = to_device(col, self._device)
+                else:
+                    col = self._concat_parts(leaf, parts)
                 if self._timings is not None:
                     _sync(self._device)
                 t_h2d = time.perf_counter() - t
@@ -883,7 +999,9 @@ class ParquetReader:
                     self._route(leaf, "host", "host_columns_unsupported",
                                 _encoding_names(encodings))
                     return None
-                out.append(dd.prepare_chunk(leaf, blob, pages, nv))
+                lrows = (self._lib.pqd_rg_num_rows(self._h, g)
+                         if leaf.max_rep == 1 else 0)
+                out.append(dd.prepare_chunk(leaf, blob, pages, nv, lrows))
         finally:
             self._time("host_extract_ms", (time.perf_counter() - t) * 1e3)
         self._route(leaf, "device", "device_columns",
@@ -952,6 +1070,19 @@ class ParquetReader:
 
     def __exit__(self, *a):
         self.close()
+
+
+def _rebase_offsets(parts) -> np.ndarray:
+    """int32 offsets of (rows, offsets) parts one after the other, each
+    shifted by the ends of those before."""
+    total = sum(r for r, _ in parts)
+    out = np.zeros(total + 1, dtype=np.int32)
+    base = pos = 0
+    for r, o in parts:
+        out[pos + 1:pos + 1 + r] = o[1:] + base
+        base += int(o[-1])
+        pos += r
+    return out
 
 
 _ENCODING_NAMES = {0: "PLAIN", 2: "PLAIN_DICTIONARY", 3: "RLE",

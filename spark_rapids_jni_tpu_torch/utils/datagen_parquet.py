@@ -42,6 +42,18 @@ What it writes:
   (parquet-mr's v1 writer has no dictionary for FIXED_LEN_BYTE_ARRAY);
   statistics the v2 min/max (signed order) and the null count.
 
+- nested columns as parquet-mr writes Spark's arrays and structs: a
+  ``ListField`` as ``optional group x (LIST) { repeated group list {
+  optional <element> element; } }`` (the element a primitive or a
+  ``StructField``: LIST<STRUCT> is a group element), a ``StructField`` as
+  an optional group. Each leaf's rows are shredded into entries (the
+  Dremel record shredding: an entry per element, a null or an empty
+  list), and its v1 data pages carry repetition levels, then definition
+  levels up to the leaf's ``max_def``, both u32-length-prefixed in the
+  hybrid encoding at the widths of the maximum levels; a page ends only
+  where a row ends (repetition level 0 next). The leaf's stored values
+  are encoded as a flat column's are, with the entries in place of rows.
+
 One cut against Spark's defaults: pages are UNCOMPRESSED (Spark's codec
 is snappy).
 
@@ -57,7 +69,7 @@ from __future__ import annotations
 import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -71,7 +83,8 @@ DICT_PAGE_BYTES = 1 << 20
 _BOOLEAN, _INT32, _INT64, _FLOAT, _DOUBLE, _BYTE_ARRAY, _FLBA = (0, 1, 2, 4,
                                                                 5, 6, 7)
 _PLAIN, _PLAIN_DICTIONARY, _RLE, _BIT_PACKED = 0, 2, 3, 4
-_OPTIONAL = 1
+_OPTIONAL, _REPEATED = 1, 2
+_CT_LIST = 3
 _DATA_PAGE, _DICTIONARY_PAGE = 0, 2
 # converted types
 UTF8, DECIMAL, DATE = 0, 5, 6
@@ -138,6 +151,37 @@ def string_column(name: str, strings: Sequence[Optional[bytes]]
                          offsets=offsets,
                          valid=None if valid.all() else valid,
                          converted=UTF8)
+
+
+@dataclass
+class StructField:
+    """An optional STRUCT column: equal-length ``fields`` (ParquetColumn,
+    StructField or ListField), ``valid`` (bool per row) or None."""
+
+    name: str
+    fields: Sequence[object]
+    valid: Optional[np.ndarray] = None
+
+    @property
+    def rows(self) -> int:
+        return self.fields[0].rows
+
+
+@dataclass
+class ListField:
+    """An optional LIST column: row i is ``element`` rows
+    [offsets[i], offsets[i + 1]) (int64 offsets, rows + 1), ``valid``
+    (bool per row) or None. The element (its name is not used: parquet-mr
+    names it ``element``) is a ParquetColumn or a StructField."""
+
+    name: str
+    offsets: np.ndarray
+    element: object
+    valid: Optional[np.ndarray] = None
+
+    @property
+    def rows(self) -> int:
+        return self.offsets.shape[0] - 1
 
 
 def string_codes(name: str, codes: np.ndarray, entries: Sequence[bytes],
@@ -514,11 +558,22 @@ class _Stored:
 
 
 def _page_ends(rows: int, value_rows: np.ndarray, value_bytes: np.ndarray,
-               start: int, page_rows: int) -> List[int]:
+               start: int, page_rows: int,
+               snap: Optional[np.ndarray] = None) -> List[int]:
     """Row ends of the pages from row ``start``: a page closes at
-    ``page_rows`` rows or once its values reach ``PAGE_BYTES``."""
+    ``page_rows`` rows or once its values reach ``PAGE_BYTES``, moved on
+    to the next end in ``snap`` (where a nested column's row ends; sorted,
+    last ``rows``) when given."""
+    def at(e: int) -> int:
+        return e if snap is None else int(snap[np.searchsorted(snap, e)])
+
     if value_bytes is None:  # no value can reach the byte cap
-        return list(range(start + page_rows, rows, page_rows)) + [rows]
+        ends = []
+        for e in list(range(start + page_rows, rows, page_rows)) + [rows]:
+            e = at(e)
+            if not ends or e > ends[-1]:
+                ends.append(e)
+        return ends
     ends = []
     cum = np.concatenate([[0], np.cumsum(value_bytes)])
     r = start
@@ -529,20 +584,21 @@ def _page_ends(rows: int, value_rows: np.ndarray, value_bytes: np.ndarray,
         k = np.searchsorted(cum, cum[i0] + PAGE_BYTES, side="left")
         if k <= i1:
             e = min(e, int(value_rows[k - 1]) + 1)
+        e = at(e)
         ends.append(e)
         r = e
     return ends
 
 
-def _page(ptype: int, payload: bytes, num_values: int, encoding: int
-          ) -> bytes:
+def _page(ptype: int, payload: bytes, num_values: int, encoding: int,
+          rep_encoding: int = _BIT_PACKED) -> bytes:
     t = _Thrift()
     t.i32(1, ptype).i32(2, len(payload)).i32(3, len(payload))
     crc = zlib.crc32(payload)
     t.i32(4, crc - (1 << 32) if crc >= 1 << 31 else crc)
     if ptype == _DATA_PAGE:
         t.begin(5).i32(1, num_values).i32(2, encoding).i32(3, _RLE) \
-            .i32(4, _BIT_PACKED).end()
+            .i32(4, rep_encoding).end()
     else:
         t.begin(7).i32(1, num_values).i32(2, encoding).boolean(3, False)\
             .end()
@@ -565,19 +621,38 @@ def _def_levels(valid: Optional[np.ndarray], begin: int,
     return [struct.pack("<I", len(x)) + x for x in bodies]
 
 
+def _nested_levels(levels, lo: int, begin: int,
+                   ends: Sequence[int]) -> List[bytes]:
+    """The v1 repetition levels (none where ``max_rep`` is 0), then
+    definition levels (each a u32 length + the hybrid at the width of its
+    maximum) of each page [ends[p-1], ends[p])
+    from chunk entry ``begin``; ``levels`` = (defs, reps, max_def,
+    max_rep) of the whole column, the chunk from entry ``lo``."""
+    defs, reps, max_def, max_rep = levels
+    seg = slice(lo + begin, lo + ends[-1])
+    rel = np.asarray(ends) - begin
+    pack = struct.Struct("<I").pack
+    out = [pack(len(d)) + d for d in
+           hybrid_pages(defs[seg], rel, [_width(max_def)] * len(ends))]
+    if max_rep == 0:  # a leaf under no LIST has no repetition levels
+        return out
+    return [pack(len(r)) + r + d for r, d in zip(
+        hybrid_pages(reps[seg], rel, [_width(max_rep)] * len(ends)), out)]
+
+
 def _width(max_id: int) -> int:
     return int(max_id).bit_length()
 
 
 def _dict_pages(st: "_Stored", rows: int, page_rows: int,
-                dict_bytes_cap: int):
+                dict_bytes_cap: int, snap: Optional[np.ndarray] = None):
     """parquet-mr's dictionary decision for one chunk: (index-page
     bodies, their row ends, the entries of the dictionary page), or None
     when the dictionary is dropped at the first page. Pages from the one
     where the dictionary passes the cap on fall back to PLAIN."""
     col, vrows = st.col, st.rows
     raw = st.plain_bytes()
-    ends = _page_ends(rows, vrows, None, 0, page_rows)
+    ends = _page_ends(rows, vrows, None, 0, page_rows, snap)
     handed = col.codes is not None
     # the first page decides; the whole chunk's dictionary is computed
     # only when it is kept (first-seen ids of a prefix do not change)
@@ -621,25 +696,39 @@ def _dict_pages(st: "_Stored", rows: int, page_rows: int,
 
 
 def _encode_chunk(col: ParquetColumn, lo: int, hi: int, page_rows: int,
-                  dict_bytes_cap: int):
+                  dict_bytes_cap: int, levels=None):
     """(dictionary page or None, data pages, the encodings used, the
-    stored values) of rows [lo, hi) of ``col``."""
+    stored values) of rows [lo, hi) of ``col``. A nested leaf passes its
+    entries as ``col`` (valid = def == max_def) and ``levels`` = (defs,
+    reps, max_def, max_rep) over all its entries: [lo, hi) are entries
+    then, and a page ends where a row does."""
     st = _Stored(col, lo, hi)
     rows = hi - lo
     vrows = st.rows
+    snap = None
+    # a leaf under a LIST writes its repetition levels in the hybrid (RLE)
+    rep_enc = _RLE if levels is not None and levels[3] else _BIT_PACKED
+    if levels is None:
+        def level_pages(begin, ends):
+            return _def_levels(st.valid, begin, ends)
+    else:
+        snap = np.append(np.flatnonzero(levels[1][lo:hi] == 0)[1:], rows)
+
+        def level_pages(begin, ends):
+            return _nested_levels(levels, lo, begin, ends)
     pages = []
     encodings = {_RLE, _BIT_PACKED}
     dict_page = None
     plain_from = 0  # chunk row where PLAIN pages start
     got = None
     if col.physical not in (_BOOLEAN, _FLBA) and vrows.size:
-        got = _dict_pages(st, rows, page_rows, dict_bytes_cap)
+        got = _dict_pages(st, rows, page_rows, dict_bytes_cap, snap)
     if got is not None:
         bodies, ends, ents = got
-        for lv, body, b, e in zip(_def_levels(st.valid, 0, ends), bodies,
+        for lv, body, b, e in zip(level_pages(0, ends), bodies,
                                   [0] + ends[:-1], ends):
             pages.append(_page(_DATA_PAGE, lv + body, e - b,
-                               _PLAIN_DICTIONARY))
+                               _PLAIN_DICTIONARY, rep_enc))
         plain_from = ends[-1]
         if col.physical == _BYTE_ARRAY:
             dpay = b"".join(struct.pack("<I", len(x)) + x for x in ents)
@@ -655,15 +744,15 @@ def _encode_chunk(col: ParquetColumn, lo: int, hi: int, page_rows: int,
         capped = None if col.physical != _BYTE_ARRAY and \
             float(raw[0] if raw.size else 0) * page_rows < PAGE_BYTES \
             else raw
-        ends = _page_ends(rows, vrows, capped, plain_from, page_rows)
+        ends = _page_ends(rows, vrows, capped, plain_from, page_rows, snap)
         begins = [plain_from] + ends[:-1]
-        levels = _def_levels(st.valid, plain_from, ends)
         stops = np.searchsorted(vrows, [plain_from] + ends)
-        for i, (lv, b, e) in enumerate(zip(levels, begins, ends)):
+        for i, (lv, b, e) in enumerate(zip(level_pages(plain_from, ends),
+                                           begins, ends)):
             pages.append(_page(_DATA_PAGE,
                                lv + st.plain(int(stops[i]),
                                              int(stops[i + 1])),
-                               e - b, _PLAIN))
+                               e - b, _PLAIN, rep_enc))
     return dict_page, pages, encodings, st
 
 
@@ -687,10 +776,105 @@ def _stats(t: _Thrift, col: ParquetColumn, st: _Stored, nulls: int) -> None:
     t.end()
 
 
-def _schema(t: _Thrift, columns: Sequence[ParquetColumn]) -> None:
-    t.list(2, 12, len(columns) + 1)
-    t.begin().binary(4, b"spark_schema").i32(5, len(columns)).end()
+@dataclass
+class _Leaf:
+    """One leaf column chunk source: its schema path, the column it
+    encodes (a nested leaf's entries), and for a nested leaf its levels
+    (defs, reps, max_def, max_rep) and each row's first entry
+    (``row_entry``, rows + 1)."""
+
+    path: List[str]
+    col: ParquetColumn
+    levels: Optional[tuple] = None
+    row_entry: Optional[np.ndarray] = None
+
+    def span(self, lo: int, hi: int) -> Tuple[int, int]:
+        """The entries of rows [lo, hi)."""
+        if self.row_entry is None:
+            return lo, hi
+        return int(self.row_entry[lo]), int(self.row_entry[hi])
+
+    def encode(self, lo: int, hi: int, page_rows: int, cap: int):
+        a, b = self.span(lo, hi)
+        return _encode_chunk(self.col, a, b, page_rows, cap, self.levels)
+
+
+def _entry_column(col: ParquetColumn, src: np.ndarray,
+                  stored: np.ndarray) -> ParquetColumn:
+    """A leaf's values laid out over its entries: entry k holds value
+    ``src[k]`` where ``stored[k]``, else nothing (a null entry)."""
+    rows = np.where(stored, src, 0)
+    if col.physical != _BYTE_ARRAY:
+        return ParquetColumn(col.name, values=col.values[rows],
+                             valid=stored, converted=col.converted,
+                             decimal=col.decimal)
+    if col.codes is not None:
+        return ParquetColumn(col.name, codes=col.codes[rows],
+                             entries=col.entries, valid=stored,
+                             converted=col.converted)
+    lens = np.where(stored, col.offsets[rows + 1] - col.offsets[rows], 0)
+    offsets = np.zeros(lens.size + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    first = np.repeat(col.offsets[rows] - offsets[:-1], lens)
+    chars = col.chars[first + np.arange(int(offsets[-1]))]
+    return ParquetColumn(col.name, chars=chars, offsets=offsets,
+                         valid=stored, converted=col.converted)
+
+
+def _shred(node, src, d, r, max_def, max_rep, path, out) -> None:
+    """Record shredding of ``node`` (every field OPTIONAL, as Spark writes
+    them): ``src`` each entry's row of the node (-1: no value reaches it),
+    ``d``/``r`` its definition and repetition levels so far."""
+    max_def += 1
+    have = src >= 0
+    if node.valid is not None:
+        have &= node.valid[np.maximum(src, 0)]
+    d = np.where(have, max_def, d)
+    src = np.where(have, src, -1)
+    if isinstance(node, ParquetColumn):
+        stored = d == max_def
+        entries = np.append(np.flatnonzero(r == 0), r.size)
+        out.append(_Leaf(path + [node.name],
+                         _entry_column(node, src, stored),
+                         (d.astype(np.int32), r.astype(np.int32), max_def,
+                          max_rep), entries))
+    elif isinstance(node, StructField):
+        for f in node.fields:
+            _shred(f, src, d, r, max_def, max_rep, path + [node.name], out)
+    else:  # ListField: its repeated group "list", one entry per element
+        offs = np.asarray(node.offsets, np.int64)
+        lens = np.where(have, offs[1:][np.maximum(src, 0)]
+                        - offs[:-1][np.maximum(src, 0)], 0)
+        each = np.maximum(lens, 1)
+        at = np.repeat(np.arange(src.size), each)
+        k = np.arange(at.size) - np.repeat(np.cumsum(each) - each, each)
+        elem = lens[at] > 0
+        nsrc = np.where(elem, offs[:-1][np.maximum(src, 0)][at] + k, -1)
+        nd = np.where(elem, max_def + 1, d[at])
+        nr = np.where(k == 0, r[at], max_rep + 1)
+        element = node.element
+        named = (replace(element, name="element")
+                 if isinstance(element, ParquetColumn)
+                 else StructField("element", element.fields, element.valid))
+        _shred(named, nsrc, nd, nr, max_def + 1, max_rep + 1,
+               path + [node.name, "list"], out)
+
+
+def _leaves(columns) -> List[_Leaf]:
+    out: List[_Leaf] = []
     for c in columns:
+        if isinstance(c, ParquetColumn):
+            out.append(_Leaf([c.name], c))
+            continue
+        n = c.rows
+        _shred(c, np.arange(n), np.zeros(n, np.int64),
+               np.zeros(n, np.int64), 0, 0, [], out)
+    return out
+
+
+def _schema_node(t: _Thrift, c) -> int:
+    """Schema elements of ``c`` depth first; returns how many."""
+    if isinstance(c, ParquetColumn):
         t.begin().i32(1, c.physical)
         if c.physical == _FLBA:
             t.i32(2, c.type_length)
@@ -701,61 +885,91 @@ def _schema(t: _Thrift, columns: Sequence[ParquetColumn]) -> None:
         elif c.converted is not None:
             t.i32(6, c.converted)
         t.end()
+        return 1
+    if isinstance(c, StructField):
+        t.begin().i32(3, _OPTIONAL).binary(4, c.name.encode()) \
+            .i32(5, len(c.fields)).end()
+        return 1 + sum(_schema_node(t, f) for f in c.fields)
+    t.begin().i32(3, _OPTIONAL).binary(4, c.name.encode()).i32(5, 1) \
+        .i32(6, _CT_LIST).end()
+    t.begin().i32(3, _REPEATED).binary(4, b"list").i32(5, 1).end()
+    element = c.element
+    named = (replace(element, name="element")
+             if isinstance(element, ParquetColumn)
+             else StructField("element", element.fields, element.valid))
+    return 2 + _schema_node(t, named)
 
 
-def _group_rows(columns, start: int, rows: int, page_rows: int,
-                dict_bytes_cap: int) -> int:
+def _count_nodes(c) -> int:
+    if isinstance(c, ParquetColumn):
+        return 1
+    if isinstance(c, StructField):
+        return 1 + sum(_count_nodes(f) for f in c.fields)
+    return 2 + _count_nodes(c.element)
+
+
+def _schema(t: _Thrift, columns) -> None:
+    t.list(2, 12, 1 + sum(_count_nodes(c) for c in columns))
+    t.begin().binary(4, b"spark_schema").i32(5, len(columns)).end()
+    for c in columns:
+        _schema_node(t, c)
+
+
+def _group_rows(leaves: Sequence[_Leaf], start: int, rows: int,
+                page_rows: int, dict_bytes_cap: int) -> int:
     """Rows of the row group from ``start``: the group's encoded bytes
     per row, read off an encoding of its first pages, against
     ``target``; whole pages, at least one."""
     sample = min(rows - start, 4 * page_rows)
     size = 0
-    for c in columns:
-        d, pages, _, _ = _encode_chunk(c, start, start + sample, page_rows,
-                                       dict_bytes_cap)
+    for leaf in leaves:
+        d, pages, _, _ = leaf.encode(start, start + sample, page_rows,
+                                     dict_bytes_cap)
         size += sum(len(p) for p in pages) + (len(d) if d else 0)
     per_row = max(size / sample, 1e-9)
     fit = int(ROW_GROUP_BYTES / per_row) // page_rows * page_rows
     return min(rows - start, max(page_rows, fit))
 
 
-def write_parquet(path: str, columns: Sequence[ParquetColumn],
+def write_parquet(path: str, columns: Sequence[object],
                   page_rows: int = PAGE_ROWS,
                   dict_page_bytes: int = DICT_PAGE_BYTES,
                   row_group_rows: Optional[int] = None) -> dict:
-    """Write ``columns`` (equal row counts) to ``path``. Row groups hold
-    ``row_group_rows`` rows when given, else ~``ROW_GROUP_BYTES``; the
-    tests shrink ``page_rows`` and ``dict_page_bytes``.
+    """Write ``columns`` (ParquetColumn, StructField or ListField, equal
+    row counts) to ``path``. Row groups hold ``row_group_rows`` rows when
+    given, else ~``ROW_GROUP_BYTES``; the tests shrink ``page_rows`` and
+    ``dict_page_bytes`` (a nested leaf's pages count entries).
     Returns {"row_groups": [rows...], "bytes": file size, "encodings":
-    {column: [encoding names of its chunks]}}."""
+    {leaf path: [encoding names of its chunks]}}."""
     rows = columns[0].rows
     if any(c.rows != rows for c in columns):
         raise ValueError("columns must share a row count")
+    leaves = _leaves(columns)
     bounds = []
     start = 0
     while start < rows or not bounds:
         n = (min(row_group_rows, rows - start) if row_group_rows
-             else _group_rows(columns, start, rows, page_rows,
+             else _group_rows(leaves, start, rows, page_rows,
                               dict_page_bytes)
              if rows else 0)
         bounds.append((start, n))
         start += n
-    # every (row group, column) chunk encodes in parallel (numpy and zlib
+    # every (row group, leaf) chunk encodes in parallel (numpy and zlib
     # release the GIL)
     with ThreadPoolExecutor(max_workers=8) as pool:
         encoded = list(pool.map(
-            lambda job: _encode_chunk(job[1], job[0][0],
-                                      job[0][0] + job[0][1], page_rows,
-                                      dict_page_bytes),
-            [(b, c) for b in bounds for c in columns]))
+            lambda job: job[1].encode(job[0][0], job[0][0] + job[0][1],
+                                      page_rows, dict_page_bytes),
+            [(b, leaf) for b in bounds for leaf in leaves]))
     body = bytearray(b"PAR1")
     groups = []
-    used = {c.name: [] for c in columns}
+    used = {".".join(leaf.path): [] for leaf in leaves}
     names = {_PLAIN: "PLAIN", _PLAIN_DICTIONARY: "PLAIN_DICTIONARY"}
     for gi, (start, n) in enumerate(bounds):
         chunks = []
-        for ci, c in enumerate(columns):
-            d, pages, enc, st = encoded[gi * len(columns) + ci]
+        for li, leaf in enumerate(leaves):
+            d, pages, enc, st = encoded[gi * len(leaves) + li]
+            a, b = leaf.span(start, start + n)
             chunk_off = len(body)
             dict_off = None
             if d is not None:
@@ -764,10 +978,11 @@ def write_parquet(path: str, columns: Sequence[ParquetColumn],
             data_off = len(body)
             for p in pages:
                 body += p
-            used[c.name].append(sorted(names[e] for e in enc if e in names))
-            chunks.append((c, chunk_off, dict_off, data_off,
+            used[".".join(leaf.path)].append(
+                sorted(names[e] for e in enc if e in names))
+            chunks.append((leaf, chunk_off, dict_off, data_off,
                            len(body) - chunk_off, enc, st,
-                           n - st.rows.size))
+                           (b - a) - st.rows.size, b - a))
         groups.append((start, n, chunks))
     t = _Thrift()
     t.i32(1, 1)
@@ -778,17 +993,20 @@ def write_parquet(path: str, columns: Sequence[ParquetColumn],
         t.begin()
         t.list(1, 12, len(chunks))
         total = 0
-        for c, off, dict_off, data_off, size, enc, st, nulls in chunks:
+        for leaf, off, dict_off, data_off, size, enc, st, nulls, nv \
+                in chunks:
+            c = leaf.col
             total += size
             t.begin().i64(2, off)
             t.begin(3).i32(1, c.physical)
             t.list(2, 5, len(enc))
             for e in sorted(enc):
                 t._varint(((e << 1) ^ (e >> 31)) & 0xFFFFFFFF)
-            t.list(3, 8, 1)
-            t._varint(len(c.name))
-            t.buf += c.name.encode()
-            t.i32(4, 0).i64(5, n).i64(6, size).i64(7, size)
+            t.list(3, 8, len(leaf.path))
+            for part in leaf.path:
+                t._varint(len(part.encode()))
+                t.buf += part.encode()
+            t.i32(4, 0).i64(5, nv).i64(6, size).i64(7, size)
             t.i64(9, data_off)
             if dict_off is not None:
                 t.i64(11, dict_off)

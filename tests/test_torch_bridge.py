@@ -7,7 +7,9 @@ the same wire columns, made with numpy from a seed (the shapes of
 byte: dtype strings, row counts, data, offsets and validity bytes, and
 the meta JSON (the DECIMAL128 ops in ``test_torch_bridge_decimal.py``,
 the decimal cast in ``test_torch_cast_decimal_wide.py``). The ops the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item. A fault config that
+``NotImplementedError`` naming their ROADMAP item. The LIST results of
+``histogram.create``, ``histogram.percentile`` and ``zorder.interleave``
+cross decomposed, as the JAX package decomposes them. A fault config that
 names an op fires inside both packages' ``call``, with the same guard
 metrics.
 """
@@ -106,6 +108,9 @@ CASES = [
     ("cast.decimal_to_string", {}, ["dec_a"]),
     ("rowconv.to_rows", {}, ["i64", "i32", "f64"]),
     ("zorder.hilbert", {"num_bits": 12}, ["h32", "h32b"]),
+    ("zorder.interleave", {}, ["h32", "h32b"]),
+    ("histogram.create", {"as_lists": True}, ["f64", "keys"]),
+    ("histogram.create", {"as_lists": False}, ["i64", "keys"]),
     ("datetime.rebase", {"direction": "gregorian_to_julian"}, ["days"]),
     ("tz.to_utc", {"zone": "Asia/Shanghai"}, ["micros"]),
     ("tz.from_utc", {"zone": "Asia/Shanghai"}, ["micros"]),
@@ -124,10 +129,9 @@ DECIMAL_CASES = [
     ("decimal.remainder", {"scale": 2}, ["dec_a", "dec_b"]),
 ]
 # ops whose inputs are another op's outputs (on the JAX side)
-CHAINED = ["bloom.probe", "bloom.merge", "rowconv.from_rows"]
-UNPORTED = {"histogram.create": "A1", "histogram.percentile": "A1",
-            "zorder.interleave": "A1", "json.get_json_object": "A13",
-            "json.from_json_map": "A13"}
+CHAINED = ["bloom.probe", "bloom.merge", "rowconv.from_rows",
+           "histogram.percentile"]
+UNPORTED = {"json.get_json_object": "A13", "json.from_json_map": "A13"}
 
 
 def both(op, args, wires):
@@ -151,7 +155,7 @@ def test_ops_match():
     ported = {c[0] for c in CASES + DECIMAL_CASES + [S2D_CASE]} | set(
         CHAINED)
     assert ported | set(UNPORTED) == set(JB.ops())
-    assert len(ported) == 26
+    assert len(ported) == 29
 
 
 @pytest.mark.parametrize("op,args,names", CASES, ids=[c[0] for c in CASES])
@@ -176,6 +180,23 @@ def test_chained_ops_match():
                                                 IN["f64"]])
     assert_same(*both("rowconv.from_rows",
                       {"types": ["int64", "int32", "float64"]}, rows))
+
+
+@pytest.mark.parametrize("as_list", [True, False])
+def test_histogram_percentile_matches(as_list):
+    """histogram.percentile over histogram.create's decomposed output,
+    one list a row and one list of every row."""
+    for as_lists in (True, False):
+        (h, _), _ = both("histogram.create", {"as_lists": as_lists},
+                         [IN["f64"], IN["keys"]])
+        assert_same(*both("histogram.percentile",
+                          {"percentages": [0.0, 0.3, 0.5, 1.0],
+                           "as_list": as_list}, h[:3]))
+
+
+def test_zorder_interleave_without_columns_matches():
+    """interleaveBits(numRows): the row count rides the arguments."""
+    assert_same(*both("zorder.interleave", {"num_rows": 5}, []))
 
 
 @pytest.mark.parametrize("op", sorted(UNPORTED))

@@ -96,9 +96,14 @@ def test_unported_types_raise_with_queue_item():
     assert pc.data.shape == (2, 4) and pc.to_pylist() == jc.to_pylist()
     assert interop.col_to_wire(pc) == bridge.col_to_wire(jc)
     assert dt.DType(dt.TypeId.DECIMAL128, 2).itemsize == 16
-    # nested columns stay queued
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        dt.DType(dt.TypeId.STRUCT).itemsize
+    # nested columns have no element size: the KeyError the JAX
+    # package's size table raises
+    for tid in (dt.TypeId.STRUCT, dt.TypeId.LIST):
+        with pytest.raises(KeyError) as got:
+            dt.DType(tid).itemsize
+        with pytest.raises(KeyError) as want:
+            jdt.DType(jdt.TypeId(tid.value)).itemsize
+        assert str(got.value) == str(want.value)
 
 
 def test_device_nbytes_and_valid_mask():

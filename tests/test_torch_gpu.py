@@ -1008,3 +1008,131 @@ def test_bridge_on_card_equals_cpu(cuda):
         ws = [wires[k] for k in names]
         want = bridge.call(op, json.dumps(args), ws, device="cpu")
         assert bridge.call(op, json.dumps(args), ws) == want, op
+
+
+def _nested_hash_columns(n, device, seed=0):
+    """A STRUCT key, LIST<INT64>, LIST<STRING> and LIST<LIST<INT32>> with
+    nulls at every level, on ``device``."""
+    rng = np.random.default_rng(seed)
+
+    def offsets(k, most):
+        lens = rng.integers(0, most + 1, k)
+        return torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])
+                                .astype(np.int32)).to(device)
+
+    def valid(k):
+        return torch.from_numpy(rng.random(k) > 0.1).to(device)
+
+    o = offsets(n, 6)
+    m = int(o[-1])
+    leaf = Column.from_numpy(rng.integers(-2**62, 2**62, m), dt.INT64,
+                             validity=rng.random(m) > 0.2, device=device)
+    strs = Column.from_pylist([None if rng.random() < 0.2 else
+                               "s" * int(rng.integers(0, 40))
+                               for _ in range(m)], dt.STRING, device=device)
+    inner = offsets(m, 3)
+    ints = Column.from_numpy(rng.integers(-9, 9, int(inner[-1]))
+                             .astype(np.int32), dt.INT32, device=device)
+    key = Column.struct_of([
+        Column.from_numpy(rng.integers(0, 10**6, n), dt.INT64,
+                          validity=rng.random(n) > 0.1, device=device),
+        Column.from_numpy(rng.integers(0, 2400, n).astype(np.int32),
+                          dt.INT32, device=device)], valid(n))
+    return [key, Column.list_of(leaf, o, valid(n)),
+            Column.list_of(strs, o), Column.list_of(
+                Column.list_of(ints, inner, valid(m)), o, valid(n))]
+
+
+@pytest.mark.parametrize("n", [1, 33, 20_000])
+def test_nested_murmur3_on_card_equals_cpu(cuda, n):
+    """B1's LIST entries (u64, byte and u32 leaves, composed LIST<LIST>)
+    and a flattened STRUCT, one launch, == the plain version on the
+    CPU."""
+    K.reset_launches()
+    got = H.murmur_hash3_32(_nested_hash_columns(n, cuda))
+    assert K.murmur3_fixed_rows.launches == 1
+    want = H.murmur_hash3_32(_nested_hash_columns(n, "cpu"))
+    assert torch.equal(got.data.cpu(), want.data)
+
+
+@pytest.mark.parametrize("algo", ["murmur3", "xxhash64", "strings"])
+def test_hash_past_64_units_takes_seeded_launches(cuda, algo):
+    """130 units: three launches, each seeded per row by the last, ==
+    the plain version ("strings": xxhash64 with a STRING entry in each
+    launch, B2's staged kernel)."""
+    rng = np.random.default_rng(5)
+    n = 5000
+    schema = [("u32" if i % 2 else "u64",
+               torch.from_numpy(rng.integers(-99, 99, n).astype(
+                   np.int32 if i % 2 else np.int64)).to(cuda),
+               torch.from_numpy(rng.random(n) > 0.1).to(cuda))
+              for i in range(130)]
+    if algo == "strings":
+        s = Column.from_pylist(["x" * int(k) for k in
+                                rng.integers(0, 70, n)], dt.STRING,
+                               device=cuda)
+        for at in (3, 70, 129):
+            schema[at] = ("str", (s.offsets, s.data), schema[at][2])
+    fn = K.murmur3_fixed_rows if algo == "murmur3" else K.xxhash64_fixed_rows
+    plain = (K.murmur3_fixed_rows_plain if algo == "murmur3"
+             else K.xxhash64_fixed_rows_plain)
+    K.reset_launches()
+    got = fn(schema, 42, n)
+    assert fn.launches == 3
+    assert torch.equal(got, plain(schema, 42, n))
+
+
+def test_b2_refuses_a_list_entry_on_card(cuda):
+    s = torch.zeros(4, dtype=torch.int32, device=cuda)
+    leaf = torch.zeros(0, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="no LIST schema entry"):
+        K.xxhash64_fixed_rows([("list", (s, s, "u64", leaf, None), None)],
+                              42, 4)
+
+
+def test_nested_ops_on_card_equal_cpu(cuda):
+    """Gather, concat, histograms, percentiles and interleave_bits of
+    nested columns on the card == on the CPU."""
+    from spark_rapids_jni_tpu_torch.columnar.table_ops import concat_columns
+    from spark_rapids_jni_tpu_torch.ops import histogram as HI
+    from spark_rapids_jni_tpu_torch.ops.sort import gather
+    from spark_rapids_jni_tpu_torch.ops.zorder import interleave_bits
+    out = {}
+    for d in ("cpu", cuda):
+        cols = _nested_hash_columns(3000, d, seed=9)
+        idx = torch.from_numpy(np.random.default_rng(1).integers(
+            0, 3000, 5000)).to(d)
+        lst = cols[3]
+        g = gather(lst, idx)
+        c = concat_columns([cols[0], gather(cols[0], idx)])
+        leaf = cols[1].children[0]
+        freq = Column(dt.INT64, leaf.size, data=torch.ones(
+            leaf.size, dtype=torch.int64, device=d))
+        h = HI.create_histogram_if_valid(leaf, freq, False)
+        hist = Column.list_of(Column.struct_of(
+            [Column(dt.INT64, leaf.size, data=leaf.data), freq]),
+            cols[1].offsets, cols[1].validity)
+        p = HI.percentile_from_histogram(hist, [0.1, 0.5, 0.9], True)
+        z = interleave_bits([Column(dt.INT32, 3000, data=(
+            idx[:3000] * 7919).to(torch.int32)), cols[0].children[1]])
+        out[str(d)] = [x.to_pylist() for x in (g, c, h, p, z)]
+    assert out["cpu"] == out[str(cuda)]
+
+
+def test_nested_parquet_on_card_equals_cpu(cuda, tmp_path):
+    """The writer's nested layouts read on the card (the LIST<INT64>
+    through the device tier) == read on the CPU."""
+    import chip_smoke
+    from spark_rapids_jni_tpu_torch.parquet.reader import ParquetReader
+    from spark_rapids_jni_tpu_torch.utils import datagen_parquet as W
+    o = chip_smoke.nested_orders_arrays(40_000, torch.device("cpu"))
+    path = str(tmp_path / "orders.parquet")
+    W.write_parquet(path, chip_smoke.nested_orders_columns(o),
+                    page_rows=2000, row_group_rows=3000)
+    with ParquetReader(path, device=cuda) as r:
+        card = r.read_all()
+        assert r.routes["o_linekeys"]["tier"] == "device"
+    with ParquetReader(path, device="cpu") as r:
+        host = r.read_all()
+    for a, b in zip(card, host):
+        assert a.to_pylist() == b.to_pylist()

@@ -268,10 +268,15 @@ def test_kernel_wrappers_compute_plain_only_on_the_cpu():
 
 
 def test_unported_hash_inputs_raise():
-    # nested columns stay queued; an empty DECIMAL128 column hashes
-    s = Column(dt.DType(dt.TypeId.STRUCT), 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        H.murmur_hash3_32([s])
+    # the nested inputs Spark refuses: xxhash64 of a nested column, murmur3
+    # of a LIST of STRUCT; an empty DECIMAL128 column hashes
+    s = Column.struct_of([Column(dt.INT32, 0, data=torch.zeros(
+        0, dtype=torch.int32))])
+    with pytest.raises(TypeError, match="xxhash64 does not support nested"):
+        H.xxhash64([s])
+    lst = Column.list_of(s, torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="LIST of STRUCT"):
+        H.murmur_hash3_32([lst])
     d = Column(dt.decimal128(2), 0, data=torch.zeros((0, 4),
                                                      dtype=torch.int32))
     assert H.murmur_hash3_32([d]).size == 0

@@ -1,8 +1,8 @@
 """Port parity: ``hilbert_index`` (spark_rapids_jni_tpu_torch.ops.zorder)
 against the JAX package's ops/zorder.py, bit-exact, on the inputs of
 tests/test_zorder.py (grids, nulls, the argument checks) and seeded INT32
-columns; ``interleave_bits`` returns LIST<UINT8> and is queued with nested
-columns (ROADMAP A1)."""
+columns; ``interleave_bits`` (a LIST<UINT8> column) on the inputs of
+tests/test_zorder.py:41-125 and seeded columns of every width."""
 
 import numpy as np
 import pytest
@@ -63,5 +63,62 @@ def test_hilbert_argument_checks_match():
 
 
 def test_interleave_bits_names_its_queue_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        Z.interleave_bits([to_port(JColumn.from_pylist([1], jdt.INT32))])
+    """Ported: a one-column interleave is the value's big-endian bytes,
+    as in the JAX package."""
+    jc = JColumn.from_pylist([1, None, -2], jdt.INT32)
+    want = JZ.interleave_bits([jc])
+    got = Z.interleave_bits([to_port(jc)])
+    assert_col_equal(want, got)
+    assert got.to_pylist() == [[0, 0, 0, 1], [0, 0, 0, 0],
+                               [255, 255, 255, 254]]
+
+
+# tests/test_zorder.py:41-125's inputs: the reference's matrices
+# (InterleaveBitsTest.java), with nulls, and seeded columns of each width
+REFERENCE_MATRICES = [
+    (jdt.INT32, [[0x00000000, None, -1, -0x00FF0100],
+                 [-1, 0x00000000, 0x00FF00FF, None]]),
+    (jdt.INT16, [[0x0000, 0x4444, 0x1111], [0x1111, -0x7778, 0x2222],
+                 [0x2222, 0x0000, 0x4444]]),
+]
+
+
+@pytest.mark.parametrize("dtype,columns", REFERENCE_MATRICES)
+def test_interleave_reference_matrices_match(dtype, columns):
+    jcols = [JColumn.from_pylist(c, dtype) for c in columns]
+    assert_col_equal(JZ.interleave_bits(jcols),
+                     Z.interleave_bits([to_port(c) for c in jcols]))
+
+
+@pytest.mark.parametrize("name,npt,ncols", [
+    ("int8", np.int8, 5), ("float32", np.float32, 3),
+    ("float64", np.float64, 2)])
+def test_interleave_seeded_columns_match(name, npt, ncols):
+    """Element widths of 1, 4 and 8 bytes and the float bit patterns
+    (random bytes: NaNs among them), nulls as zeros: column 0 is the most
+    significant."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    jcols = []
+    for _ in range(ncols):
+        raw = rng.integers(0, 256, 37 * np.dtype(npt).itemsize,
+                           dtype=np.uint8).view(npt)
+        jcols.append(JColumn.from_numpy(raw, jdt.DType(jdt.TypeId(name)),
+                                        validity=rng.random(37) > 0.2))
+    assert_col_equal(JZ.interleave_bits(jcols),
+                     Z.interleave_bits([to_port(c) for c in jcols]))
+
+
+def test_interleave_zero_columns_and_checks_match():
+    want = JZ.interleave_bits([], num_rows=10)
+    got = Z.interleave_bits([], num_rows=10, device="cpu")
+    assert_col_equal(want, got)
+    assert got.to_pylist() == [[]] * 10
+    a = JColumn.from_pylist([1], jdt.INT32)
+    for cols in ([], [a, JColumn.from_pylist([1], jdt.INT64)],
+                 [JColumn.from_pylist(["x"], jdt.STRING)],
+                 [JColumn.from_pylist([1], jdt.decimal128(2))]):
+        with pytest.raises((TypeError, ValueError)) as want:
+            JZ.interleave_bits(cols)
+        with pytest.raises(type(want.value)) as got:
+            Z.interleave_bits([to_port(c) for c in cols])
+        assert str(got.value) == str(want.value)

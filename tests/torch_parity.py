@@ -9,7 +9,8 @@ every value on the port's path is an integer or a bit pattern; a STRING
 column compares its characters and its offsets. An encoded column (DICT32,
 RLE, FOR) crosses child by child, and a child shared by several JAX
 columns (a dictionary, a run-lengths buffer) is shared by their port
-columns too.
+columns too. A LIST or STRUCT column crosses child by child, and compares
+its offsets, validity and children.
 """
 
 import dataclasses
@@ -151,12 +152,29 @@ def _encoded_to_port(col, device, memo):
                   children=tuple(kids))
 
 
+_NESTED = ("list", "struct")
+
+
+def _nested_to_port(col, device, memo):
+    """A LIST or STRUCT column, child by child: its int32 offsets and
+    validity as they are (the wire format carries no nested column)."""
+    kids = tuple(to_port(c, device, memo) for c in col.children)
+    offsets = (None if col.offsets is None else torch.from_numpy(
+        np.array(col.offsets, dtype=np.int32)).to(device))
+    validity = (None if col.validity is None else torch.from_numpy(
+        np.array(col.validity).astype(bool)).to(device))
+    return Column(pdt.DType(pdt.TypeId(col.dtype.id.value)), col.size,
+                  validity=validity, offsets=offsets, children=kids)
+
+
 def to_port(col, device="cpu", memo=None):
     """JAX-package Column -> port Column, through the wire format, with
-    its advisory stats; encoded columns child by child (``memo`` shares
-    children across the columns of one conversion)."""
+    its advisory stats; encoded and nested columns child by child
+    (``memo`` shares children across the columns of one conversion)."""
     if col.dtype.id.value in _ENCODED:
         return _encoded_to_port(col, device, {} if memo is None else memo)
+    if col.dtype.id.value in _NESTED:
+        return _nested_to_port(col, device, {} if memo is None else memo)
     out = interop.wire_to_col(bridge.col_to_wire(col), device)
     st = col.stats()
     if st is not None:
@@ -179,7 +197,7 @@ def col_bits(col) -> np.ndarray:
 
 
 def col_offsets(col) -> np.ndarray:
-    """int64 offsets of a STRING column of either package."""
+    """int64 offsets of a STRING or LIST column of either package."""
     o = col.offsets
     o = o.cpu().numpy() if isinstance(o, torch.Tensor) else np.asarray(o)
     return o.astype(np.int64)
@@ -192,9 +210,24 @@ def assert_col_equal(jcol, pcol, where="", presence=True):
     direct-slot groupby's sums carry none), so a comparison across
     engines passes ``presence=False``. An encoded column compares its
     scale (a FOR width) and every child the same way: dictionary values
-    and ranks, run values and lengths, the FOR header."""
+    and ranks, run values and lengths, the FOR header. A LIST compares
+    its offsets and child, a STRUCT its fields."""
     assert jcol.dtype.id.value == pcol.dtype.id.value, where
     assert jcol.size == pcol.size, where
+    if pcol.dtype.id.value in _NESTED:
+        assert not presence or (jcol.validity is None) == (
+            pcol.validity is None), f"{where}: validity presence differs"
+        np.testing.assert_array_equal(np.asarray(jcol.valid_mask()),
+                                      pcol.valid_mask().cpu().numpy(),
+                                      err_msg=f"{where}: validity")
+        if pcol.dtype.id.value == "list":
+            np.testing.assert_array_equal(col_offsets(jcol),
+                                          col_offsets(pcol),
+                                          err_msg=f"{where}: offsets")
+        assert len(jcol.children) == len(pcol.children), where
+        for i, (jc, pc) in enumerate(zip(jcol.children, pcol.children)):
+            assert_col_equal(jc, pc, f"{where} child {i}", presence)
+        return
     if pcol.dtype.id.value in _ENCODED:
         assert jcol.dtype.scale == pcol.dtype.scale, where
         assert len(jcol.children) == len(pcol.children), where
