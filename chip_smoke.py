@@ -4,9 +4,10 @@
     python3 chip_smoke.py PHASE [ROWS]
 
 With no argument, the whole run below. With a phase name (memory_sf10,
-parquet_sf10, decimal_sf10, casts_sf10 or nested_sf10) and optionally a
-lineitem row count (SF10's 60M by default), phases 1 and 2 and then that
-phase alone, ending with its seconds.
+parquet_sf10, decimal_sf10, casts_sf10, nested_sf10 or weblog_strings)
+and optionally a row count (SF10's 60M lineitem rows by default;
+weblog_strings: 10M URLs, and two documents for every five URLs),
+phases 1 and 2 and then that phase alone, ending with its seconds.
 
 Drives the port's main path (spark_rapids_jni_tpu_torch) once on the card
 at TPC-H SF10 scale and checks it, in phases; any failure raises and the
@@ -166,14 +167,16 @@ run exits non-zero:
      on every row, the card == the CPU on 1M-row prefixes
      (float_to_string of both widths, format_number, both base casts, the
      JAX package's own cast cell == Python's float()), an ANSI error's row,
-     and each of the bridge's 29 ops == the op called directly (the 2
-     others raise naming their ROADMAP item); then times each cast at 60M
+     and each of the bridge's 31 ops == the op called directly (the json
+     ops over short JSON objects); then times each cast at 60M
      rows (first, warm median of 5, byte bound, launches and idle share by
      the profiler, peak memory), the price cast again over a column with
      one string in 100 of 256 characters, and the bridge's murmur3 split
      into marshalling and B1;
- 14. ``nested_sf10``: nested columns. Groups SF10's lineitem draws
-     (stably sorted on l_orderkey) into the 15M orders as o_orderkey, the
+ 14. ``nested_sf10``: nested columns (in the whole run at half SF10's
+     lineitems, ``NESTED_RUN_ROWS``; alone at SF10). Groups the lineitem
+     draws (stably sorted on l_orderkey) into their orders (15M at SF10)
+     as o_orderkey, the
      STRUCT key o_key (o_custkey, o_orderdate), LIST<INT64> o_linekeys
      and LIST<STRUCT> o_lines (l_quantity, l_extendedprice, l_shipdate),
      with 1% null o_lines rows, l_quantity elements and o_key rows, and
@@ -194,7 +197,25 @@ run exits non-zero:
      multiply-add rounds apart; then times the read (its split, idle
      share), each step (first and warm median of 5, bounds, launches,
      idle share, peak memory), B1 in each case (events, profiler, plain,
-     byte bound) and the bridge's ops.
+     byte bound) and the bridge's ops;
+ 15. ``weblog_strings``: Spark's string device tiers over one web-log
+     batch drawn from the seed (utils/datagen.weblog_urls, weblog_docs):
+     10M URLs of 60-200 bytes and 4M JSON events of 120-450 bytes (about
+     1.2 GB of characters each). With the launch counts and the tiers'
+     route counts set to 0: parse_url PROTOCOL, HOST and QUERY of the URL
+     column (one parse shared), parse_url(url, 'QUERY', 'utm_source') (the
+     host tier, by the contract), GROUP BY the host (the shuffle's
+     partition route over the HOST strings, B1, then the sorted groupby
+     count), get_json_object with four KEY/INDEX paths and a wildcard (the
+     host tier, by the contract), from_json's raw map, and the bridge's
+     two json ops at 1M rows; reads the counts; checks each device tier
+     against the host tier over the whole columns, the card against the
+     CPU (device tier forced) on 100K-row slices, the route counts
+     against the draw, the groupby against a Counter of the host tier's
+     hosts, B1 against its plain version and the bridge against direct
+     calls; then times each step (first, warm median of 5 over fresh
+     columns, the host tier's time, launches and idle share by the
+     profiler, host syncs, peak memory, byte bound).
 
 Prints JSON lines (timings, then the {"kernels": [...]} line, whose
 entries give each kernel's launches by path) and, last,
@@ -381,7 +402,8 @@ def main(argv=()):
     # one phase alone: (dev, card, rows) -> the phase's lines
     alone = {"memory_sf10": memory_phase, "parquet_sf10": parquet_phase,
              "decimal_sf10": decimal_phase, "casts_sf10": casts_phase,
-             "nested_sf10": nested_phase}
+             "nested_sf10": nested_phase, "weblog_strings": weblog_phase}
+    default_rows = {"weblog_strings": WEBLOG_URLS}
     if argv and (argv[0] not in alone or len(argv) > 2):
         print(f"usage: chip_smoke.py [{'|'.join(alone)} [ROWS]]",
               file=sys.stderr)
@@ -421,7 +443,8 @@ def main(argv=()):
 
     phase_end("build")
     if argv:
-        alone[argv[0]](dev, card, int(argv[1]) if argv[1:] else SF10_ROWS)
+        alone[argv[0]](dev, card, int(argv[1]) if argv[1:]
+                       else default_rows.get(argv[0], SF10_ROWS))
         phase_end(argv[0])
         jline({"phase_seconds": PHASE_SECONDS})
         return 0
@@ -491,8 +514,12 @@ def main(argv=()):
     phase_end("casts_sf10")
 
     # ---- phase 14: nested columns -----------------------------------------
-    paths["nested_sf10"] = nested_phase(dev, card, SF10_ROWS)
+    paths["nested_sf10"] = nested_phase(dev, card, NESTED_RUN_ROWS)
     phase_end("nested_sf10")
+
+    # ---- phase 15: the string device tiers over a web-log batch -----------
+    paths["weblog_strings"] = weblog_phase(dev, card, WEBLOG_URLS)
+    phase_end("weblog_strings")
     for entry, (_, wrapper, _, _) in zip(entries, K.KERNELS):
         entry["launches_by_path"] = {p: c[wrapper] for p, c in paths.items()}
     jline({"phase_seconds": PHASE_SECONDS})
@@ -2250,18 +2277,18 @@ def _read(path, dev, tier, encoded=False, timings=None, **kw):
         return table, r.routes, (time.perf_counter() - t) * 1e3
 
 
-def _profiled(fn, activities):
+def _profiled(fn, activities, attempts=2):
     """(profiler, fn()'s device events in start order, fn()'s wall ms) of
     one fn() call under torch.profiler, the call bracketed by two sentinel
     kernels on each side outside the timed span; a session counts only
     where the profiler's first and last device events are sentinels and
     fn() shows a device event of its own (else it dropped events: a
     session that misses launches reads a device busier or idler than it
-    was). Run once more if not; (None, None, None) when neither session
-    counts: the reading is not measured."""
+    was). Run again if not, up to ``attempts`` sessions; (None, None,
+    None) when none counts: the reading is not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import profile
-    for attempt in range(2):
+    for attempt in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=activities) as prof:
             _sentinels()
@@ -3652,8 +3679,7 @@ LONG_LEN = 256              # 13h: the long strings' length
 LONG_EVERY = 100            # 13h: one row in 100 is long
 ANSI_ROW = 500_000          # 13f: the bad row of the 1M-row column
 CAST_WARM = 5               # warm calls a cast is timed over (median)
-UNPORTED_OPS = {"json.get_json_object": "A13", "json.from_json_map": "A13"}
-BRIDGE_OPS = 29             # the ops the port's bridge runs (31 less json.*)
+BRIDGE_OPS = 31             # the ops the port's bridge runs: all of them
 
 
 def _prefix(col, n, device):
@@ -3733,13 +3759,13 @@ def _bits(col):
         torch.int64 if col.data.element_size() == 8 else torch.int32)
 
 
-def cast_profile(fn):
+def cast_profile(fn, attempts=2):
     """One warm call of fn() under torch.profiler (``_profiled``): its
     device launches (kernels; copies and fills counted apart), the
     device's busy time and its idle share; every field None where no
     session was whole."""
     from torch.profiler import ProfilerActivity
-    _, dev_ev, span_ms = _profiled(fn, [ProfilerActivity.CUDA])
+    _, dev_ev, span_ms = _profiled(fn, [ProfilerActivity.CUDA], attempts)
     if dev_ev is None:
         return {"launches_per_call": None, "copies_and_fills_per_call": None,
                 "profiled_wall_ms": None, "device_busy_ms": None,
@@ -3752,7 +3778,7 @@ def cast_profile(fn):
 
 
 def bridge_cases(dev, n, seed):
-    """(cases, wire columns): for each of the 29 ops the port's bridge
+    """(cases, wire columns): for each of the 31 ops the port's bridge
     runs, (op, args, input names, direct), with the inputs made with numpy
     from ``seed`` at n rows; ``direct(cols)`` runs the port's op on the
     marshalled columns without the bridge, as a caller of the op would."""
@@ -3766,7 +3792,9 @@ def bridge_cases(dev, n, seed):
     from spark_rapids_jni_tpu_torch.ops import cast_string_base as CB
     from spark_rapids_jni_tpu_torch.ops import datetime_rebase as DR
     from spark_rapids_jni_tpu_torch.ops import decimal128 as D
+    from spark_rapids_jni_tpu_torch.ops import get_json_object as GJ
     from spark_rapids_jni_tpu_torch.ops import hashing as H
+    from spark_rapids_jni_tpu_torch.ops import map_utils as MU
     from spark_rapids_jni_tpu_torch.ops import histogram as HI
     from spark_rapids_jni_tpu_torch.ops import row_conversion as R
     from spark_rapids_jni_tpu_torch.ops import timezones as TZ
@@ -3806,6 +3834,16 @@ def bridge_cases(dev, n, seed):
          "h32": fixed("int32", rng.integers(0, 1 << 12, n).astype(np.int32)),
          "h32b": fixed("int32", rng.integers(0, 1 << 12, n).astype(np.int32)),
          "freq": fixed("int64", rng.integers(0, 4, n))}
+    # short JSON objects, one in 16 with a float, an escape or no object
+    kinds = rng.integers(0, 16, n)
+    docs = np.char.add(np.char.add('{"a":', ints.astype(str)),
+                       ',"b":{"c":"x"}}')
+    docs = np.where(kinds == 0, '{"a":1.5e3,"b":{"c":"y\\n"}}', docs)
+    docs = np.where(kinds == 1, "[1,2]", docs)
+    doffs = np.zeros(n + 1, np.int64)
+    np.cumsum(np.char.str_len(docs), out=doffs[1:])
+    w["json"] = ("string", n, "".join(docs.tolist()).encode(),
+                 doffs.tobytes(), valid)
     bloom = {"num_hashes": 3, "num_longs": 1 << 14}
     pcts = {"percentages": [0.25, 0.5, 0.75], "as_list": True}
 
@@ -3832,6 +3870,10 @@ def bridge_cases(dev, n, seed):
     def interleave(c):
         z = interleave_bits(c)
         return [offs_wire(z), z.children[0]]
+
+    def raw_map(c):
+        m = MU.extract_raw_map_from_json_string(c[0])
+        return list_parts(m, m.children[0].children)
 
     def put(col):
         return BF.bloom_filter_put(BF.bloom_filter_create(3, 1 << 14, dev),
@@ -3928,15 +3970,17 @@ def bridge_cases(dev, n, seed):
          lambda c: [TZ.convert_timestamp_to_utc(c[0], kolkata, 0)]),
         ("tz.from_utc", {"zone": "Asia/Kolkata"}, ["micros"],
          lambda c: [TZ.convert_utc_timestamp_to_timezone(c[0], kolkata, 0)]),
+        ("json.get_json_object", {"path": "$.b.c"}, ["json"],
+         lambda c: [GJ.get_json_object(c[0], "$.b.c")]),
+        ("json.from_json_map", {}, ["json"], raw_map),
     ]
     return cases, w
 
 
 def bridge_checks(dev, n):
-    """13g: each of the 29 ops through ``bridge.call`` on ``dev`` equal,
+    """13g: each of the 31 ops through ``bridge.call`` on ``dev`` equal,
     wire byte for wire byte and meta JSON, to the op called directly;
-    each op's wall ms through the bridge; the 2 ops the port does not run
-    raise NotImplementedError naming their ROADMAP item."""
+    each op's wall ms through the bridge."""
     from spark_rapids_jni_tpu_torch import bridge
     from spark_rapids_jni_tpu_torch.columnar.interop import (col_to_wire,
                                                              wire_to_col)
@@ -3952,14 +3996,7 @@ def bridge_checks(dev, n):
             want, want_meta = want
         want = [x if isinstance(x, tuple) else col_to_wire(x) for x in want]
         same[op] = got == want and json.loads(meta) == want_meta
-    raised = {}
-    for op, item in UNPORTED_OPS.items():
-        try:
-            bridge.call(op, "{}", [w["str"]], device=dev)
-            raised[op] = False
-        except NotImplementedError as e:
-            raised[op] = f"ROADMAP {item}" in str(e)
-    return same, raised, ms, sorted(bridge.ops())
+    return same, ms, sorted(bridge.ops())
 
 
 def casts_phase(dev, card, rows, arrays=None, q1_want=None):
@@ -3975,7 +4012,7 @@ def casts_phase(dev, card, rows, arrays=None, q1_want=None):
     (13d, B1); reads the counts; then checks every 60M-row cast exactly,
     q1 against numpy and the round trip on every row, the card against
     the CPU on 1M-row prefixes (13e), an ANSI error's row (13f) and the
-    bridge's 29 ops against direct calls (13g); then times each cast at
+    bridge's 31 ops against direct calls (13g); then times each cast at
     60M rows (first, warm, bound, launches, idle share, peak memory), the
     price cast over a column with one string in 100 of 256 characters
     (13h), and the bridge's murmur3 split into marshalling and B1 (13i).
@@ -4152,16 +4189,15 @@ def casts_phase(dev, card, rows, arrays=None, q1_want=None):
     except CS.CastException as e:
         checks["ansi_raises_on_its_row"] = (
             e.row_number == row and e.string_with_error.startswith("x"))
-    # 13g: the bridge's 29 ops against direct calls, the 2 others raise
-    same, raised, bridge_ms, ops = bridge_checks(dev, n1)
-    checks["bridge_29_ops_equal_direct_calls"] = (
+    # 13g: the bridge's 31 ops against direct calls
+    same, bridge_ms, ops = bridge_checks(dev, n1)
+    checks["bridge_31_ops_equal_direct_calls"] = (
         len(same) == BRIDGE_OPS and all(same.values()))
-    checks["bridge_2_unported_ops_raise_their_item"] = all(raised.values())
     checks["bridge_has_31_ops"] = len(ops) == 31
     lap("checks_bridge")
     jline({"phase": "casts_sf10", "part": "checks", **card, "rows": rows,
            "q1_first_row": _q1_rows(q1)[0], "bridge_ops_equal": same,
-           "bridge_unported_raise": raised, **checks})
+           **checks})
     failed = [k for k, ok in checks.items() if ok is not True]
     if failed:
         raise AssertionError(f"phase 13: {failed}")
@@ -4278,6 +4314,10 @@ NESTED_READ_WARM = 1        # warm reads (the first under the profiler)
 SKEW_EVERY, SKEW_LEN = 10_000, 4096   # 14c's skewed copy
 WIDE_UNITS = 70             # the 64-unit repair's schema width
 BRIDGE_ROWS = 1_000_000     # 14g
+# the whole run takes phase 14 at half SF10's lineitems (7.5M orders), so
+# that all 15 phases end well inside the run's limit; ``python3
+# chip_smoke.py nested_sf10`` runs it at SF10
+NESTED_RUN_ROWS = SF10_ROWS // 2
 Z_CHECK_EVERY = 8           # 14f: numpy checks every 8th of the 60M rows
 
 
@@ -4819,6 +4859,8 @@ def _b1_bytes(schema, n):
             total += leaf.numel() * leaf.element_size()
             if lvalid is not None:
                 total += lvalid.numel()
+        elif kind == "str":  # offsets and characters
+            total += sum(w.numel() * w.element_size() for w in words)
         else:
             total += words.numel() * words.element_size()
         if v is not None:
@@ -4853,6 +4895,375 @@ def _nested_time(card, name, fn, first_ms, nbytes):
         line.update(bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / warm,
                     bytes=nbytes)
     jline(line)
+
+
+WEBLOG_URLS = 10_000_000     # phase 15: URLs of one batch (~1.2 GB)
+WEBLOG_DOCS_PER_URL = 0.4    # 4M documents for 10M URLs (~1.2 GB)
+WEBLOG_SLICE = 100_000       # 15: the card == the CPU on this many rows
+WEBLOG_WARM = 5              # warm calls a step's median is taken of
+WEBLOG_PATHS = ("$.user.id", "$.event.items[0].sku", "$.ts", "$.tags[1]")
+WEBLOG_WILDCARD = "$.event.items[*].sku"
+
+
+def _out_bytes(x):
+    """Device bytes of an output: a tensor, a column, a table or a list of
+    them."""
+    if torch.is_tensor(x):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_out_bytes(y) for y in x)
+    return x.device_nbytes()
+
+
+def _same_bits(a, b) -> bool:
+    """``_same_on_host`` of two STRING columns, or of two raw maps: list
+    offsets and validity bits, keys and values."""
+    if a.children:
+        return (torch.equal(a.offsets.cpu(), b.offsets.cpu())
+                and torch.equal(a.valid_mask().cpu(), b.valid_mask().cpu())
+                and all(_same_on_host(x, y) for x, y in zip(
+                    a.children[0].children, b.children[0].children)))
+    return _same_on_host(a, b)
+
+
+def _host_syncs(fn):
+    """(fn(), the host syncs it made): torch's sync debug mode warns at
+    each synchronizing call; the warnings are counted."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def weblog_phase(dev, card, rows):
+    """Phase 15 (``weblog_strings``): Spark's string device tiers over one
+    web-log batch, ``rows`` URLs and two documents for every five (module
+    docstring). Returns the launches of the counted run."""
+    import collections
+    from spark_rapids_jni_tpu_torch import bridge
+    from spark_rapids_jni_tpu_torch.columnar import dtype as dt
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.interop import (col_to_wire,
+                                                             wire_to_col)
+    from spark_rapids_jni_tpu_torch.ops import get_json_object as G
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.ops import map_utils as M
+    from spark_rapids_jni_tpu_torch.ops import parse_uri as P
+    from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate
+    from spark_rapids_jni_tpu_torch.parallel.exchange import partition_ids
+    from spark_rapids_jni_tpu_torch.utils import config, datagen
+    from spark_rapids_jni_tpu_torch.utils.backend import (string_routes,
+                                                           tier_is_device)
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    secs, t_part = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = now - t_part[0]
+        t_part[0] = now
+
+    n_docs = max(1, int(rows * WEBLOG_DOCS_PER_URL))
+    # the two columns' draws are independent: numpy runs them in two
+    # threads at once
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        urls_f = pool.submit(datagen.weblog_urls, rows, 15, dev)
+        docs_f = pool.submit(datagen.weblog_docs, n_docs, 15, dev)
+        (url_col, ud), (doc_col, dd) = urls_f.result(), docs_f.result()
+    _sync(dev)
+    lap("generate")
+    jline({"phase": "weblog_strings", "part": "batch", **card,
+           "urls": rows, "url_bytes": int(url_col.data.numel()),
+           "url_width": int((url_col.offsets[1:] - url_col.offsets[:-1])
+                            .max()),
+           "url_nulls": int((~ud["valid"]).sum()),
+           "url_invalid": {k: int((ud["invalid"] == i).sum())
+                           for i, k in enumerate(datagen.URL_INVALID_KINDS)},
+           "docs": n_docs, "doc_bytes": int(doc_col.data.numel()),
+           "doc_width": int((doc_col.offsets[1:] - doc_col.offsets[:-1])
+                            .max()),
+           "doc_nulls": int((~dd["valid"]).sum()),
+           "doc_kinds": {k: int(((dd["kind"] == i) & dd["valid"]).sum())
+                         for i, k in enumerate(datagen.DOC_KINDS)},
+           "generate_s": secs["generate"]})
+
+    def parse3(col):
+        return (P.parse_uri_to_protocol(col), P.parse_uri_to_host(col),
+                P.parse_uri_to_query(col))
+
+    def group_host(host):
+        pids = partition_ids(Table((host,)), [0], PARTITIONS)
+        ones = Column(dt.INT64, host.size, data=torch.ones(
+            host.size, dtype=torch.int64, device=host.device))
+        return pids, groupby_aggregate(Table((host, ones)), [0],
+                                       [(1, "count")])
+
+    path_routes = {}
+
+    def get_json(col):
+        out = []
+        for p in WEBLOG_PATHS:
+            before = string_routes.snapshot()
+            out.append(G.get_json_object(col, p))
+            after = string_routes.snapshot()
+            path_routes[p] = {k: after[k] - before[k] for k in after
+                              if after[k] != before[k]}
+        return out
+
+    n_b = min(BRIDGE_ROWS, n_docs)
+    b_wire = col_to_wire(_prefix(doc_col, n_b, dev))
+    b_args = {"json.get_json_object": {"path": WEBLOG_PATHS[1]},
+              "json.from_json_map": {}}
+
+    def bridge_ops():
+        return {op: bridge.call(op, json.dumps(a), [b_wire], device=dev)
+                for op, a in b_args.items()}
+    lap("inputs")
+
+    # ---- the counted run --------------------------------------------------
+    K.reset_launches()
+    string_routes.reset()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    first, out, routes, syncs = {}, {}, {}, {}
+
+    def step(name, fn):
+        string_routes.reset()
+        if cuda:  # the host syncs of the first call
+            (out[name], first[name]), syncs[name] = _host_syncs(
+                lambda: wall(fn, dev))
+        else:
+            out[name], first[name] = wall(fn, dev)
+        routes[name] = {k: v for k, v in string_routes.snapshot().items()
+                        if v}
+
+    urls = _fresh(url_col)
+    step("parse_url", lambda: parse3(urls))
+    step("parse_url_utm", lambda: P.parse_uri_to_query_with_literal(
+        urls, "utm_source"))
+    b1_before = K.murmur3_fixed_rows.launches
+    step("groupby_host", lambda: group_host(out["parse_url"][1]))
+    b1_group = K.murmur3_fixed_rows.launches - b1_before
+    docs = _fresh(doc_col)
+    step("get_json", lambda: get_json(docs))
+    gj_routes = dict(path_routes)
+    step("get_json_wildcard", lambda: G.get_json_object(docs,
+                                                        WEBLOG_WILDCARD))
+    step("from_json", lambda: M.extract_raw_map_from_json_string(
+        _fresh(doc_col)))
+    step("bridge_json", bridge_ops)
+    launches = {w: getattr(K, w).launches for _, w, _, _ in K.KERNELS}
+    peak = ((torch.cuda.max_memory_allocated() - base) / 1e9
+            if cuda else None)
+    lap("counted_run")
+    if cuda and b1_group < 1:
+        raise AssertionError("phase 15's GROUP BY host never launched B1")
+
+    # ---- checks -----------------------------------------------------------
+    checks = {}
+    proto, host, query = out["parse_url"]
+    # each device tier == the host tier over the whole column, the host
+    # tier's wall time taken on the way
+    hosts, host_ms = {}, {}
+    hosts["parse_url"], host_ms["parse_url"] = wall(lambda: [
+        P._native_parse(url_col, P._PARTS[x])
+        for x in ("PROTOCOL", "HOST", "QUERY")], dev)
+    hosts["get_json"], host_ms["get_json"] = wall(lambda: [
+        G.get_json_object_with_instructions(doc_col, G.parse_path(p))
+        for p in WEBLOG_PATHS], dev)
+    hosts["from_json"], host_ms["from_json"] = wall(
+        lambda: M.extract_raw_map_host(doc_col), dev)
+    for part, got, want in zip(("PROTOCOL", "HOST", "QUERY"),
+                               out["parse_url"], hosts["parse_url"]):
+        checks[f"parse_url_{part}_equals_host_tier"] = _same_bits(got, want)
+    for p, got, want in zip(WEBLOG_PATHS, out["get_json"],
+                            hosts["get_json"]):
+        checks[f"get_json_{p}_equals_host_tier"] = _same_bits(got, want)
+    checks["from_json_equals_host_tier"] = _same_bits(out["from_json"],
+                                                      hosts["from_json"])
+    hb = hosts["parse_url"][1]
+    del hosts
+    lap("check_tiers")
+    # the route counts the draw fixes
+    ok = ud["valid"] & (ud["invalid"] < 0)
+    checks["parse_url_null_counts_follow_the_draw"] = [
+        int(c.valid_mask().sum()) for c in (proto, host, query,
+                                            out["parse_url_utm"])] == [
+        int((ok & ud["scheme"]).sum()), int(ok.sum()),
+        int((ok & ud["query"]).sum()), int((ok & ud["utm"]).sum())]
+    # under auto a CUDA column takes the device tiers (a rehearsal on the
+    # CPU forces them with the tier keys)
+    on_dev = {k: tier_is_device(f"{k}.tier", dev)
+              for k in ("parse_uri", "get_json", "from_json")}
+    checks["parse_url_routes"] = routes["parse_url"] == (
+        {"parse_uri_device": 3 * rows} if on_dev["parse_uri"]
+        else {"parse_uri_host_by_config": 3 * rows})
+    checks["parse_url_utm_routes"] = routes["parse_url_utm"] == {
+        "parse_uri_host_key": rows}
+    kind = np.asarray(datagen.DOC_KINDS)[dd["kind"]]
+    live = dd["valid"]
+    odd = live & np.isin(kind, ["malformed", "deep"])
+    for p, got in zip(WEBLOG_PATHS, out["get_json"]):
+        present = got.valid_mask().cpu().numpy()
+        norm = int((present & (kind == "exponent")).sum()) \
+            if p == "$.ts" else 0
+        want = {"get_json_device": n_docs,
+                "get_json_canonical": int((present & ~odd).sum()) - norm,
+                "get_json_span_normalized": norm,
+                "get_json_host_uncertified": int(odd.sum())}
+        want = {k: v for k, v in want.items() if v}
+        checks[f"get_json_{p}_routes"] = gj_routes[p] == (
+            want if on_dev["get_json"]
+            else {"get_json_host_by_config": n_docs})
+    checks["get_json_wildcard_routes"] = routes["get_json_wildcard"] == (
+        {"get_json_host_path": n_docs} if on_dev["get_json"]
+        else {"get_json_host_by_config": n_docs})
+    fj_want = {"from_json_device": n_docs,
+               "from_json_host_backslash": int((live & (kind == "escaped"))
+                                               .sum()),
+               "from_json_host_deep": int((live & (kind == "deep")).sum())}
+    checks["from_json_routes"] = routes["from_json"] == (
+        {k: v for k, v in fj_want.items() if v} if on_dev["from_json"]
+        else {"from_json_host_by_config": n_docs})
+    # GROUP BY host == a Counter of the host tier's hosts
+    chars = hb.data.cpu().numpy().tobytes()
+    offs = hb.host_offsets()
+    hv = hb.valid_mask().cpu().numpy()
+    want_groups = collections.Counter(
+        chars[offs[i]:offs[i + 1]] if hv[i] else None for i in range(rows))
+    pids, groups = out["groupby_host"]
+    gk, gc = groups.columns
+    gchars = gk.data.cpu().numpy().tobytes()
+    goffs = gk.host_offsets()
+    gv = gk.valid_mask().cpu().numpy()
+    gn = gc.data.cpu().numpy()
+    got_groups = {(gchars[goffs[i]:goffs[i + 1]] if gv[i] else None):
+                  int(gn[i]) for i in range(gk.size)}
+    checks["groupby_host_equals_counter"] = (
+        got_groups == dict(want_groups) and gk.size == len(want_groups))
+    pid_np = pids.cpu().numpy()
+    checks["partition_ids_in_range"] = bool(
+        (pid_np >= 0).all() and (pid_np < PARTITIONS).all())
+    # B1 on the HOST column == its plain version
+    schema = [("str", (host.offsets, host.data), host.validity)]
+    checks["b1_host_equals_plain"] = bool(torch.equal(
+        K.murmur3_fixed_rows(schema, 42, rows).cpu(),
+        K.murmur3_fixed_rows_plain(schema, 42, rows).cpu()))
+    lap("check_routes_groupby_b1")
+    # the card == the CPU (device tier forced) on slices
+    n_s = min(WEBLOG_SLICE, rows, n_docs)
+    res = {}
+    for d in (dev, cpu):
+        u, j = _prefix(url_col, n_s, d), _prefix(doc_col, n_s, d)
+        with config.override("parse_uri.tier", "device"), \
+                config.override("get_json.tier", "device"), \
+                config.override("from_json.tier", "device"):
+            res[str(d)] = (list(parse3(u)) + get_json(j)
+                           + [M.extract_raw_map_from_json_string(j)])
+    checks["card_equals_cpu_on_slices"] = all(
+        _same_bits(a, b) for a, b in zip(res[str(dev)], res["cpu"]))
+    # the bridge's json ops == the direct calls
+    bcol = wire_to_col(b_wire, dev)
+    direct_gj = G.get_json_object(bcol, WEBLOG_PATHS[1])
+    direct_fj = M.extract_raw_map_from_json_string(bcol)
+    gw, _ = out["bridge_json"]["json.get_json_object"]
+    fw, _ = out["bridge_json"]["json.from_json_map"]
+    struct = direct_fj.children[0]
+    checks["bridge_get_json_equals_direct"] = gw == [col_to_wire(direct_gj)]
+    checks["bridge_from_json_equals_direct"] = (
+        fw[0][2] == direct_fj.offsets.cpu().numpy().astype(np.int64)
+        .tobytes() and fw[1] == col_to_wire(struct.children[0])
+        and fw[2] == col_to_wire(struct.children[1]))
+    lap("check_slices_bridge")
+    jline({"phase": "weblog_strings", "part": "checks", **card,
+           "checks": checks, "launches": launches,
+           "b1_launches_groupby": b1_group, "routes": routes,
+           "get_json_routes_by_path": gj_routes, "groups": gk.size,
+           "peak_memory_gb": peak})
+    failed = [k for k, v in checks.items() if v is not True]
+    if failed:
+        raise AssertionError(f"phase 15 checks failed: {failed}")
+
+    # ---- times ------------------------------------------------------------
+    if cuda:
+        steps = {
+            "parse_url": (url_col, parse3),
+            "parse_url_utm": (url_col, lambda c: P.
+                              parse_uri_to_query_with_literal(
+                                  c, "utm_source")),
+            "groupby_host": (host, lambda c: group_host(c)),
+            "get_json": (doc_col, get_json),
+            "get_json_wildcard": (doc_col, lambda c: G.get_json_object(
+                c, WEBLOG_WILDCARD)),
+            "from_json": (doc_col, M.extract_raw_map_from_json_string)}
+        for name, (src, fn) in steps.items():
+            nbytes = src.device_nbytes() + _out_bytes(out[name])
+            _weblog_time(card, name, lambda fn=fn, src=src: fn(_fresh(src)),
+                         first[name], nbytes, host_ms.get(name),
+                         syncs[name], routes[name])
+        # B1 over the HOST column (the STRING key of the GROUP BY)
+        km = kernel_ms([(lambda: K.murmur3_fixed_rows(schema, 42, rows),
+                         "murmur3_rows_kernel")], reps=5)[0]
+        ms = cuda_ms(lambda: K.murmur3_fixed_rows(schema, 42, rows),
+                     reps=5, warm=1)
+        plain = cuda_ms(lambda: K.murmur3_fixed_rows_plain(schema, 42, rows),
+                        reps=1, warm=0)
+        nbytes = _b1_bytes(schema, rows)
+        b_ms, b_by = bound_ms(nbytes, 0)
+        jline({"phase": "weblog_strings", "part": "b1_time", **card,
+               "case": "STRING key: the HOST column", "rows": rows,
+               "launches": b1_group, "ms": ms, **profiler_fields(km, ms),
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_share": b_ms / ms, "bytes": nbytes,
+               "library_ms": None})
+        walls = {op: sorted(wall(lambda op=op, a=a: bridge.call(
+            op, json.dumps(a), [b_wire], device=dev), dev)[1]
+            for _ in range(3))[1] for op, a in b_args.items()}
+        jline({"phase": "weblog_strings", "part": "bridge_time", **card,
+               "rows": n_b, "first_ms": first["bridge_json"],
+               "warm_ms": walls, "routes": routes["bridge_json"]})
+        lap("times")
+    jline({"phase": "weblog_strings", "part": "seconds", **card, **secs})
+    return launches
+
+
+def _weblog_time(card, name, fn, first_ms, nbytes, host_ms, syncs, routes):
+    """A phase-15 step: the warm median of WEBLOG_WARM calls by CUDA
+    events (each over fresh columns, so that no memo of an earlier call
+    answers it), one call under the profiler (launches, copies, idle
+    share; one session), peak memory and the byte bound, beside the host
+    tier's wall ms on the same column and the first call's host syncs
+    (both taken in the phase's counted run and checks)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(WEBLOG_WARM):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    warm = sorted(times)[len(times) // 2]
+    b_ms, b_by = bound_ms(nbytes, 0)
+    jline({"phase": "weblog_strings", "part": "step_time", **card,
+           "step": name, "first_ms": first_ms, "warm_ms": warm,
+           "warm_all_ms": times, "host_tier_ms": host_ms,
+           "host_syncs": syncs, "peak_memory_gb": peak, "routes": routes,
+           "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / warm,
+           "bytes": nbytes, **cast_profile(fn, attempts=1)})
 
 
 def numpy_q1(a, cutoff=2400):

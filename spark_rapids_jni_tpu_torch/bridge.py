@@ -12,9 +12,7 @@ meta_json)``. Nested results are decomposed by each handler into flat
 wire columns (offsets column + children).
 
 The op names, their arguments, their outputs and their meta JSON are the
-JAX package's, all 31 of them. The port runs 29; ``json.get_json_object``
-and ``json.from_json_map`` (ROADMAP A13) raise ``NotImplementedError``
-naming their item. A LIST result or argument crosses decomposed, as in
+JAX package's, all 31 of them, and all 31 run. A LIST result or argument crosses decomposed, as in
 the JAX package: its offsets as an INT64 column, then its children's
 columns, then its validity as a BOOL8 column where it has one
 (``_list_parts``). The JAX package's
@@ -372,10 +370,16 @@ def _tz_from_utc(args, cols, device):
 @op("json.get_json_object")
 def _gjo(args, cols, device):
     """JSONUtils.getJsonObject."""
-    raise dt.not_ported("json.get_json_object", "A13")
+    from .ops.get_json_object import get_json_object
+    return [get_json_object(cols[0], args["path"])]
 
 
 @op("json.from_json_map")
 def _from_json(args, cols, device):
-    """MapUtils.extractRawMapFromJsonString."""
-    raise dt.not_ported("json.from_json_map", "A13")
+    """MapUtils.extractRawMapFromJsonString, decomposed to (offsets INT64,
+    keys STRING, values STRING[, validity BOOL8])."""
+    from .ops.map_utils import extract_raw_map_from_json_string
+    m = extract_raw_map_from_json_string(cols[0])
+    offs_w, vcol = _list_parts(m)
+    keys, vals = m.children[0].children
+    return [offs_w, keys, vals] + ([] if vcol is None else [vcol])

@@ -6,9 +6,18 @@ sort lanes, key equality, the JCUDF row assembly) read the padded form
 made here: ``uint8[n, L]`` zero-padded bytes and ``int32[n]`` lengths,
 with L the max length bucketed by ``pad_width``.
 
-The JAX package also has ``bucket_padded_data``, which pads the character
-buffer to a bucketed length only so that its TPU programs compile once
-per bucket; PyTorch compiles nothing per shape, so it is not ported.
+The JAX package also has ``bucket_padded_data`` and ``pad_to_bucket``,
+which pad the character buffer and a gather's output to a bucketed
+length only so that its TPU programs compile once per bucket (the slack
+then trimmed or left in place); PyTorch compiles nothing per shape, so
+neither is ported: every buffer here is exact, and the string device
+tiers' span gathers (``gather_spans``) have no slack to leave.
+
+The string device tiers (ops/parse_uri_device.py, get_json_device.py,
+from_json_device.py) share the masked scans at the end of this module
+(``Marks``, ``first_index``, ``last_index``, ``byte_at``), the row-chunk plan of
+their planes (``row_chunks``) and the loops of their DFAs
+(``column_scan``).
 
 Every function runs on the device of its input tensors.
 """
@@ -163,3 +172,159 @@ def gather_spans(src: torch.Tensor, starts: torch.Tensor,
     else:
         data = torch.zeros(0, dtype=torch.uint8, device=src.device)
     return Column(dt.STRING, n, data=data, validity=validity, offsets=offs)
+
+
+# ---------------------------------------------------------------------------
+# masked scans over a padded byte matrix (the string device tiers:
+# ops/parse_uri_device.py, get_json_device.py, from_json_device.py)
+# ---------------------------------------------------------------------------
+
+def _count_type(W: int) -> torch.dtype:
+    """The narrowest integer type that counts to W."""
+    return torch.int16 if W < 1 << 15 else torch.int32
+
+
+class Marks:
+    """The marked positions of a bool ``[n, W]`` plane, by their running
+    count: per row the first or last mark in a window ``[lo, hi)`` is one
+    ``searchsorted`` of the counts, so a plane asked many windows is
+    scanned once (``first_index``/``last_index`` answer a plane asked
+    once)."""
+
+    def __init__(self, mask: torch.Tensor):
+        self.W = int(mask.shape[1])
+        self.counts = torch.cumsum(mask, dim=1, dtype=_count_type(self.W))
+
+    def _before(self, p: torch.Tensor) -> torch.Tensor:
+        """Marks at positions < p (p clamped to [0, W])."""
+        q = p.clamp(0, self.W).to(torch.int64) - 1
+        got = torch.gather(self.counts, 1, q.clamp(min=0)[:, None])[:, 0]
+        return torch.where(q >= 0, got, 0)
+
+    def _at_count(self, k: torch.Tensor) -> torch.Tensor:
+        """The position of each row's k-th mark (W where there is none)."""
+        return torch.searchsorted(self.counts, k[:, None].to(
+            self.counts.dtype).contiguous())[:, 0].to(torch.int32)
+
+    def first(self, lo: torch.Tensor, hi: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per row: the smallest marked j in ``[lo, hi)``, and whether there
+        is one (``int32[n]``, ``bool[n]``); ``hi`` where there is none (a
+        safe clamp for span arithmetic)."""
+        idx = self._at_count(self._before(lo) + 1)
+        found = (idx < hi) & (idx < self.W)
+        return torch.where(found, idx, hi.to(torch.int32)), found
+
+    def last(self, lo: torch.Tensor, hi: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per row: the largest marked j in ``[lo, hi)``, and whether there
+        is one; ``lo - 1`` where there is none."""
+        c_hi = self._before(hi)
+        found = c_hi > self._before(lo)
+        idx = self._at_count(c_hi)
+        return torch.where(found, idx, lo.to(torch.int32) - 1), found
+
+
+def _window(mask, lo, hi):
+    W = mask.shape[1]
+    pos = torch.arange(W, dtype=_count_type(W), device=mask.device)
+    return pos, mask & (pos >= lo[:, None]) & (pos < hi[:, None])
+
+
+def first_index(mask: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``Marks(mask).first(lo, hi)`` for a plane asked once: one masked
+    minimum of the positions, no scan."""
+    W = mask.shape[1]
+    pos, m = _window(mask, lo, hi)
+    idx = torch.where(m, pos, W).amin(dim=1).to(torch.int32)
+    found = idx < W
+    return torch.where(found, idx, hi.to(torch.int32)), found
+
+
+def last_index(mask: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``Marks(mask).last(lo, hi)`` for a plane asked once."""
+    pos, m = _window(mask, lo, hi)
+    idx = torch.where(m, pos, -1).amax(dim=1).to(torch.int32)
+    found = idx >= 0
+    return torch.where(found, idx, lo.to(torch.int32) - 1), found
+
+
+def byte_at(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``mat[row, idx[row]]`` (uint8), 0 where idx is outside ``[0, W)``."""
+    W = mat.shape[1]
+    safe = idx.clamp(0, W - 1).to(torch.int64)[:, None]
+    b = torch.gather(mat, 1, safe)[:, 0]
+    return torch.where((idx >= 0) & (idx < W), b, 0).to(torch.uint8)
+
+
+def row_chunks(n: int, W: int, elements: int):
+    """``(r0, r1)`` row ranges of at most ``elements`` matrix elements
+    each (one row at least): the device tiers build their ``[rows, W]``
+    planes a chunk at a time, each row's result depending only on its own
+    bytes, so that their peak memory does not grow with n."""
+    step = max(1, elements // max(W, 1))
+    return [(r0, min(n, r0 + step)) for r0 in range(0, n, step)]
+
+
+def column_scan(step, regs, start: int, stop: int):
+    """``regs = step(regs, j)`` for j in ``range(start, stop)``: the
+    string device tiers' DFAs, which walk the columns of a padded byte
+    matrix with ``[n]``-wide registers (a tuple of tensors), one small
+    torch op per register update.
+
+    On a CUDA device one step is captured as a CUDA graph (j a device
+    scalar the graph advances) and replayed once a column, so a step's
+    dozens of ops cost one launch; elsewhere a Python loop with j an
+    int. ``step`` must give the same result for either j, make no host
+    sync and return new tensors (it may return an input register
+    unchanged); ``column(mat_t, j)`` reads row j of a transposed matrix
+    for either."""
+    if stop <= start:
+        return regs
+    dev = regs[0].device
+    if dev.type != "cuda":
+        for j in range(start, stop):
+            regs = step(regs, j)
+        return regs
+    j = torch.full((), start, dtype=torch.int64, device=dev)
+    static = tuple(r.clone() for r in regs)
+
+    def body():
+        new = step(static, j)
+        for s, v in zip(static, new):
+            if v is not s:
+                s.copy_(v)
+        j.add_(1)
+
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body()  # warm-up outside the capture; undone below
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        body()
+    for s, r in zip(static, regs):
+        s.copy_(r)
+    j.fill_(start)
+    for _ in range(start, stop):
+        graph.replay()
+    return static
+
+
+def column(mat_t: torch.Tensor, j) -> torch.Tensor:
+    """Row ``j`` of a transposed byte matrix (a column of the padded
+    matrix), j an int or a device scalar (``column_scan``)."""
+    if isinstance(j, int):
+        return mat_t[j]
+    return mat_t.index_select(0, j.view(1))[0]
+
+
+def put_column(plane_t: torch.Tensor, j, values: torch.Tensor) -> None:
+    """Write row ``j`` of a transposed plane (``column``'s counterpart)."""
+    if isinstance(j, int):
+        plane_t[j] = values
+    else:
+        plane_t.index_copy_(0, j.view(1), values[None])

@@ -19,8 +19,7 @@ Native handles are process-local: a worker cannot reuse the parent's
 footer bytes and caches the handle per footer digest across calls (one
 open per file per worker lifetime). Every target takes the built .so
 path from the parent (utils/nativeload.py built it; the worker only
-dlopens). The parse_uri targets wait for the port's parse_uri (ROADMAP
-A13).
+dlopens). The parse_uri target serves ops/parse_uri.py's host tier.
 """
 
 from __future__ import annotations

@@ -64,9 +64,11 @@ config can target, in addition to the injector's patched op entry points):
   * ``bridge.py``        — each engine op by its name ("hash.murmur3",
                          "cast.string_to_float", ...), around the op
                          and after the columns are marshalled
+  * ``ops/parse_uri.py`` — "parse_uri" (the native host tier, in process
+                         or in a sandbox worker)
 
-The JAX package's other surfaces (the sharded exchange, parse_uri) are
-not ported yet (ROADMAP A11b, A13, A15).
+The JAX package's other surfaces (the sharded exchange) are not ported
+yet (ROADMAP A11b, A15).
 
 Payload bit-flip surfaces (``injectionType: 3`` rules consumed by the
 memory/integrity.py hooks, not by exception checkpoints): "spill",

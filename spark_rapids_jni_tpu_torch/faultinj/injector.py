@@ -346,7 +346,6 @@ class FaultInjector:
          "convert_from_rows"),
         ("spark_rapids_jni_tpu_torch.ops.cast_float_to_string",
          "float_to_string"),
-        # not ported yet (A13): skipped as a missing module is
         ("spark_rapids_jni_tpu_torch.ops.get_json_object",
          "get_json_object"),
         ("spark_rapids_jni_tpu_torch.ops.sort", "sort_order"),

@@ -68,32 +68,15 @@ from ..faultinj._sandbox_targets import (
 from ..memory.reservation import device_reservation, release_barrier
 from ..memory.transport import to_device
 from ..utils import config
+from ..utils.backend import RouteCounts
 from .device_decode import _sync
 
 _lock = threading.Lock()
 _lib = None
 
 
-class ReaderMetrics:
-    """Process-wide counters of the reader (thread-safe). ``inc`` (not
-    ``bump``), as the JAX package names it."""
-
-    def __init__(self, counters: Sequence[str]):
-        self._counters = tuple(counters)
-        self._lock = threading.Lock()
-        self.reset()
-
-    def reset(self) -> None:
-        with self._lock:
-            self._c = {k: 0 for k in self._counters}
-
-    def inc(self, name: str, by: int = 1) -> None:
-        with self._lock:
-            self._c[name] += by
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            return dict(self._c)
+# the JAX package's name (``inc``, not ``bump``) for the counters
+ReaderMetrics = RouteCounts
 
 
 # predicate pushdown, the JAX package's counters

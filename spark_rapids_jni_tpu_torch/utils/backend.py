@@ -12,6 +12,8 @@ the CPU tests run the device tier's torch ops on the CPU with
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 
@@ -33,3 +35,40 @@ def tier_is_device(flag_key: str, device: torch.device,
     if degraded_mode():
         return False
     return torch.device(device).type == "cuda"
+
+
+class RouteCounts:
+    """Process-wide named counters (thread-safe): the rows each string
+    tier took (``string_routes``), and the Parquet reader's
+    ``route_metrics`` and ``reader_metrics``."""
+
+    def __init__(self, counters):
+        self._counters = tuple(counters)
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self._c = {k: 0 for k in self._counters}
+
+    def inc(self, name: str, by: int = 1) -> None:
+        with self._lock:
+            self._c[name] += int(by)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self._c)
+
+
+# the string tiers' routes, in rows (ops/parse_uri.py, get_json_object.py,
+# map_utils.py): "device" rows ran on the device tier; "host_by_config"
+# rows on the host tier because the tier key (or a CPU column, or a
+# degraded thread) chose it; the rest are the reference's own routes to
+# the host tier within a device-tier call
+string_routes = RouteCounts((
+    "parse_uri_device", "parse_uri_host_by_config", "parse_uri_host_key",
+    "get_json_device", "get_json_canonical", "get_json_span_normalized",
+    "get_json_host_uncertified", "get_json_host_path",
+    "get_json_host_by_config",
+    "from_json_device", "from_json_host_backslash", "from_json_host_deep",
+    "from_json_host_by_config"))

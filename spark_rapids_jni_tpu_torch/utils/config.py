@@ -1,7 +1,8 @@
 """The port's knobs: the entries of the JAX package's utils/config.py
 that this port reads (``plan.*``, ``trace.enabled``, ``rmm.*``,
 ``native.so_override``, ``faultinj.*``, ``watchdog.*``, ``spill.*``,
-``parquet.*``, ``sandbox.*``, ``breaker.*``), with
+``parquet.*``, ``sandbox.*``, ``breaker.*``, the string tiers'
+``parse_uri.tier``, ``get_json.tier`` and ``from_json.tier``), with
 the same names, defaults and environment variables. Each resolves
 programmatic override -> environment variable -> default.
 
@@ -157,6 +158,23 @@ _REGISTRY: Dict[str, _Entry] = {
         "Parquet decode tier: auto (the device tier for a CUDA reader, the "
         "host tier for a CPU reader) | device/on (torch ops on the "
         "reader's device) | native/off (native host decode)"),
+    # ---- the string device tiers (ops/parse_uri*, get_json*, from_json*) --
+    "parse_uri.tier": _Entry(
+        "SRJT_PARSE_URI_TIER", "auto", str,
+        "parse_url PROTOCOL/HOST/QUERY execution tier: auto (the device "
+        "tier for a CUDA column, the native C++ tier for a CPU column) | "
+        "device | native"),
+    "get_json.tier": _Entry(
+        "SRJT_GET_JSON_TIER", "auto", str,
+        "get_json_object execution: auto (device scan + navigate for a "
+        "CUDA column and a KEY/INDEX path, the host PDA normalizing the "
+        "narrowed spans; the host PDA for a CPU column) | device | native"),
+    "from_json.tier": _Entry(
+        "SRJT_FROM_JSON_TIER", "auto", str,
+        "from_json raw-map execution: auto (device pair-span extraction "
+        "for a CUDA column, rows with escapes or nested past the device "
+        "DFA's depth cap on the native PDA; the native PDA for a CPU "
+        "column) | device | native"),
     "parquet.encoded_strings": _Entry(
         "SRJT_PARQUET_ENCODED_STRINGS", False, _parse_bool,
         "surface dictionary-encoded BYTE_ARRAY chunks from the device tier "

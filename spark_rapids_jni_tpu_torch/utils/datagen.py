@@ -704,3 +704,332 @@ def tbl_decimal_strings(unscaled: torch.Tensor, frac_digits: int) -> Column:
     offsets[1:] = torch.cumsum(lengths, 0).to(torch.int32)
     return Column(dt.STRING, int(v.shape[0]), data=mat[keep],
                   offsets=offsets)
+
+
+# ---------------------------------------------------------------------------
+# web logs: a batch of URLs and of JSON events (the string device tiers'
+# inputs; chip_smoke.py phase 15)
+# ---------------------------------------------------------------------------
+
+class _Tokens:
+    """The byte strings a row layout is assembled from, each with an id."""
+
+    def __init__(self):
+        self.items = []
+        self._ids = {}
+
+    def add(self, toks) -> np.ndarray:
+        out = []
+        for t in toks:
+            i = self._ids.get(t)
+            if i is None:
+                i = self._ids[t] = len(self.items)
+                self.items.append(t)
+            out.append(i)
+        return np.asarray(out, dtype=np.int32)
+
+    def lengths(self) -> np.ndarray:
+        return np.fromiter((len(t) for t in self.items), np.int64,
+                           len(self.items))
+
+
+def _assemble(tokens: _Tokens, slots, valid: np.ndarray, device,
+              chunk_rows: int = 1 << 21) -> Column:
+    """STRING column whose row r is the concatenation over ``slots`` of
+    token ``ids[r]`` (-1: nothing), cut to ``lens[r]`` bytes where a slot
+    gives lengths; a null row holds no bytes. The draws cross to
+    ``device`` once a slot; lengths, offsets and bytes are made there, the
+    bytes a slot and a chunk of rows at a time."""
+    dev = resolve_device(device)
+    n = int(valid.shape[0])
+    tlen = torch.from_numpy(tokens.lengths()).to(dev)
+    valid_t = torch.from_numpy(valid.copy()).to(dev)
+    sized = []
+    row_len = torch.zeros(n, dtype=torch.int64, device=dev)
+    for ids, lens in slots:
+        it = torch.from_numpy(np.ascontiguousarray(ids, np.int32)).to(dev)
+        ln = (torch.where(it >= 0, tlen[it.clamp(min=0).long()], 0)
+              if lens is None else torch.from_numpy(
+                  np.ascontiguousarray(lens, np.int64)).to(dev))
+        ln = torch.where(valid_t, ln, 0)
+        row_len += ln
+        sized.append((it, ln))
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(row_len, 0, out=offsets[1:])
+    width = int(tlen.max()) if len(tokens.items) else 1
+    pool = np.zeros((len(tokens.items), width), dtype=np.uint8)
+    for i, t in enumerate(tokens.items):
+        pool[i, :len(t)] = np.frombuffer(t, np.uint8)
+    pool_t = torch.from_numpy(pool).to(dev)
+    data = torch.zeros(int(offsets[-1]), dtype=torch.uint8, device=dev)
+    at = offsets[:-1].clone()
+    for it, ln in sized:
+        lk = int(ln.max()) if n else 0
+        if lk:
+            cols = torch.arange(lk, device=dev)
+            for r0 in range(0, n, chunk_rows):
+                r1 = min(n, r0 + chunk_rows)
+                keep = cols[None, :] < ln[r0:r1, None]
+                vals = pool_t[:, :lk].index_select(
+                    0, it[r0:r1].clamp(min=0).long())
+                pos = at[r0:r1, None] + cols
+                data[pos[keep]] = vals[keep]
+        at += ln
+    return Column(dt.STRING, n, data=data,
+                  validity=None if valid.all() else valid_t,
+                  offsets=offsets.to(torch.int32))
+
+
+_LOWER = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+_HEXCH = np.frombuffer(b"0123456789abcdef", np.uint8)
+
+
+def _words(rng: np.random.Generator, k: int, lo: int, hi: int,
+           alphabet=_LOWER) -> list:
+    lens = rng.integers(lo, hi + 1, k)
+    chars = rng.choice(alphabet, int(lens.sum()))
+    ends = np.cumsum(lens)
+    return [chars[e - ln:e].tobytes() for e, ln in zip(ends, lens)]
+
+
+def _pick(rng: np.random.Generator, ids: np.ndarray, n: int,
+          skew: int = 1) -> np.ndarray:
+    """n draws from ``ids``, the first ones most often where skew > 1
+    (u ** skew over the list, u uniform in [0, 1))."""
+    if skew == 1:
+        return ids[rng.integers(0, len(ids), n)]
+    u = rng.random(n, dtype=np.float32)
+    v = u.copy()
+    for _ in range(skew - 1):
+        v *= u
+    return ids[np.minimum((v * len(ids)).astype(np.int32), len(ids) - 1)]
+
+
+# kinds of invalid URL rows (all parts null): a raw space, a bad %
+# escape, an unclosed '[' host, a byte that is not UTF-8
+URL_INVALID_KINDS = ("space", "bad_percent", "unclosed_bracket",
+                     "bad_utf8")
+
+
+def weblog_urls(rows: int, seed: int = 0, device="cuda"):
+    """A web log's URL column of ``rows`` rows, 60-200 bytes each (a
+    uniform target length; a row's parts past it trim its query), and the
+    draw: schemes http / https / ftp, 2% none (``//host/...``); hosts from
+    50,000 domain names (a skewed draw), 1% IPv4, 0.1% bracketed IPv6;
+    ports on 5%; paths of 1-5 segments; queries of 0-6 ``key=value`` pairs
+    with ``%XX`` escapes, ``utm_source`` first on every third row;
+    fragments on 3%; 0.5% invalid (``URL_INVALID_KINDS``); 1% null.
+
+    Returns (STRING column on ``device``, dict of numpy per-row flags:
+    ``valid``, ``invalid`` (kind index or -1), ``scheme``, ``query``,
+    ``utm``)."""
+    rng = np.random.default_rng(seed)
+    n = rows
+    tok = _Tokens()
+    words = _words(rng, 3000, 2, 9,
+                   np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789-_",
+                                 np.uint8))
+    tlds = [b"com", b"net", b"org", b"io", b"de", b"co.uk", b"fr", b"jp",
+            b"info", b"app"]
+    subs = [b"", b"www.", b"m.", b"api.", b"cdn.", b"shop."]
+    labels = _words(rng, 50_000, 3, 14)
+    domains = [subs[a] + lab + b"." + tlds[b] for lab, a, b in zip(
+        labels, rng.integers(0, len(subs), 50_000),
+        rng.integers(0, len(tlds), 50_000))]
+    v4 = [b".".join(str(x).encode() for x in q)
+          for q in rng.integers(0, 256, (2000, 4))]
+    v6 = [b"[2001:db8:%x::%x]" % (a, b)
+          for a, b in rng.integers(0, 0xFFFF, (200, 2))] + [b"[::1]"]
+    schemes = tok.add([b"http://", b"https://", b"ftp://", b"//"])
+    dom_ids, v4_ids, v6_ids = tok.add(domains), tok.add(v4), tok.add(v6)
+    ports = tok.add([b":8080", b":443", b":8443", b":3000", b":80"])
+    segs = tok.add([b"/" + w for w in words])
+    keys = [b"id", b"q", b"page", b"ref", b"lang", b"sort", b"cat", b"s",
+            b"sid", b"v", b"lim", b"off", b"tab", b"src", b"fmt", b"t"]
+    first_keys = tok.add([b"?" + k + b"=" for k in keys])
+    more_keys = tok.add([b"&" + k + b"=" for k in keys])
+    esc = [b"%20", b"%2F", b"%3D", b"%C3%A9", b"%E2%82%AC", b"%26"]
+    vals = [w[:6] + (esc[i % len(esc)] if i % 3 == 0 else b"")
+            for i, w in enumerate(words[:2000])]
+    val_ids = tok.add(vals)
+    utm_key = tok.add([b"?utm_source="])[0]
+    utm_vals = tok.add([b"google", b"newsletter", b"twitter", b"facebook",
+                        b"bing", b"partner"])
+    frags = tok.add([b"#" + w for w in words[:500]])
+    bad_tok = tok.add([b"/my file", b"/50%off", b"", b"/caf\xe9"])
+    unclosed = tok.add([b"[2001:db8::1"])[0]
+    fillers = tok.add([b"/" + rng.choice(_HEXCH, 200).tobytes()
+                       for _ in range(256)])
+    empty = np.full(n, -1, dtype=np.int32)
+
+    valid = rng.random(n) >= 0.01
+    invalid = np.where(valid & (rng.random(n) < 0.005),
+                       rng.integers(0, 4, n), -1)
+    u = rng.random(n)
+    scheme = np.where(u < 0.02, 3, np.where(u < 0.46, 0, np.where(
+        u < 0.95, 1, 2)))
+    v = rng.random(n)
+    host = np.where(v < 0.001, _pick(rng, v6_ids, n),
+                    np.where(v < 0.011, _pick(rng, v4_ids, n),
+                             _pick(rng, dom_ids, n, 3)))
+    host = np.where(invalid == 2, unclosed, host)
+    port = np.where((rng.random(n) < 0.05) & (invalid != 2),
+                    _pick(rng, ports, n), -1)
+    nseg = rng.integers(1, 6, n)
+    seg_slots = [np.where(k < nseg, _pick(rng, segs, n, 2), -1)
+                 for k in range(5)]
+    bad = np.where(invalid >= 0, bad_tok[np.maximum(invalid, 0)], -1)
+    utm = np.arange(n) % 3 == 0
+    npairs = rng.integers(0, 7, n)
+    pair_slots = []
+    for k in range(6):
+        ki = rng.integers(0, len(keys), n)
+        # the first pair opens the query, unless utm_source did
+        kid = np.where((k == 0) & ~utm, first_keys[ki], more_keys[ki])
+        pair_slots.append((np.where(k < npairs, kid, -1),
+                           np.where(k < npairs, _pick(rng, val_ids, n, 2),
+                                    -1)))
+    frag = np.where(rng.random(n) < 0.03, _pick(rng, frags, n), -1)
+
+    tlen = tok.lengths().astype(np.int32)
+
+    def lens(ids):  # ids -1 read the last token's length, then zeroed
+        return np.where(ids >= 0, tlen[ids], 0)
+
+    base = lens(schemes[scheme]) + lens(host) + lens(port) + lens(bad) \
+        + sum(lens(s) for s in seg_slots) + lens(frag)
+    utm_val = np.where(utm, _pick(rng, utm_vals, n), -1)
+    base += np.where(utm, tlen[utm_key], 0) + lens(utm_val)
+    # a pair stays while the row fits in 200 bytes
+    cum = base
+    for k, (kid, vid) in enumerate(pair_slots):
+        keep = cum + lens(kid) + lens(vid) <= 200
+        kid, vid = np.where(keep, kid, -1), np.where(keep, vid, -1)
+        pair_slots[k] = (kid, vid)
+        cum = cum + lens(kid) + lens(vid)
+    target = rng.integers(60, 201, n)
+    fill = np.clip(target - cum, 0, 200)
+    slots = [(schemes[scheme], None), (host, None), (port, None)]
+    slots += [(s, None) for s in seg_slots]
+    slots += [(np.where(fill > 0, _pick(rng, fillers, n), -1), fill),
+              (bad, None),
+              (np.where(utm, utm_key, -1), None), (utm_val, None)]
+    for kid, vid in pair_slots:
+        slots += [(kid, None), (vid, None)]
+    slots.append((frag, None))
+    col = _assemble(tok, slots, valid, device)
+    query = utm | (pair_slots[0][0] >= 0)
+    return col, {"valid": valid, "invalid": invalid, "scheme": scheme != 3,
+                 "query": query, "utm": utm}
+
+
+# kinds of JSON event rows besides the plain ones
+DOC_KINDS = ("plain", "exponent", "whitespace", "escaped", "malformed",
+             "deep")
+
+
+def weblog_docs(rows: int, seed: int = 0, device="cuda"):
+    """A web log's JSON events, ``rows`` documents of 120-450 bytes:
+    ``{"user":{"id","country"},"event":{"type","items":[{"sku","qty",
+    "price"}, 0-3 of them]},"sid","ts","tags":[0-5 words],"active"}`` (the
+    shape of
+    benchmarks/bench_ops.py's documents, widened to events; ``sid`` is a
+    hex session id whose length brings the row to a uniform target). Of
+    the rows: 2.5% with ``ts`` in exponent form and 2.5% with whitespace
+    after every separator (the host normalization's rows), 0.5% with
+    escaped characters in ``tags[2]`` (uncertified for from_json), 0.1%
+    malformed (no closing brace, or a key without its colon), 0.05% with a
+    field nested 31-40 deep (past the device DFA's cap of 30, within the
+    host PDA's 64), 1% null.
+
+    Returns (STRING column on ``device``, dict of numpy per-row arrays:
+    ``valid``, ``kind`` (index into ``DOC_KINDS``), ``items``,
+    ``tags``)."""
+    rng = np.random.default_rng(seed)
+    n = rows
+    tok = _Tokens()
+    valid = rng.random(n) >= 0.01
+    u = rng.random(n)
+    kind = np.select([u < 0.025, u < 0.05, u < 0.055, u < 0.056,
+                      u < 0.0565], [1, 2, 3, 4, 5], 0)
+    ws = kind == 2
+
+    def lit(compact, spaced):
+        a, b = tok.add([compact, spaced])
+        return np.where(ws, b, a)
+
+    ids = tok.add([str(x).encode() for x in rng.integers(1, 10 ** 7,
+                                                          100_000)])
+    countries = tok.add([b"US", b"DE", b"FR", b"JP", b"BR", b"IN", b"GB",
+                         b"CN", b"CA", b"MX", b"ES", b"IT", b"KR", b"NL"])
+    types = tok.add([b"click", b"view", b"purchase", b"add_to_cart",
+                     b"search", b"login", b"logout", b"share"])
+    skus = tok.add([b"SKU-%05d" % i for i in range(100_000)])
+    qtys = tok.add([b"%d" % i for i in range(1, 10)])
+    prices = tok.add([b"%d.%02d" % (a, b) for a, b in
+                      rng.integers(0, 1000, (2000, 2)) % [1000, 100]])
+    ts_base = rng.integers(1_600_000_000_000, 1_800_000_000_000, 100_000)
+    ts_ids = tok.add([str(t).encode() for t in ts_base])
+    ts_exp = tok.add([b"%.9e" % t for t in ts_base[:2000]])
+    tags = tok.add(_words(rng, 200, 5, 10))
+    esc_tags = tok.add([b'say \\"hi\\"', b"caf\\u00e9", b"a\\\\b",
+                        b"tab\\there", b"line\\nbreak", b"x\\/y"])
+    deep = tok.add([b',"deep":' + b"[" * d + b"1" + b"]" * d
+                    for d in range(31, 41)])
+    sids = tok.add([rng.choice(_HEXCH, 400).tobytes() for _ in range(256)])
+
+    n_items = rng.integers(0, 4, n)
+    n_tags = np.where(kind == 3, rng.integers(3, 6, n),
+                      rng.integers(0, 6, n))
+    slots = [(lit(b'{"user":{"id":', b'{"user": {"id": '), None),
+             (_pick(rng, ids, n), None),
+             (lit(b',"country":"', b', "country": "'), None),
+             (_pick(rng, countries, n, 2), None),
+             (lit(b'"},"event":{"type":"', b'"}, "event": {"type": "'),
+              None),
+             (_pick(rng, types, n, 2), None),
+             (lit(b'","items":[', b'", "items": ['), None)]
+    brace = np.full(n, tok.add([b"}"])[0], np.int32)
+    quote = np.full(n, tok.add([b'"'])[0], np.int32)
+    for k in range(3):
+        on = k < n_items
+        opener = lit(b'{"sku":"', b'{"sku": "') if k == 0 else \
+            lit(b',{"sku":"', b', {"sku": "')
+        for ids_k in (opener, _pick(rng, skus, n, 2),
+                      lit(b'","qty":', b'", "qty": '), _pick(rng, qtys, n),
+                      lit(b',"price":', b', "price": '),
+                      _pick(rng, prices, n), brace):
+            slots.append((np.where(on, ids_k, -1), None))
+    sid_open = lit(b']},"sid":"', b']}, "sid": "')
+    slots.append((sid_open, None))
+    sid_at = len(slots)
+    slots.append((_pick(rng, sids, n), np.zeros(n, np.int64)))
+    colon_ok = tok.add([b'","ts":', b'", "ts": '])
+    no_colon = tok.add([b'","ts"'])[0]
+    malformed = kind == 4
+    how = rng.integers(0, 2, n)   # malformed: 0 no closing brace, 1 no ':'
+    slots.append((np.where(malformed & (how == 1), no_colon,
+                           np.where(ws, colon_ok[1], colon_ok[0])), None))
+    slots.append((np.where(kind == 1, _pick(rng, ts_exp, n),
+                           _pick(rng, ts_ids, n)), None))
+    slots.append((lit(b',"tags":[', b', "tags": ['), None))
+    for k in range(5):
+        on = k < n_tags
+        opener = quote if k == 0 else lit(b',"', b', "')
+        body = np.where((kind == 3) & (k == 2), _pick(rng, esc_tags, n),
+                        _pick(rng, tags, n, 2))
+        for ids_k in (opener, body, quote):
+            slots.append((np.where(on, ids_k, -1), None))
+    slots.append((lit(b'],"active":', b'], "active": '), None))
+    slots.append((_pick(rng, tok.add([b"true", b"false"]), n), None))
+    slots.append((np.where(kind == 5, _pick(rng, deep, n), -1), None))
+    slots.append((np.where(malformed & (how == 0), -1, brace), None))
+    # the session id's length brings the row to its target
+    tlen = tok.lengths().astype(np.int32)
+    total = sum(np.where(i >= 0, tlen[i], 0) for i, ln in slots
+                if ln is None)
+    target = rng.integers(120, 451, n)
+    slots[sid_at] = (slots[sid_at][0], np.clip(target - total, 0, 400))
+    col = _assemble(tok, slots, valid, device)
+    return col, {"valid": valid, "kind": kind, "items": n_items,
+                 "tags": n_tags}

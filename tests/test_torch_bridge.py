@@ -6,10 +6,10 @@ the same wire columns, made with numpy from a seed (the shapes of
 ``tests/test_engine_bridge.py``), and the outputs must be equal byte for
 byte: dtype strings, row counts, data, offsets and validity bytes, and
 the meta JSON (the DECIMAL128 ops in ``test_torch_bridge_decimal.py``,
-the decimal cast in ``test_torch_cast_decimal_wide.py``). The ops the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item. The LIST results of
-``histogram.create``, ``histogram.percentile`` and ``zorder.interleave``
-cross decomposed, as the JAX package decomposes them. A fault config that
+the decimal cast in ``test_torch_cast_decimal_wide.py``); all 31 ops
+run. The LIST results of ``histogram.create``, ``histogram.percentile``,
+``zorder.interleave`` and ``json.from_json_map`` cross decomposed, as the
+JAX package decomposes them; the json ops on both tiers. A fault config that
 names an op fires inside both packages' ``call``, with the same guard
 metrics.
 """
@@ -27,9 +27,10 @@ from spark_rapids_jni_tpu_torch import bridge as PB
 from spark_rapids_jni_tpu_torch.faultinj import guard as PG
 from spark_rapids_jni_tpu_torch.faultinj import injector as PI
 from spark_rapids_jni_tpu_torch.utils import config as pconfig
-from torch_parity import quick_jax_reference  # noqa: F401
+from torch_parity import one_torch_thread, quick_jax_reference  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("quick_jax_reference")
+pytestmark = pytest.mark.usefixtures("quick_jax_reference",
+                                     "one_torch_thread")
 
 N = 48  # rows of every column: the JAX package compiles once per shape
 
@@ -80,7 +81,11 @@ def _inputs():
     dec_b = rng.integers(1, 10 ** 6, N) * rng.choice([-1, 1], N)
     days = rng.integers(-200_000, 50_000, N)
     micros = rng.integers(-10 ** 16, 2 * 10 ** 15, N)
+    docs = ['{"a":%d,"b":{"c":"x%d"},"t":[1,2]}' % (i, i) for i in ints]
+    docs[1:8] = ['{"a": 1.5e3, "b": {"c": "y"}}', '[1,2]', '{"a":"q\\"r"}',
+                 '{"a":1', "", '{"b":{"c":[true,null]}}', '{"a":{"z":1}}']
     return dict(
+        json=w_str(docs, valid),
         i64=w_i64(ints, valid), keys=w_i64(keys), i32=w_i32(ints // 7),
         f64=w_f64(floats, valid), str=w_str(strs, valid),
         dec_a=w_dec128(dec_a, 2, valid), dec_b=w_dec128(dec_b, 2),
@@ -114,6 +119,8 @@ CASES = [
     ("datetime.rebase", {"direction": "gregorian_to_julian"}, ["days"]),
     ("tz.to_utc", {"zone": "Asia/Shanghai"}, ["micros"]),
     ("tz.from_utc", {"zone": "Asia/Shanghai"}, ["micros"]),
+    ("json.get_json_object", {"path": "$.b.c"}, ["json"]),
+    ("json.from_json_map", {}, ["json"]),
 ]
 # the decimal ones: the JAX package compiles its decimal ops at first use
 # (test_torch_bridge_decimal.py) and its decimal cast ~4 s per (precision,
@@ -131,7 +138,9 @@ DECIMAL_CASES = [
 # ops whose inputs are another op's outputs (on the JAX side)
 CHAINED = ["bloom.probe", "bloom.merge", "rowconv.from_rows",
            "histogram.percentile"]
-UNPORTED = {"json.get_json_object": "A13", "json.from_json_map": "A13"}
+# the ops that raised naming their ROADMAP item until it was ported
+ONCE_UNPORTED = {"json.get_json_object": {"path": "$.a"},
+                 "json.from_json_map": {}}
 
 
 def both(op, args, wires):
@@ -154,8 +163,8 @@ def test_ops_match():
     assert len(PB.ops()) == 31
     ported = {c[0] for c in CASES + DECIMAL_CASES + [S2D_CASE]} | set(
         CHAINED)
-    assert ported | set(UNPORTED) == set(JB.ops())
-    assert len(ported) == 29
+    assert ported == set(JB.ops())
+    assert len(ported) == 31
 
 
 @pytest.mark.parametrize("op,args,names", CASES, ids=[c[0] for c in CASES])
@@ -199,10 +208,21 @@ def test_zorder_interleave_without_columns_matches():
     assert_same(*both("zorder.interleave", {"num_rows": 5}, []))
 
 
-@pytest.mark.parametrize("op", sorted(UNPORTED))
+@pytest.mark.parametrize("op", sorted(ONCE_UNPORTED))
 def test_unported_ops_raise_naming_their_item(op):
-    with pytest.raises(NotImplementedError, match=UNPORTED[op]):
-        PB.call(op, "{}", [IN["str"]], device="cpu")
+    """No op raises any more: the json ops (ROADMAP A13) run, and give
+    the JAX package's bytes, on its host tier and on its device tier."""
+    args = json.dumps(ONCE_UNPORTED[op])
+    for key in ("get_json.tier", "from_json.tier"):
+        assert pconfig.get(key) == jconfig.get(key) == "auto"
+    assert_same(JB.call(op, args, [IN["json"]]),
+                PB.call(op, args, [IN["json"]], device="cpu"))
+    with jconfig.override("get_json.tier", "device"), \
+            jconfig.override("from_json.tier", "device"), \
+            pconfig.override("get_json.tier", "device"), \
+            pconfig.override("from_json.tier", "device"):
+        assert_same(JB.call(op, args, [IN["json"]]),
+                    PB.call(op, args, [IN["json"]], device="cpu"))
 
 
 def test_unknown_op_raises():

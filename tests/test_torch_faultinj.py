@@ -182,8 +182,9 @@ def test_unknown_injection_type_fails_loudly(tmp_path):
 
 
 def test_install_wraps_the_ports_op_entry_points(tmp_path):
-    """install() patches the port's targets (the JAX package's, by name);
-    targets the port lacks are skipped; uninstall() restores them."""
+    """install() patches the port's targets (the JAX package's, by name:
+    every one resolves since get_json_object was ported; a missing one
+    would be skipped); uninstall() restores them."""
     orig = PH.murmur_hash3_32
     cfg = _write(tmp_path, "trap.json", {"xlaRuntimeFaults": {
         "murmur_hash3_32": {"percent": 100, "injectionType": 0,
@@ -194,6 +195,8 @@ def test_install_wraps_the_ports_op_entry_points(tmp_path):
         assert patched == [
             "spark_rapids_jni_tpu_torch.ops.cast_float_to_string."
             "float_to_string",
+            "spark_rapids_jni_tpu_torch.ops.get_json_object."
+            "get_json_object",
             "spark_rapids_jni_tpu_torch.ops.hashing.murmur_hash3_32",
             "spark_rapids_jni_tpu_torch.ops.hashing.xxhash64",
             "spark_rapids_jni_tpu_torch.ops.row_conversion.convert_from_rows",

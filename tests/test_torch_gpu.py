@@ -1136,3 +1136,59 @@ def test_nested_parquet_on_card_equals_cpu(cuda, tmp_path):
         host = r.read_all()
     for a, b in zip(card, host):
         assert a.to_pylist() == b.to_pylist()
+
+
+def _string_tier_results(col_u, col_d):
+    """parse_url's three parts, four get_json_object paths and a wildcard,
+    and from_json's raw map of a URL and a document column, under the
+    tier keys as they stand."""
+    from spark_rapids_jni_tpu_torch.ops import get_json_object as G
+    from spark_rapids_jni_tpu_torch.ops import map_utils as M
+    from spark_rapids_jni_tpu_torch.ops import parse_uri as P
+    out = [P.parse_uri_to_protocol(col_u), P.parse_uri_to_host(col_u),
+           P.parse_uri_to_query(col_u),
+           P.parse_uri_to_query_with_literal(col_u, "utm_source")]
+    out += [G.get_json_object(col_d, p) for p in (
+        "$.user.id", "$.event.items[0].sku", "$.ts", "$.tags[1]",
+        "$.event.items[*].sku")]
+    m = M.extract_raw_map_from_json_string(col_d)
+    return out + [m, m.children[0].children[0], m.children[0].children[1]]
+
+
+def _same_bytes(a, b):
+    """Equal offsets, validity bits and characters (a LIST: its offsets
+    and validity)."""
+    pairs = [(a.offsets, b.offsets), (a.valid_mask(), b.valid_mask())]
+    if a.data is not None:
+        pairs.append((a.data, b.data))
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in pairs)
+
+
+def test_string_tiers_on_card_equal_cpu(cuda):
+    """The string device tiers under ``auto`` on the card (the device tier
+    for a CUDA column, its rows counted) == the device tier forced on the
+    CPU == the host tier, over weblog rows, bit for bit."""
+    from spark_rapids_jni_tpu_torch.utils import config
+    from spark_rapids_jni_tpu_torch.utils.backend import string_routes
+    got = {}
+    for d in ("cpu", cuda):
+        col_u = datagen.weblog_urls(20_000, seed=2, device=d)[0]
+        col_d = datagen.weblog_docs(20_000, seed=2, device=d)[0]
+        string_routes.reset()
+        if d == "cpu":
+            with config.override("parse_uri.tier", "device"), \
+                    config.override("get_json.tier", "device"), \
+                    config.override("from_json.tier", "device"):
+                got["device_cpu"] = _string_tier_results(col_u, col_d)
+            got["host"] = _string_tier_results(col_u, col_d)
+        else:
+            got["card"] = _string_tier_results(col_u, col_d)
+            snap = string_routes.snapshot()
+            assert snap["parse_uri_device"] == 3 * 20_000
+            assert snap["get_json_device"] == 4 * 20_000
+            assert snap["get_json_host_path"] == 20_000
+            assert snap["from_json_device"] == 20_000
+            assert snap["get_json_host_by_config"] == 0
+    for k, (a, b, c) in enumerate(zip(got["host"], got["device_cpu"],
+                                      got["card"])):
+        assert _same_bytes(a, b) and _same_bytes(b, c), k

@@ -55,6 +55,18 @@ def quick_jax_reference():
 
 
 @pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for a test module whose ops are many and
+    small (the string device tiers' loops over byte columns): the workers
+    of a parallel test run share the cores, and each op's thread pool would
+    spin on all of them. Restored after the module."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(was)
+
+
+@pytest.fixture(scope="module")
 def jitted_jax_decimal():
     """The JAX package's DECIMAL128 long division and precision10 under
     ``jax.jit`` for one test module (eagerly, each call re-traces its
@@ -307,3 +319,14 @@ METRIC_KEYS = ("plan_executes", "plan_fallbacks", "plan_join_fallbacks",
 def metric_counts(snapshot) -> dict:
     """The fallback counters both packages keep, from a snapshot."""
     return {k: snapshot[k] for k in METRIC_KEYS}
+
+
+def byte_rows(col) -> list:
+    """A port STRING column's rows as bytes, None where null (no UTF-8
+    decoding: rows that are not UTF-8 cross to the JAX package as they
+    are)."""
+    chars = col.data.cpu().numpy().tobytes()
+    offs = col.host_offsets()
+    valid = col.valid_mask().cpu().numpy()
+    return [chars[offs[i]:offs[i + 1]] if valid[i] else None
+            for i in range(col.size)]
