@@ -5111,7 +5111,8 @@ def weblog_phase(dev, card, rows):
         "parse_uri_host_key": rows}
     kind = np.asarray(datagen.DOC_KINDS)[dd["kind"]]
     live = dd["valid"]
-    odd = live & np.isin(kind, ["malformed", "deep"])
+    odd = live & np.isin(kind, ["malformed", "deep", "single_quoted",
+                                "control"])
     for p, got in zip(WEBLOG_PATHS, out["get_json"]):
         present = got.valid_mask().cpu().numpy()
         norm = int((present & (kind == "exponent")).sum()) \
@@ -5130,7 +5131,9 @@ def weblog_phase(dev, card, rows):
     fj_want = {"from_json_device": n_docs,
                "from_json_host_backslash": int((live & (kind == "escaped"))
                                                .sum()),
-               "from_json_host_deep": int((live & (kind == "deep")).sum())}
+               "from_json_host_deep": int((live & (kind == "deep")).sum()),
+               "from_json_host_rejected": int((live & np.isin(
+                   kind, ["malformed", "single_quoted", "control"])).sum())}
     checks["from_json_routes"] = routes["from_json"] == (
         {k: v for k, v in fj_want.items() if v} if on_dev["from_json"]
         else {"from_json_host_by_config": n_docs})

@@ -19,7 +19,12 @@ counted in ``backend.string_routes``:
 - a row nested past the DFA's ``_DEPTH_CAP`` (30). The DFA rejects it
   while the host PDA accepts up to 64 levels; the JAX package's device
   tier returns such a row as null where its host tier returns its pairs
-  (ROADMAP C). Here the host tier judges it, so both tiers agree.
+  (ROADMAP C4). Here the host tier judges it, so both tiers agree;
+- any other non-null row the DFA rejects. The DFA is stricter than the
+  host PDA, which keeps Spark's tolerances: single-quoted strings and
+  raw control characters inside strings. The JAX package's device tier
+  returns such a row as null (ROADMAP C6); here the host tier judges it,
+  and a row the host rejects stays null.
 
 The planes are built a row chunk of ``CHUNK_ELEMENTS`` elements at a
 time. Host syncs: the padded width, the DFA's step count, one read of a
@@ -142,7 +147,8 @@ def _pick(src: torch.Tensor, idx: torch.Tensor, use: torch.Tensor
 @func_range()
 def extract_raw_map_device(col: Column) -> Column:
     """from_json's raw map with the pair spans found on the device; rows
-    with a backslash or nested past the cap on the host tier."""
+    with a backslash, nested past the cap or rejected by the DFA on the
+    host tier."""
     from .map_utils import extract_raw_map_host
 
     n = col.size
@@ -158,7 +164,7 @@ def extract_raw_map_device(col: Column) -> Column:
     mat, lens = padded_bytes(col)
     W = mat.shape[1]
     row_start = col.offsets[:-1].to(i64)
-    rowok, counts, has_bs, deep = [], [], [], []
+    rowok, counts, has_bs, deep, rejected = [], [], [], [], []
     spans = []   # (key start, key len, value start, value len) of pairs
     for r0, r1 in row_chunks(n, W, CHUNK_ELEMENTS):
         m, ln = mat[r0:r1], lens[r0:r1]
@@ -180,14 +186,18 @@ def extract_raw_map_device(col: Column) -> Column:
         counts.append(cert_cnt)
         has_bs.append(bs & ok)
         deep.append(dp & base_valid[r0:r1])
+        rejected.append(~valid_doc[r0:r1] & ~dp & base_valid[r0:r1])
         del planes, real_quote, in_len, d, closes, nonws, dep1, colon
     rowok = torch.cat(rowok)
     counts = torch.cat(counts).to(i64)
-    redo = torch.cat(has_bs) | torch.cat(deep)
-    route = torch.stack([torch.cat(has_bs).sum(), torch.cat(deep).sum()])
-    n_bs, n_deep = route.tolist()
+    has_bs, deep, rejected = (torch.cat(has_bs), torch.cat(deep),
+                              torch.cat(rejected))
+    redo = has_bs | deep | rejected
+    route = torch.stack([has_bs.sum(), deep.sum(), rejected.sum()])
+    n_bs, n_deep, n_rejected = route.tolist()
     string_routes.inc("from_json_host_backslash", n_bs)
     string_routes.inc("from_json_host_deep", n_deep)
+    string_routes.inc("from_json_host_rejected", n_rejected)
     if spans:
         ks, kl, vs, vl = (torch.cat(p) for p in zip(*spans))
     else:
@@ -196,7 +206,7 @@ def extract_raw_map_device(col: Column) -> Column:
     # the host tier judges its rows: their pairs and their validity
     keys_src, vals_src = col.data, col.data
     fb_rank = fb_offs = hk = hv = None
-    if n_bs or n_deep:
+    if n_bs or n_deep or n_rejected:
         rows = torch.nonzero(redo)[:, 0]
         host = extract_raw_map_host(gather(col, rows))
         hk, hv = host.children[0].children

@@ -71,4 +71,4 @@ string_routes = RouteCounts((
     "get_json_host_uncertified", "get_json_host_path",
     "get_json_host_by_config",
     "from_json_device", "from_json_host_backslash", "from_json_host_deep",
-    "from_json_host_by_config"))
+    "from_json_host_rejected", "from_json_host_by_config"))

@@ -925,7 +925,7 @@ def weblog_urls(rows: int, seed: int = 0, device="cuda"):
 
 # kinds of JSON event rows besides the plain ones
 DOC_KINDS = ("plain", "exponent", "whitespace", "escaped", "malformed",
-             "deep")
+             "deep", "single_quoted", "control")
 
 
 def weblog_docs(rows: int, seed: int = 0, device="cuda"):
@@ -940,7 +940,10 @@ def weblog_docs(rows: int, seed: int = 0, device="cuda"):
     escaped characters in ``tags[2]`` (uncertified for from_json), 0.1%
     malformed (no closing brace, or a key without its colon), 0.05% with a
     field nested 31-40 deep (past the device DFA's cap of 30, within the
-    host PDA's 64), 1% null.
+    host PDA's 64), 0.1% with the key of ``active`` in single quotes and
+    0.1% with a raw control byte (TAB or 0x01) inside the event type (both
+    Spark's tolerances: the host PDA accepts them, the device DFA does
+    not), 1% null.
 
     Returns (STRING column on ``device``, dict of numpy per-row arrays:
     ``valid``, ``kind`` (index into ``DOC_KINDS``), ``items``,
@@ -951,7 +954,8 @@ def weblog_docs(rows: int, seed: int = 0, device="cuda"):
     valid = rng.random(n) >= 0.01
     u = rng.random(n)
     kind = np.select([u < 0.025, u < 0.05, u < 0.055, u < 0.056,
-                      u < 0.0565], [1, 2, 3, 4, 5], 0)
+                      u < 0.0565, u < 0.0575, u < 0.0585],
+                     [1, 2, 3, 4, 5, 6, 7], 0)
     ws = kind == 2
 
     def lit(compact, spaced):
@@ -964,6 +968,7 @@ def weblog_docs(rows: int, seed: int = 0, device="cuda"):
                          b"CN", b"CA", b"MX", b"ES", b"IT", b"KR", b"NL"])
     types = tok.add([b"click", b"view", b"purchase", b"add_to_cart",
                      b"search", b"login", b"logout", b"share"])
+    ctrl_types = tok.add([b"cl\tick", b"vi\x01ew", b"sh\tare"])
     skus = tok.add([b"SKU-%05d" % i for i in range(100_000)])
     qtys = tok.add([b"%d" % i for i in range(1, 10)])
     prices = tok.add([b"%d.%02d" % (a, b) for a, b in
@@ -987,7 +992,8 @@ def weblog_docs(rows: int, seed: int = 0, device="cuda"):
              (_pick(rng, countries, n, 2), None),
              (lit(b'"},"event":{"type":"', b'"}, "event": {"type": "'),
               None),
-             (_pick(rng, types, n, 2), None),
+             (np.where(kind == 7, _pick(rng, ctrl_types, n),
+                       _pick(rng, types, n, 2)), None),
              (lit(b'","items":[', b'", "items": ['), None)]
     brace = np.full(n, tok.add([b"}"])[0], np.int32)
     quote = np.full(n, tok.add([b'"'])[0], np.int32)
@@ -1020,7 +1026,9 @@ def weblog_docs(rows: int, seed: int = 0, device="cuda"):
                         _pick(rng, tags, n, 2))
         for ids_k in (opener, body, quote):
             slots.append((np.where(on, ids_k, -1), None))
-    slots.append((lit(b'],"active":', b'], "active": '), None))
+    active = lit(b'],"active":', b'], "active": ')
+    slots.append((np.where(kind == 6, tok.add([b"],'active':"])[0], active),
+                  None))
     slots.append((_pick(rng, tok.add([b"true", b"false"]), n), None))
     slots.append((np.where(kind == 5, _pick(rng, deep, n), -1), None))
     slots.append((np.where(malformed & (how == 0), -1, brace), None))

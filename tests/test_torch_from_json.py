@@ -3,10 +3,12 @@ map_utils.py, from_json_device.py) against the JAX package's, bit for
 bit: the LIST<STRUCT<key, value>> column (list offsets and validity, the
 keys' and values' characters and offsets) on both tiers, each package's
 tier forced by its ``from_json.tier``; escapes (the backslash route to
-the host tier), nulls, non-object and invalid rows; and the one repair:
-a row nested past the device DFA's cap, which the JAX package's device
-tier returns as null and its host tier parses, takes the host tier here
-(ROADMAP C).
+the host tier), nulls, non-object and invalid rows; and two repairs: a
+row nested past the device DFA's cap (ROADMAP C4), and a row the DFA
+rejects but the host PDA parses under Spark's tolerances (single quotes,
+raw control characters in strings; ROADMAP C6). The JAX package's device
+tier returns such rows as null and its host tier parses them; the port's
+device tier sends them to the host tier.
 
 Inputs: the JAX tests' documents (tests/test_from_json_device.py,
 test_map_utils.py), its seeded fuzz, and seeded rows of
@@ -95,6 +97,16 @@ def test_tier_matches_jax(docs, tier):
             pconfig.override("from_json.tier", TIERS[tier]):
         want = JM.extract_raw_map_from_json_string(jc)
         got = PM.extract_raw_map_from_json_string(pc)
+    if tier == "device":
+        # ROADMAP C6: the JAX device tier nulls the rows its host tier
+        # parses under Spark's tolerances (a seeded weblog row here); the
+        # port follows the JAX host tier, which equals the JAX device tier
+        # on every other row
+        host = JM._extract_raw_map_host(jc)
+        w, h = want.to_pylist(), host.to_pylist()
+        c6 = [i for i, (a, b) in enumerate(zip(w, h)) if a != b]
+        assert c6 and all(w[i] is None for i in c6)
+        want = host
     assert_col_equal(want, got, tier)
 
 
@@ -138,6 +150,33 @@ def test_rows_nested_past_the_cap_take_the_host_tier():
     assert snap["from_json_host_backslash"] == 0
 
 
+C6_ROWS = ["{'a':1}", '{"a":\'x\'}', "{'a':'b','c':[1,'2']}",
+           "  {'k' : 2 }  ", '{"a":"\tb"}']
+
+
+def test_rows_the_dfa_rejects_take_the_host_tier():
+    """ROADMAP C6: over its five rows (and beside a plain, a null and a
+    malformed row) the port's device tier equals the JAX package's host
+    tier, row for row, where the JAX device tier returns nulls; the DFA's
+    rejects are counted, the malformed row among them and still null."""
+    rows = C6_ROWS + ['{"x":1}', None, '{"y":']
+    jc = JColumn.from_pylist(rows, jdt.STRING)
+    pc = to_port(jc)
+    got = PFD.extract_raw_map_device(pc)
+    assert_col_equal(JM._extract_raw_map_host(jc), got, "c6")
+    assert JFD.extract_raw_map_device(jc).to_pylist()[:5] == [None] * 5
+    assert got.to_pylist()[:5] == [[("a", "1")], [("a", "x")],
+                                   [("a", "b"), ("c", "[1,'2']")],
+                                   [("k", "2")], [("a", "\tb")]]
+    assert got.to_pylist()[7] is None
+    snap = string_routes.snapshot()
+    assert snap["from_json_host_rejected"] == 6
+    assert snap["from_json_host_deep"] == 0
+    assert snap["from_json_host_backslash"] == 0
+    with pconfig.override("from_json.tier", "device"):
+        assert_col_equal(got, PM.extract_raw_map_from_json_string(pc), "auto")
+
+
 def test_row_chunks_give_the_same_map(docs, monkeypatch):
     _, pc = docs
     want = PFD.extract_raw_map_device(pc)
@@ -149,8 +188,9 @@ def test_row_chunks_give_the_same_map(docs, monkeypatch):
 
 def test_weblog_routes_follow_the_draw():
     """Over ``weblog_docs``' rows: the backslash route takes exactly the
-    escaped rows, the deep route the deep ones, and the map equals the
-    host tier's."""
+    escaped rows, the deep route the deep ones, the rejected route the
+    malformed, single-quoted and control-byte ones, and the map equals
+    the host tier's."""
     col, d = datagen.weblog_docs(800, seed=13, device="cpu")
     kind = np.asarray(datagen.DOC_KINDS)[d["kind"]]
     live = d["valid"]
@@ -160,6 +200,10 @@ def test_weblog_routes_follow_the_draw():
     assert snap["from_json_host_backslash"] == int(
         (live & (kind == "escaped")).sum())
     assert snap["from_json_host_deep"] == int((live & (kind == "deep")).sum())
+    tolerated = np.isin(kind, ["single_quoted", "control"])
+    assert (live & tolerated).sum() > 0
+    assert snap["from_json_host_rejected"] == int(
+        (live & (tolerated | (kind == "malformed"))).sum())
     assert_col_equal(PM.extract_raw_map_host(col), got, "weblog")
     valid = got.valid_mask().numpy()
     np.testing.assert_array_equal(valid, live & (kind != "malformed"))

@@ -232,13 +232,14 @@ def test_invalid_path_gives_an_all_null_column(docs):
 
 def test_weblog_route_counts_follow_the_draw():
     """Over ``weblog_docs``' rows, the device tier's routes are the ones
-    the draw fixes: the uncertified rows are the malformed and the deep
-    ones; on ``$.ts`` the rows normalized on the host are the exponent
+    the draw fixes: the uncertified rows are the malformed, the deep,
+    the single-quoted and the control-byte ones; on ``$.ts`` the rows normalized on the host are the exponent
     ones, on the other paths none; the column equals the host tier's."""
     col, d = datagen.weblog_docs(600, seed=9, device="cpu")
     live = d["valid"]
     kind = np.asarray(datagen.DOC_KINDS)[d["kind"]]
-    bad = int((live & np.isin(kind, ["malformed", "deep"])).sum())
+    odd_kinds = ["malformed", "deep", "single_quoted", "control"]
+    bad = int((live & np.isin(kind, odd_kinds)).sum())
     ts_exp = live & (kind == "exponent")
     with pconfig.override("get_json.tier", "device"):
         for path in WEBLOG_PATHS:
@@ -251,7 +252,7 @@ def test_weblog_route_counts_follow_the_draw():
                 else 0
             assert snap["get_json_span_normalized"] == want_norm, path
             assert snap["get_json_canonical"] + want_norm == int(
-                (present & ~np.isin(kind, ["malformed", "deep"])).sum())
+                (present & ~np.isin(kind, odd_kinds)).sum())
             with pconfig.override("get_json.tier", "native"):
                 host = PG.get_json_object(col, path)
             assert_col_equal(host, got, path)
