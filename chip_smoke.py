@@ -4,10 +4,10 @@
     python3 chip_smoke.py PHASE [ROWS]
 
 With no argument, the whole run below. With a phase name (memory_sf10,
-parquet_sf10, decimal_sf10, casts_sf10, nested_sf10 or weblog_strings)
-and optionally a row count (SF10's 60M lineitem rows by default;
-weblog_strings: 10M URLs, and two documents for every five URLs),
-phases 1 and 2 and then that phase alone, ending with its seconds.
+parquet_sf10, decimal_sf10, casts_sf10, nested_sf10, weblog_strings or
+concurrent_tasks) and optionally a row count (SF10's 60M lineitem rows by
+default; weblog_strings: 10M URLs, and two documents for every five
+URLs), phases 1 and 2 and then that phase alone, ending with its seconds.
 
 Drives the port's main path (spark_rapids_jni_tpu_torch) once on the card
 at TPC-H SF10 scale and checks it, in phases; any failure raises and the
@@ -201,7 +201,8 @@ run exits non-zero:
  15. ``weblog_strings``: Spark's string device tiers over one web-log
      batch drawn from the seed (utils/datagen.weblog_urls, weblog_docs):
      10M URLs of 60-200 bytes and 4M JSON events of 120-450 bytes (about
-     1.2 GB of characters each). With the launch counts and the tiers'
+     1.2 GB of characters each; in the whole run half of both,
+     ``WEBLOG_RUN_URLS``; alone the whole batch). With the launch counts and the tiers'
      route counts set to 0: parse_url PROTOCOL, HOST and QUERY of the URL
      column (one parse shared), parse_url(url, 'QUERY', 'utm_source') (the
      host tier, by the contract), GROUP BY the host (the shuffle's
@@ -216,6 +217,27 @@ run exits non-zero:
      calls; then times each step (first, warm median of 5 over fresh
      columns, the host tier's time, launches and idle share by the
      profiler, host syncs, peak memory, byte bound).
+ 16. ``concurrent_tasks``: a Spark map stage of concurrent tasks on the
+     card, each on its own CUDA stream (parallel/task_executor.py): SF10
+     lineitem's q3 columns (phase 4's draws) written as 8 Parquet splits
+     of 7.5M rows; each task reads its split on the device tier, keeps
+     the rows past q3's ship date and writes the shuffle (B1's partition
+     route, B3's rows). Each task alone on the main stream first (the
+     reference, and its peak reservation; their concatenation == the
+     plain B1 and B3 over the whole table); then the stage through one
+     TaskExecutor at 1, 2 and 4 tasks in flight (the plugin's GPU
+     semaphore): first run, warm median of 3, each run bit-equal to the
+     tasks alone with B1 and B3 launched as often, no degradation and the
+     ladder's counters 0, one stream a task, and one profiled run (device
+     launches and copies, idle share over all streams, the kernel pairs
+     of two streams that overlap, each read's split); a governed
+     4-in-flight run under an RmmSpark pool that two tasks' peaks fit and
+     four do not (retries, block time; outputs bit-equal); a fault run
+     that traps one task's B1 call without end until the ladder degrades
+     that task alone to the CPU (the other 7 bit-equal on the card); and
+     the bridge's murmur3 at 1M rows through the sandbox's bridge worker
+     on the card, equal to the op in process. The first 4-in-flight
+     stage is the counted run.
 
 Prints JSON lines (timings, then the {"kernels": [...]} line, whose
 entries give each kernel's launches by path) and, last,
@@ -402,7 +424,8 @@ def main(argv=()):
     # one phase alone: (dev, card, rows) -> the phase's lines
     alone = {"memory_sf10": memory_phase, "parquet_sf10": parquet_phase,
              "decimal_sf10": decimal_phase, "casts_sf10": casts_phase,
-             "nested_sf10": nested_phase, "weblog_strings": weblog_phase}
+             "nested_sf10": nested_phase, "weblog_strings": weblog_phase,
+             "concurrent_tasks": concurrent_phase}
     default_rows = {"weblog_strings": WEBLOG_URLS}
     if argv and (argv[0] not in alone or len(argv) > 2):
         print(f"usage: chip_smoke.py [{'|'.join(alone)} [ROWS]]",
@@ -518,8 +541,12 @@ def main(argv=()):
     phase_end("nested_sf10")
 
     # ---- phase 15: the string device tiers over a web-log batch -----------
-    paths["weblog_strings"] = weblog_phase(dev, card, WEBLOG_URLS)
+    paths["weblog_strings"] = weblog_phase(dev, card, WEBLOG_RUN_URLS)
     phase_end("weblog_strings")
+
+    # ---- phase 16: concurrent map tasks, one CUDA stream each -------------
+    paths["concurrent_tasks"] = concurrent_phase(dev, card, SF10_ROWS)
+    phase_end("concurrent_tasks")
     for entry, (_, wrapper, _, _) in zip(entries, K.KERNELS):
         entry["launches_by_path"] = {p: c[wrapper] for p, c in paths.items()}
     jline({"phase_seconds": PHASE_SECONDS})
@@ -4898,6 +4925,10 @@ def _nested_time(card, name, fn, first_ms, nbytes):
 
 
 WEBLOG_URLS = 10_000_000     # phase 15: URLs of one batch (~1.2 GB)
+# the whole run takes phase 15 at half that batch, so that all 16 phases
+# end well inside the run's limit; ``python3 chip_smoke.py
+# weblog_strings`` runs the whole batch
+WEBLOG_RUN_URLS = WEBLOG_URLS // 2
 WEBLOG_DOCS_PER_URL = 0.4    # 4M documents for 10M URLs (~1.2 GB)
 WEBLOG_SLICE = 100_000       # 15: the card == the CPU on this many rows
 WEBLOG_WARM = 5              # warm calls a step's median is taken of
@@ -5268,6 +5299,446 @@ def _weblog_time(card, name, fn, first_ms, nbytes, host_ms, syncs, routes):
            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / warm,
            "bytes": nbytes, **cast_profile(fn, attempts=1)})
 
+
+CONCURRENT_TASKS = 8         # phase 16: the map stage's tasks, one split each
+CONCURRENT_IN_FLIGHT = (1, 2, 4)  # spark.rapids.sql.concurrentGpuTasks
+CONCURRENT_WARM = 3          # warm stages a setting's median is taken of
+CONCURRENT_BUDGET_S = 120.0  # task.budget_s of every run: a hang fails fast
+CONCURRENT_FAULT_TASK = 3    # the fault run traps this task's B1 call
+CONCURRENT_BRIDGE_ROWS = 1_000_000
+LINEITEM_SIDE = ("l_orderkey", "l_shipdate", "l_extendedprice",
+                 "l_discount")
+# the fault-domain counters a fault-free stage leaves at 0
+LADDER_COUNTERS = ("degradations", "task_retries", "poisoned_programs",
+                   "redispatches", "transient_retries", "resource_exhausted",
+                   "stall_detected", "stall_cancelled", "workers_lost",
+                   "crash_detected", "corruption_detected")
+
+
+def map_task(task_id, path, dev, timings=None):
+    """One map task of q3's lineitem side (a Spark map stage's task over
+    one input split): read the split through ParquetReader, keep the rows
+    with l_shipdate past q3's date, and write the shuffle: B1's partition
+    route into PARTITIONS partitions (under the guard as
+    ``map_task{id}.partition``, the fault run's target) and B3's JCUDF
+    rows. A task the executor's ladder degraded runs on the CPU (the
+    host tier, the kernels' plain versions). Returns (partition ids,
+    row batches)."""
+    from spark_rapids_jni_tpu_torch import tpch
+    from spark_rapids_jni_tpu_torch.columnar.table_ops import filter_table
+    from spark_rapids_jni_tpu_torch.faultinj import guard
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as R
+    from spark_rapids_jni_tpu_torch.parallel.exchange import partition_ids
+    from spark_rapids_jni_tpu_torch.parquet import ParquetReader
+    if guard.degraded_mode():
+        dev = torch.device("cpu")
+    with ParquetReader(path, device=dev, timings=timings) as r:
+        table = r.read_all()
+    live = filter_table(table, table.columns[1].data > tpch.CUTOFF_DAYS)
+    pids = guard.guarded_dispatch(f"map_task{task_id}.partition",
+                                  partition_ids, live, [0], PARTITIONS)
+    return pids, R.convert_to_rows(live)
+
+
+def map_stage(ex, paths, dev, in_flight, timings=None):
+    """The stage: one task a split, all submitted to the executor ``ex``
+    at once; at most ``in_flight`` hold the card at a time (the plugin's
+    GPU semaphore, spark.rapids.sql.concurrentGpuTasks). Returns each
+    task's output, in task order."""
+    import threading
+    gate = threading.Semaphore(in_flight)
+
+    def task(tid, path, t):
+        with gate:
+            return map_task(tid, path, dev, t)
+
+    futs = [ex.submit(tid, task, tid, p,
+                      None if timings is None else timings[tid])
+            for tid, p in enumerate(paths)]
+    return [f.result(timeout=4 * CONCURRENT_BUDGET_S) for f in futs]
+
+
+def _same_task_out(a, b) -> bool:
+    """Bit equality of two tasks' (partition ids, row batches), on the
+    device of ``a`` (``b`` moved there if it lives elsewhere)."""
+    (pa_, ra), (pb, rb) = a, b
+
+    def same(x, y):
+        return torch.equal(x, y.to(x.device))
+
+    if not same(pa_, pb) or len(ra) != len(rb):
+        return False
+    return all(same(x.offsets, y.offsets)
+               and same(x.children[0].data, y.children[0].data)
+               for x, y in zip(ra, rb))
+
+
+def _union_ms(intervals):
+    """Milliseconds covered by the union of (start_us, end_us) intervals."""
+    busy, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e3
+
+
+def overlapping_stream_pairs(events):
+    """Pairs of kernels on two distinct streams whose device time
+    intersects, and the streams seen, from profiler device events (stream
+    = ``device_resource_id``)."""
+    ks = sorted(((e.time_range.start, e.time_range.end,
+                  e.device_resource_id) for e in events
+                 if not e.name.startswith(("Memcpy", "Memset"))))
+    pairs, active = 0, []
+    for s, e, stream in ks:
+        active = [a for a in active if a[0] > s]
+        pairs += sum(1 for _, st in active if st != stream)
+        active.append((e, stream))
+    return pairs, sorted({k[2] for k in ks})
+
+
+def concurrent_phase(dev, card, rows):
+    """Phase 16 (``concurrent_tasks``): a Spark map stage of concurrent
+    tasks on one card, each on its own CUDA stream (parallel/
+    task_executor.py). Writes lineitem's q3 columns at ``rows`` rows as
+    CONCURRENT_TASKS Parquet files (one input split each), runs each task
+    alone on the main stream (the reference outputs, and each task's peak
+    reservation), then the stage at 1, 2 and 4 tasks in flight (first run
+    with the launch counts set to 0 and read after, warm median of
+    CONCURRENT_WARM, one profiled run with the reads' splits), a governed
+    4-in-flight run under an RmmSpark pool that two tasks' peaks fit and
+    four do not, a fault run that traps one task's B1 call until the ladder
+    degrades that task, and one bridge op through the sandbox's bridge
+    group. Returns the launches of the counted run (the first 4-in-flight
+    stage)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="concurrent_tasks_")
+    try:
+        return _concurrent_phase(dev, card, rows, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        from spark_rapids_jni_tpu_torch.faultinj import injector, sandbox
+        from spark_rapids_jni_tpu_torch.memory import RmmSpark
+        injector.uninstall()
+        sandbox.shutdown_all()
+        if RmmSpark.is_installed():
+            RmmSpark.clear_event_handler()
+
+
+def _concurrent_phase(dev, card, rows, tmp):
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from spark_rapids_jni_tpu_torch import bridge, tpch
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, Table
+    from spark_rapids_jni_tpu_torch.faultinj import guard, injector, sandbox
+    from spark_rapids_jni_tpu_torch.memory import RmmSpark
+    from spark_rapids_jni_tpu_torch.ops import kernels as K
+    from spark_rapids_jni_tpu_torch.parallel import TaskExecutor
+    from spark_rapids_jni_tpu_torch.utils import config
+    from spark_rapids_jni_tpu_torch.utils import datagen_parquet as W
+
+    cuda = dev.type == "cuda"
+    secs, t_part = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = now - t_part[0]
+        t_part[0] = now
+
+    # 1. the splits: lineitem's q3 columns as phase 4 draws them
+    a = tpch.q3_arrays(rows, 0)
+    li = {k: a[k] for k in LINEITEM_SIDE}
+    del a
+    bounds = np.linspace(0, rows, CONCURRENT_TASKS + 1).astype(np.int64)
+    paths = [os.path.join(tmp, f"lineitem_{i}.parquet")
+             for i in range(CONCURRENT_TASKS)]
+
+    def write(i):
+        s, e = bounds[i], bounds[i + 1]
+        return W.write_parquet(paths[i], [W.ParquetColumn(k, values=v[s:e])
+                                          for k, v in li.items()])
+
+    with ThreadPoolExecutor(CONCURRENT_TASKS) as pool:
+        infos = list(pool.map(write, range(CONCURRENT_TASKS)))
+    lap("write")
+    jline({"phase": "concurrent_tasks", "part": "splits", **card,
+           "rows": rows, "tasks": CONCURRENT_TASKS,
+           "rows_per_split": int(bounds[1]),
+           "split_bytes": [info["bytes"] for info in infos],
+           "row_groups": [len(info["row_groups"]) for info in infos],
+           "write_s": secs["write"]})
+
+    def overrides(**kv):
+        import contextlib
+        stack = contextlib.ExitStack()
+        for k, v in {"task.budget_s": CONCURRENT_BUDGET_S, **kv}.items():
+            stack.enter_context(config.override(k, v))
+        return stack
+
+    # 2. each task alone on the main stream, its thread dedicated to it
+    # under a pool that fits everything: the reference outputs and each
+    # task's peak reservation
+    K.reset_launches()
+    RmmSpark.set_event_handler(pool_bytes=1 << 40)
+    alone, peaks = [], []
+    try:
+        for tid, path in enumerate(paths):
+            RmmSpark.current_thread_is_dedicated_to_task(tid)
+            try:
+                alone.append(map_task(tid, path, dev))
+                _sync(dev)
+                peaks.append(RmmSpark.get_and_reset_max_device_reserved(tid))
+            finally:
+                RmmSpark.remove_current_thread_association(tid)
+                RmmSpark.task_done(tid)
+    finally:
+        RmmSpark.clear_event_handler()
+    alone_launches = _kernel_counts()
+    lap("alone")
+
+    checks = {}
+    # the concatenation == the plain B1 and B3 over the whole table
+    keep = li["l_shipdate"] > tpch.CUTOFF_DAYS
+    whole = Table(tuple(Column.from_numpy(v[keep], device=dev)
+                        for v in li.values()))
+    n = whole.num_rows
+    h = K.murmur3_fixed_rows_plain(_schema([whole[0]], False), 42, n)
+    want_pids = ((h.to(torch.int64) & 0xFFFFFFFF) % PARTITIONS).to(
+        torch.int32)
+    words = K.rowconv_fixed_words_plain(*_rowconv_args(whole))
+    got_pids = torch.cat([p for p, _ in alone])
+    got_bytes = torch.cat([b.children[0].data.view(torch.uint8).reshape(-1)
+                           for _, batches in alone for b in batches])
+    checks["alone_concat_equals_plain_b1"] = bool(torch.equal(got_pids,
+                                                              want_pids))
+    checks["alone_concat_equals_plain_b3"] = bool(torch.equal(
+        got_bytes, words.view(torch.uint8).reshape(-1)))
+    if cuda:  # the CPU runs the plain versions, which count nothing
+        checks["alone_launch_b1_b3_each_task"] = (
+            alone_launches["murmur3_fixed_rows"] == CONCURRENT_TASKS
+            and alone_launches["rowconv_fixed_words"] >= CONCURRENT_TASKS)
+    del whole, h, want_pids, words, got_pids, got_bytes
+    lap("plain_check")
+
+    # 3. the stage at each setting
+    settings = []
+    counted = None
+    for k in CONCURRENT_IN_FLIGHT:
+        line = {"in_flight": k}
+        runs_ok, clean, launches_ok = [], [], []
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        times = []
+        for rep in range(1 + CONCURRENT_WARM):
+            guard.metrics.reset()
+            K.reset_launches()
+            with overrides(), TaskExecutor(device=dev) as ex:
+                outs, ms = wall(lambda: map_stage(ex, paths, dev, k), dev)
+                degraded = ex.degraded_task_ids()
+                streams = {s.cuda_stream for s in ex.task_streams().values()
+                           if s is not None}
+            launches = _kernel_counts()
+            if k == max(CONCURRENT_IN_FLIGHT) and rep == 0:
+                counted = launches
+            times.append(ms)
+            runs_ok.append(all(_same_task_out(o, w)
+                               for o, w in zip(outs, alone)))
+            m = guard.metrics.snapshot()
+            clean.append(degraded == [] and all(m[c] == 0
+                                                for c in LADDER_COUNTERS))
+            launches_ok.append(launches == alone_launches)
+            if rep == 0:
+                line["peak_memory_gb"] = (torch.cuda.max_memory_allocated()
+                                          / 1e9 if cuda else None)
+                line["task_streams"] = len(streams) if cuda else None
+            del outs
+        line.update(first_ms=times[0], warm_all_ms=times[1:],
+                    warm_median_ms=sorted(times[1:])[len(times[1:]) // 2],
+                    launches=launches)
+        checks[f"in_flight_{k}_equals_alone"] = all(runs_ok)
+        checks[f"in_flight_{k}_no_degradation"] = all(clean)
+        checks[f"in_flight_{k}_launches_equal_alone"] = all(launches_ok)
+        if cuda:
+            checks[f"in_flight_{k}_one_stream_a_task"] = \
+                line["task_streams"] == CONCURRENT_TASKS
+        # one run under the profiler, the reads' splits taken (they sync
+        # the task's own stream between steps)
+        line.update(_stage_profile(dev, paths, k, overrides))
+        settings.append(line)
+        jline({"phase": "concurrent_tasks", "part": "stage", **card,
+               **line})
+    if cuda:
+        checks["in_flight_4_kernels_of_two_streams_overlap"] = \
+            (settings[-1]["overlapping_kernel_pairs"] or 0) > 0
+    lap("stages")
+
+    # 4. governed: 4 in flight under a pool two tasks' peaks fit, four not
+    peak = max(peaks)
+    pool_bytes = int(2.5 * peak)
+    RmmSpark.set_event_handler(pool_bytes=pool_bytes)
+    guard.metrics.reset()
+    try:
+        with overrides(), TaskExecutor(device=dev) as ex:
+            outs, gov_ms = wall(lambda: map_stage(ex, paths, dev, 4), dev)
+            gov = {"retries": [RmmSpark.get_and_reset_num_retry(t)
+                               for t in range(CONCURRENT_TASKS)],
+                   "split_retries": [RmmSpark.get_and_reset_num_split_retry(t)
+                                     for t in range(CONCURRENT_TASKS)],
+                   "block_time_ms": [RmmSpark.get_and_reset_block_time_ns(t)
+                                     / 1e6 for t in range(CONCURRENT_TASKS)]}
+    finally:
+        RmmSpark.clear_event_handler()
+    m = guard.metrics.snapshot()
+    checks["governed_outputs_equal_alone"] = all(
+        _same_task_out(o, w) for o, w in zip(outs, alone))
+    checks["governed_pool_fits_two_not_four"] = \
+        2 * peak <= pool_bytes < 4 * peak
+    del outs
+    jline({"phase": "concurrent_tasks", "part": "governed", **card,
+           "in_flight": 4, "pool_bytes": pool_bytes,
+           "task_peak_reservation_bytes": peaks, "wall_ms": gov_ms,
+           **gov, "task_retries": m["task_retries"],
+           "resource_exhausted": m["resource_exhausted"]})
+    lap("governed")
+
+    # 5. fault: one task's B1 call trapped without end; that task alone
+    # degrades (after task.degrade_after = 2 poisoned attempts) and runs
+    # on the CPU, the other tasks complete on the card
+    fault_api = f"map_task{CONCURRENT_FAULT_TASK}.partition"
+    cfg = os.path.join(tmp, "trap.json")
+    with open(cfg, "w") as f:
+        json.dump({"xlaRuntimeFaults": {fault_api: {
+            "percent": 100, "injectionType": 0,
+            "interceptionCount": 1 << 30}}}, f)
+    guard.metrics.reset()
+    injector.install(cfg, seed=0)
+    try:
+        with overrides(**{"task.degrade_after": 2,
+                          "task.retry_budget": 4}), \
+                TaskExecutor(device=dev) as ex:
+            outs, fault_ms = wall(lambda: map_stage(ex, paths, dev, 4), dev)
+            degraded = ex.degraded_task_ids()
+    finally:
+        injector.uninstall()
+    m = guard.metrics.snapshot()
+    checks["fault_one_task_degraded"] = degraded == [CONCURRENT_FAULT_TASK]
+    checks["fault_degradation_counted"] = m["degradations"] == 1
+    checks["fault_outputs_equal_alone"] = all(
+        _same_task_out(o, w) for o, w in zip(outs, alone))
+    checks["fault_degraded_task_ran_on_cpu"] = \
+        outs[CONCURRENT_FAULT_TASK][0].device.type == "cpu"
+    checks["fault_others_on_the_task_device"] = all(
+        o[0].device.type == dev.type for t, o in enumerate(outs)
+        if t != CONCURRENT_FAULT_TASK)
+    del outs
+    jline({"phase": "concurrent_tasks", "part": "fault", **card,
+           "trapped": fault_api, "wall_ms": fault_ms,
+           "degraded_task_ids": degraded,
+           "counters": {c: m[c] for c in ("degradations", "task_retries",
+                                          "poisoned_programs",
+                                          "redispatches",
+                                          "injected_faults")}})
+    lap("fault")
+
+    # 6. one bridge op through the sandbox's bridge group, on the card
+    key = Column.from_numpy(li["l_orderkey"][:CONCURRENT_BRIDGE_ROWS],
+                            device="cpu")
+    wire = [bridge.col_to_wire(key)]
+    args = json.dumps({"seed": 42})
+    (want, _), in_ms = wall(lambda: bridge.call("hash.murmur3", args, wire,
+                                                device=dev), dev)
+    with config.override("sandbox.enabled", True), \
+            config.override("sandbox.bridge_ops", "hash.murmur3"):
+        (first, _), first_ms = wall(lambda: bridge.call(
+            "hash.murmur3", args, wire, device=dev), dev)
+        worker = sandbox.get_worker("bridge").pid()
+        (warm, _), warm_ms = wall(lambda: bridge.call(
+            "hash.murmur3", args, wire, device=dev), dev)
+    sandbox.shutdown_all()
+    checks["bridge_sandboxed_equals_in_process"] = first == want == warm
+    checks["bridge_ran_in_another_process"] = worker not in (None,
+                                                             os.getpid())
+    jline({"phase": "concurrent_tasks", "part": "bridge_sandbox", **card,
+           "op": "hash.murmur3", "rows": CONCURRENT_BRIDGE_ROWS,
+           "in_process_ms": in_ms, "sandboxed_first_ms": first_ms,
+           "sandboxed_warm_ms": warm_ms})
+    lap("bridge")
+
+    jline({"phase": "concurrent_tasks", "part": "checks", **card,
+           "checks": checks, "alone_launches": alone_launches,
+           "seconds": secs})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"concurrent_tasks: failed checks {bad}")
+    return counted
+
+
+def _stage_profile(dev, paths, in_flight, overrides):
+    """One stage under torch.profiler, between sentinel kernels on the main
+    stream (four at the start, two at the end: a session late in a run
+    can lose its first device events): device launches and copies, the
+    busy union over every stream against the span (the idle share), each
+    read's split, the streams seen and the kernel pairs of two streams
+    that overlap. A session whose first and last device events are not
+    sentinels runs once more; if none is whole, launches, copies and the
+    idle share read None (not measured), while the streams and pairs come
+    from the kernels the last session kept. On the CPU only the splits."""
+    from spark_rapids_jni_tpu_torch.parallel import TaskExecutor
+    out = {"device_kernel_launches": None,
+           "device_copies_and_memsets": None, "profiled_wall_ms": None,
+           "device_busy_ms": None, "device_idle_share": None,
+           "profiler_streams": None, "overlapping_kernel_pairs": None,
+           "profile_whole": None}
+    with overrides(), TaskExecutor(device=dev) as ex:
+        if dev.type != "cuda":
+            splits = [dict() for _ in paths]
+            map_stage(ex, paths, dev, in_flight, splits)
+            return {**out, "read_split_ms": splits}
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        for attempt in range(2):
+            splits = [dict() for _ in paths]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _sentinels(4)
+                t = time.perf_counter()
+                map_stage(ex, paths, dev, in_flight, splits)
+                torch.cuda.synchronize()
+                span_ms = (time.perf_counter() - t) * 1e3
+                _sentinels()
+            ev = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+            at = [i for i, e in enumerate(ev) if SENTINEL_KERNEL in e.name]
+            whole = (len(at) >= 2 and at[0] == 0 and at[-1] == len(ev) - 1
+                     and len(ev) > len(at))
+            if whole:
+                break
+            log(f"the profiler showed sentinels at {at[:6]} of {len(ev)} "
+                f"device events (session {attempt + 1}): not a whole "
+                f"session")
+    ev = [e for e in ev if SENTINEL_KERNEL not in e.name]
+    pairs, streams = overlapping_stream_pairs(ev)
+    out.update(profiler_streams=len(streams),
+               overlapping_kernel_pairs=pairs, profile_whole=whole,
+               read_split_ms=splits)
+    if whole:
+        copies = sum(1 for e in ev
+                     if e.name.startswith(("Memcpy", "Memset")))
+        busy = _union_ms([(e.time_range.start, e.time_range.end)
+                          for e in ev])
+        out.update(device_kernel_launches=len(ev) - copies,
+                   device_copies_and_memsets=copies,
+                   profiled_wall_ms=span_ms, device_busy_ms=busy,
+                   device_idle_share=1 - busy / span_ms)
+    return out
 
 def numpy_q1(a, cutoff=2400):
     """q1 over the generator's arrays, independent of the port: per

@@ -15,10 +15,11 @@ The op names, their arguments, their outputs and their meta JSON are the
 JAX package's, all 31 of them, and all 31 run. A LIST result or argument crosses decomposed, as in
 the JAX package: its offsets as an INT64 column, then its children's
 columns, then its validity as a BOOL8 column where it has one
-(``_list_parts``). The JAX package's
-sandboxed dispatch of bridge ops (config ``sandbox.bridge_ops``) is not
-ported: the port's config has no such key, and every op runs in process
-(ROADMAP A11b). The C ABI that embeds the bridge
+(``_list_parts``). An op named in ``sandbox.bridge_ops`` (with
+``sandbox.enabled``) runs in the sandbox's "bridge" worker instead
+(faultinj/sandbox.py): the wire columns are the payload, and the worker
+runs the op on the caller's device, the card included, in its own
+process. The default list is empty. The C ABI that embeds the bridge
 (native/engine_bridge.cpp) imports the JAX package's module; the port's
 own embedding waits for ROADMAP A17.
 """
@@ -55,23 +56,50 @@ def call(op_name: str, args_json: str, wire_cols: Sequence[WireCol],
     """Run one op on wire columns: a watchdog checkpoint before the
     columns are built, then the op under ``guarded_dispatch(op_name,
     ...)`` (faultinj/guard.py), so a fault config naming the op fires
-    there and real failures take their fault domain's recovery. Returns
-    the output wire columns and the meta JSON."""
-    from .faultinj import watchdog
+    there and real failures take their fault domain's recovery. An op in
+    ``sandbox.bridge_ops`` runs the whole marshal -> dispatch -> unmarshal
+    in the sandbox's "bridge" worker, under the same guard: a dead worker
+    is a CRASH the caller replays. Returns the output wire columns and the
+    meta JSON."""
+    from .faultinj import sandbox, watchdog
     from .faultinj.guard import guarded_dispatch
-    fn = _OPS.get(op_name)
-    if fn is None:
+    if op_name not in _OPS:
         raise KeyError(f"unknown engine op: {op_name!r} (have: {ops()})")
     watchdog.checkpoint()  # a chunk boundary: before the marshalling
     dev = resolve_device(device)
+    if sandbox.active(op_name, kind="bridge"):
+        return guarded_dispatch(
+            op_name, sandbox.sandbox_call, op_name,
+            sandbox.mod_target("spark_rapids_jni_tpu_torch.bridge",
+                               "_sandboxed_op"),
+            op_name, args_json, [tuple(w) for w in wire_cols], str(dev),
+            group="bridge")
     args = json.loads(args_json) if args_json else {}
     cols = [wire_to_col(w, dev) for w in wire_cols]
-    out = guarded_dispatch(op_name, fn, args, cols, dev)
+    return _to_wire(guarded_dispatch(op_name, _OPS[op_name], args, cols,
+                                     dev))
+
+
+def _to_wire(out) -> Tuple[List[WireCol], str]:
+    """A handler's output (its columns, or (columns, meta)) as wire
+    columns and the meta JSON."""
     meta = {}
     if isinstance(out, tuple):
         out, meta = out
     return [c if isinstance(c, tuple) else col_to_wire(c) for c in out], \
         json.dumps(meta)
+
+
+def _sandboxed_op(op_name: str, args_json: str,
+                  wire_cols: Sequence[WireCol],
+                  device: str) -> Tuple[List[WireCol], str]:
+    """The bridge worker's half of a sandboxed op: ``call`` without the
+    supervisor (the caller's ``guarded_dispatch`` owns the retries; a
+    fault here relays to it as raised)."""
+    dev = resolve_device(device)
+    args = json.loads(args_json) if args_json else {}
+    cols = [wire_to_col(w, dev) for w in wire_cols]
+    return _to_wire(_OPS[op_name](args, cols, dev))
 
 
 def _i64_wire(t: torch.Tensor) -> WireCol:

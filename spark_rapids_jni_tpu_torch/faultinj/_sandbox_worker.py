@@ -2,15 +2,17 @@
 JAX package's faultinj/_sandbox_worker.py).
 
 Launched by faultinj/sandbox.py as ``python _sandbox_worker.py <fd_in>
-<fd_out>``: as a plain script, NOT a package module, so a worker hosting
-file-loaded targets (faultinj/_sandbox_targets.py) starts with bare
-python and numpy: it never imports torch and never creates a CUDA
-context (the parent also hides every card from it).
+<fd_out>``: as a plain script, NOT a package module, so a "native" worker
+hosting file-loaded targets (faultinj/_sandbox_targets.py) starts with
+bare python and numpy: it never imports torch and never creates a CUDA
+context (the parent also hides every card from it). A "bridge" worker's
+targets are package modules ("mod" specs: the bridge's ``_sandboxed_op``),
+imported on first use; it imports torch, and the card is visible to it.
 
 Protocol (pickled over a pipe pair, multiprocessing Connection framing):
 
-  request:  {"id": n, "target": ("file", path, func), "args": tuple,
-             "kwargs": dict, "crash": directive}
+  request:  {"id": n, "target": ("file", path, func) | ("mod", dotted,
+             func), "args": tuple, "kwargs": dict, "crash": directive}
   response: ("ok", n, result) | ("err", n, exception)
   shutdown: None (the worker exits 0)
 
@@ -23,6 +25,7 @@ detects it by exitcode/signal and classifies the CRASH fault domain.
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import os
 import signal
@@ -46,9 +49,11 @@ def _load_file_module(path: str):
 
 def _resolve(target):
     kind, where, func = target
-    if kind != "file":
-        raise ValueError(f"unknown sandbox target kind {kind!r}")
-    return getattr(_load_file_module(where), func)
+    if kind == "file":
+        return getattr(_load_file_module(where), func)
+    if kind == "mod":
+        return getattr(importlib.import_module(where), func)
+    raise ValueError(f"unknown sandbox target kind {kind!r}")
 
 
 def _crash(directive):

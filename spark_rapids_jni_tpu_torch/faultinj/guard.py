@@ -68,7 +68,7 @@ config can target, in addition to the injector's patched op entry points):
                          or in a sandbox worker)
 
 The JAX package's other surfaces (the sharded exchange) are not ported
-yet (ROADMAP A11b, A15).
+yet (ROADMAP A15b).
 
 Payload bit-flip surfaces (``injectionType: 3`` rules consumed by the
 memory/integrity.py hooks, not by exception checkpoints): "spill",
@@ -83,9 +83,12 @@ cleared before the re-raise as ``TpuRetryOOM``: the frames of the failed
 attempt hold its tensors, and a retry must not find that memory pinned by
 the exception the ladder keeps.
 
-Degraded mode: a task re-run inside ``degraded()`` has fault injection
-suppressed (the degradation ladder of the JAX package's TaskExecutor,
-ROADMAP A11b, enters it). Metrics for every domain are kept here and
+Degraded mode: after the TaskExecutor's ladder gives up on the device
+(parallel/task_executor.py: ``task.degrade_after`` consecutive poison,
+storm or stall failures), the task re-runs inside ``degraded()`` — fault
+injection is suppressed and ``utils.backend.tier_is_device`` resolves
+"auto" tiers to the host tier. The mode is per thread, so it degrades
+that task alone. Metrics for every domain are kept here and
 surfaced through ``RmmSpark.get_fault_domain_metrics`` and profiler
 ranges (utils/tracing.py) so chaos runs are observable.
 """

@@ -25,15 +25,24 @@ a supervised worker SUBPROCESS, behind ``guarded_dispatch``:
     bounded poll with watchdog checkpoints, and a HUNG worker escalates
     stall -> kill -> CRASH.
 
-Workers load their targets by file path (faultinj/_sandbox_targets.py):
-bare python + numpy, no torch, and no card visible to them. The JAX
-package's second worker group, which imports the engine package to run
-sandboxed bridge ops, is not ported: the port's bridge (bridge.py) runs
-every op in process (ROADMAP A11b).
+Two worker groups keep respawn cost proportional to what crashed:
+
+  * "native" workers load their targets by file path
+    (faultinj/_sandbox_targets.py): bare python + numpy, no torch, and no
+    card visible to them;
+  * "bridge" workers import this package (``mod_target``) to run the
+    bridge's opted-in ops (``sandbox.bridge_ops``; bridge.py) on wire
+    columns, which are flat bytes, so the wire format is the pickle
+    payload. A bridge worker is spawned (a fresh interpreter, never a
+    fork of the caller) and sees the card: it runs the op on the card
+    when the caller's columns are bound there, in its own CUDA context,
+    so a device fault in the op kills the worker and not the caller. The
+    JAX package pins its bridge workers to the CPU because a TPU admits
+    one process; a GPU admits several.
 
 Config: ``sandbox.enabled`` (default off: in-process dispatch is
 bit-identical and faster when crash containment is not required),
-``sandbox.surfaces``, ``sandbox.max_replays``,
+``sandbox.surfaces``, ``sandbox.bridge_ops``, ``sandbox.max_replays``,
 ``sandbox.call_timeout_s``; breaker knobs in breaker.py.
 """
 
@@ -52,6 +61,8 @@ from . import breaker, watchdog
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _WORKER_PY = os.path.join(_HERE, "_sandbox_worker.py")
 _TARGETS_PY = os.path.join(_HERE, "_sandbox_targets.py")
+# the directory that holds this package: a bridge worker imports it
+_PKG_PARENT = os.path.dirname(os.path.dirname(_HERE))
 
 
 class WorkerCrashError(RuntimeError):
@@ -82,8 +93,14 @@ class QuarantinedInputError(CorruptionError):
 
 
 def file_target(func: str) -> Tuple[str, str, str]:
-    """Target spec for a function in _sandbox_targets.py."""
+    """Target spec for a function in _sandbox_targets.py ("native"
+    group)."""
     return ("file", _TARGETS_PY, func)
+
+
+def mod_target(dotted: str, func: str) -> Tuple[str, str, str]:
+    """Target spec for a function of a package module ("bridge" group)."""
+    return ("mod", dotted, func)
 
 
 def _metrics():
@@ -114,8 +131,15 @@ class SandboxWorker:
         req_r, req_w = os.pipe()
         rsp_r, rsp_w = os.pipe()
         env = dict(os.environ)
-        # a worker holds no card: nothing it runs may touch the device
-        env["CUDA_VISIBLE_DEVICES"] = ""
+        if self.group == "bridge":
+            # imports the package, and keeps the card
+            env["PYTHONPATH"] = _PKG_PARENT + (
+                os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH")
+                else "")
+        else:
+            # a native worker holds no card: nothing it runs may touch
+            # the device
+            env["CUDA_VISIBLE_DEVICES"] = ""
         try:
             self._proc = subprocess.Popen(
                 [sys.executable, _WORKER_PY, str(req_r), str(rsp_w)],
@@ -332,17 +356,19 @@ def _quarantine_bump(api: str, key: Optional[str]) -> None:
 
 # -- routing -----------------------------------------------------------------
 
-def active(api: str) -> bool:
+def active(api: str, kind: str = "surface") -> bool:
     """Route decision for one dispatch: True = send it to the sandbox;
     False = take the in-process path (sandbox disabled for this surface,
-    or its circuit breaker is open — the degraded route). A True from a
-    HALF_OPEN breaker admits THE probe, so the caller must follow through
-    with sandbox_call."""
+    or its circuit breaker is open — the degraded route). ``kind``
+    "surface" reads ``sandbox.surfaces``, "bridge" ``sandbox.bridge_ops``.
+    A True from a HALF_OPEN breaker admits THE probe, so the caller must
+    follow through with sandbox_call."""
     from ..utils import config
     if not bool(config.get("sandbox.enabled")):
         return False
-    names = {s.strip() for s in str(config.get("sandbox.surfaces"))
-             .split(",") if s.strip()}
+    key = "sandbox.bridge_ops" if kind == "bridge" else "sandbox.surfaces"
+    names = {s.strip() for s in str(config.get(key)).split(",")
+             if s.strip()}
     if api not in names:
         return False
     if not breaker.get_breaker(api).allow():

@@ -8,9 +8,11 @@ memory/rmm_spark.py breaks BUFN deadlocks — this one catches everything
 else: a hung collective, a stuck CUDA call, a deadlocked spill).
 
 In this package the guarded surfaces are the transfers of
-memory/transport.py and the fused executor's ``plan_execute``; the
-TaskExecutor, the parquet reader and the sharded exchange named below are
-not ported yet (ROADMAP A11b, A14, A15), and the text keeps their roles.
+memory/transport.py, the fused executor's ``plan_execute``, the Parquet
+reader's page decodes, the bridge's ops and ``parse_uri``; the
+TaskExecutor (parallel/task_executor.py) carries deadlines across threads
+and owns the recovery ladder. The sharded exchange named below is not
+ported yet (ROADMAP A15b), and the text keeps its role.
 
 Three cooperating pieces:
 

@@ -77,9 +77,11 @@ def bracket_end(mark: Optional[tuple], reserved: int) -> None:
     the record is an audit signal, not an exact meter)."""
     if mark is None:
         return
-    # drain the stream first: kernels still queued may still allocate
-    # (compliant callers ran release_barrier on their result already)
-    torch.cuda.synchronize()
+    # drain this thread's stream first: kernels still queued may still
+    # allocate (compliant callers ran release_barrier on their result
+    # already). Only the current stream: a device-wide sync would wait on
+    # every other task's stream too (parallel/task_executor.py)
+    torch.cuda.current_stream().synchronize()
     s = device_memory_stats()
     if s is None:
         return

@@ -76,22 +76,23 @@ def device_reservation(nbytes: int):
         RmmSpark.dealloc(nbytes)
 
 
-def _cuda_devices(obj, out: set) -> None:
-    """The devices of every CUDA tensor in a result: tensors, Columns,
-    Tables, and lists, tuples and dicts of them."""
+def cuda_tensors(obj):
+    """Every CUDA tensor in ``obj``: tensors, Columns, Tables, and lists,
+    tuples and dicts of them (a donated Table holds none)."""
     if isinstance(obj, torch.Tensor):
         if obj.is_cuda:
-            out.add(obj.device)
+            yield obj
     elif isinstance(obj, (list, tuple)):
         for o in obj:
-            _cuda_devices(o, out)
+            yield from cuda_tensors(o)
     elif isinstance(obj, dict):
-        _cuda_devices(list(obj.values()), out)
+        yield from cuda_tensors(list(obj.values()))
     elif isinstance(obj, Table):
-        _cuda_devices(obj.columns, out)
+        if not obj.is_donated:
+            yield from cuda_tensors(obj.columns)
     elif isinstance(obj, Column):
-        _cuda_devices([obj.data, obj.validity, obj.offsets, obj.children],
-                      out)
+        yield from cuda_tensors([obj.data, obj.validity, obj.offsets,
+                                 obj.children])
 
 
 def release_barrier(result, took: bool):
@@ -106,8 +107,6 @@ def release_barrier(result, took: bool):
     waited on: the ungoverned path stays free of host syncs.
     """
     if took:
-        devs: set = set()
-        _cuda_devices(result, devs)
-        for dev in devs:
+        for dev in {t.device for t in cuda_tensors(result)}:
             torch.cuda.current_stream(dev).synchronize()
     return result

@@ -154,6 +154,19 @@ class SpillableTable:
         self._disk_path: Optional[str] = None
         self._on_promote = None  # set by SpillStore.register (LRU touch)
         self._on_spill = None    # set by SpillStore.register (host limit)
+        # an event on the stream that wrote the device copy (set at
+        # SpillStore.register and at promote): a spill from another
+        # thread, whose current stream is another task's, waits on it
+        # before its copy (parallel/task_executor.py)
+        self._written: Optional[torch.cuda.Event] = None
+
+    def _mark_written(self) -> None:
+        """Record ``_written`` on the current stream of the table's
+        device (nothing on the CPU)."""
+        if self._device is not None and self._device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self._device))
+            self._written = ev
 
     def _await_settled_locked(self) -> None:
         """Wait (bounded, cancellable) for an in-flight transition to
@@ -227,8 +240,11 @@ class SpillableTable:
                 return 0
             freed = self._table.device_nbytes()
             table = self._table
+            written = self._written
             self._busy = True
         try:
+            if written is not None:
+                torch.cuda.current_stream(self._device).wait_event(written)
             with trace_range("spill"):
                 host = _guarded("spill", lambda: to_host(table))
                 fp = table_fingerprint(host) if _verify_enabled() else None
@@ -318,6 +334,7 @@ class SpillableTable:
                     self._table = dev
                     self._fingerprint = None
                     self._state = self.DEVICE
+                    self._mark_written()
             with self._lock:
                 return self._table
         finally:
@@ -403,6 +420,7 @@ class SpillStore:
     def register(self, table) -> SpillableTable:
         st = table if isinstance(table, SpillableTable) \
             else SpillableTable(table)
+        st._mark_written()
         with self._lock:
             self._seq += 1
             self._entries[id(st)] = (self._seq, st)

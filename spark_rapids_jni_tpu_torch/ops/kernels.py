@@ -193,10 +193,21 @@ def _schema_device(schema) -> torch.device:
     return _where(_schema_tensors(schema))
 
 
+# the wrappers' launch counts are bumped from several task threads at
+# once (parallel/task_executor.py): each bump and reset under one lock
+_launch_lock = threading.Lock()
+
+
+def _count_launch(fn) -> None:
+    with _launch_lock:
+        fn.launches += 1
+
+
 def reset_launches() -> None:
-    for fn in (murmur3_fixed_rows, xxhash64_fixed_rows, rowconv_fixed_words,
-               segment_float_agg, decimal128_op):
-        fn.launches = 0
+    with _launch_lock:
+        for fn in (murmur3_fixed_rows, xxhash64_fixed_rows,
+                   rowconv_fixed_words, segment_float_agg, decimal128_op):
+            fn.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -406,7 +417,7 @@ def _launches(fn, schema, seed: int, n: int, seeds, name: str,
     for at in range(0, len(schema), MAX_HASH_COLUMNS):
         h = _launch_hash(name, schema[at:at + MAX_HASH_COLUMNS], seed, n, h,
                          out_dtype)
-        fn.launches += 1
+        _count_launch(fn)
     return h
 
 
@@ -987,7 +998,7 @@ def rowconv_fixed_words(cols: Sequence[torch.Tensor],
                                 lay.tiles.out_bytes, n, out.data_ptr(),
                                 _stream(dev))
     _check(lib, err, "rowconv")
-    rowconv_fixed_words.launches += 1
+    _count_launch(rowconv_fixed_words)
     return out
 
 
@@ -1189,7 +1200,7 @@ def segment_float_agg(z: torch.Tensor, valid: torch.Tensor,
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
         None if flushed is None else flushed.data_ptr(), _stream(dev))
     _check(lib, err, "segment_float_agg")
-    segment_float_agg.launches += 1
+    _count_launch(segment_float_agg)
     return out[0], out[1], out[2]
 
 
@@ -1263,7 +1274,7 @@ def decimal128_op(op: str, a: torch.Tensor, b: torch.Tensor, a_c: int,
         int(cast_interim_result), out.data_ptr(), over.data_ptr(),
         None if err is None else err.data_ptr(), _stream(dev)),
         "decimal128")
-    decimal128_op.launches += 1
+    _count_launch(decimal128_op)
     if err is not None and int(err.item()):  # a host read only here
         raise ValueError("pow10 exponent out of supported range [0, 76]")
     return over, out

@@ -1,7 +1,8 @@
 """The shuffle's partition route (the JAX package's parallel/exchange.py).
 
 Only ``partition_ids`` is ported: the destination partition of each row of
-a map-side batch. The all-to-all exchange itself is ROADMAP A15.
+a map-side batch. The all-to-all exchange itself is ROADMAP A15b; the
+task executor that runs map tasks concurrently is parallel/task_executor.py.
 """
 
 from __future__ import annotations
@@ -30,6 +31,6 @@ def partition_ids(table: Table, key_indices: Sequence[int],
 
 def program_state() -> dict:
     """The exchange's cached programs, for a stall's diagnostics bundle
-    (faultinj/watchdog.py). The all-to-all exchange is not ported (A15),
-    so the port caches none."""
+    (faultinj/watchdog.py). The all-to-all exchange is not ported (ROADMAP
+    A15b), so the port caches none."""
     return {"exchange_cache": 0, "counts_cache": 0}

@@ -54,7 +54,7 @@ hands the input's column tensors to the program, which drops each after
 its last use; the donated run stays outside the ladder, and an overflow
 after it raises ``RuntimeError``, as in the JAX package.
 
-Not ported: the sharded and batched programs (A15, A16).
+Not ported: the sharded and batched programs (A15b, A16).
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ package does (the planner reads them). Tables are built on ``device``
 ("cuda" unless the caller asks for "cpu").
 
 Not ported: the distributed queries (``mesh=``, ``engine="sharded"``;
-ROADMAP A15).
+ROADMAP A15b).
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def _use_plan(engine: str, rows: int, mesh) -> bool:
     the op-by-op pipeline, "auto" fuses at or above ``plan.min_rows``."""
     if mesh is not None or engine == "sharded":
         raise dt.not_ported("distributed TPC-H queries (mesh=, "
-                            "engine=\"sharded\")", "A15, parallel")
+                            "engine=\"sharded\")", "A15b, parallel")
     if engine not in ("auto", "plan", "eager"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "auto":

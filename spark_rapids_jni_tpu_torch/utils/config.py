@@ -1,7 +1,8 @@
 """The port's knobs: the entries of the JAX package's utils/config.py
 that this port reads (``plan.*``, ``trace.enabled``, ``rmm.*``,
-``native.so_override``, ``faultinj.*``, ``watchdog.*``, ``spill.*``,
-``parquet.*``, ``sandbox.*``, ``breaker.*``, the string tiers'
+``native.so_override``, ``faultinj.*``, ``watchdog.*``, ``task.*``,
+``drain.timeout_s``, ``spill.*``, ``parquet.*``, ``sandbox.*``,
+``breaker.*``, the string tiers'
 ``parse_uri.tier``, ``get_json.tier`` and ``from_json.tier``), with
 the same names, defaults and environment variables. Each resolves
 programmatic override -> environment variable -> default.
@@ -128,6 +129,24 @@ _REGISTRY: Dict[str, _Entry] = {
         "SRJT_WATCHDOG_LOST_AFTER_S", 5.0, float,
         "grace after a cooperative cancel before a non-responding thread "
         "is declared lost"),
+    # ---- the task executor (parallel/task_executor.py) ---------------------
+    "task.budget_s": _Entry(
+        "SRJT_TASK_BUDGET_S", 0.0, float,
+        "per-submission wall-clock deadline for TaskExecutor task bodies; "
+        "0 = inherit only the submitter's Deadline (if any)"),
+    "task.retry_budget": _Entry(
+        "SRJT_TASK_RETRY_BUDGET", 4, int,
+        "TaskExecutor per-submission retry budget across all fault "
+        "domains (rollback-to-spillable between attempts)"),
+    "task.degrade_after": _Entry(
+        "SRJT_TASK_DEGRADE_AFTER", 3, int,
+        "consecutive device failures before a task degrades to the "
+        "host/CPU compute path (0 disables degradation)"),
+    "drain.timeout_s": _Entry(
+        "SRJT_DRAIN_TIMEOUT_S", 30.0, float,
+        "deadline for TaskExecutor.drain(): stop admission, run in-flight "
+        "tasks to completion, flush+fsync the SpillStore, stop sandbox "
+        "workers, report a verdict"),
     # ---- spill (memory/transport.py) --------------------------------------
     "spill.disk_dir": _Entry(
         "SRJT_SPILL_DISK_DIR", "", str,
@@ -201,6 +220,11 @@ _REGISTRY: Dict[str, _Entry] = {
         "SRJT_SANDBOX_SURFACES", "parquet_page_decode,parse_uri", str,
         "csv of guarded api names routed through the sandbox when "
         "sandbox.enabled"),
+    "sandbox.bridge_ops": _Entry(
+        "SRJT_SANDBOX_BRIDGE_OPS", "", str,
+        "csv of bridge op names (e.g. 'hash.murmur3') dispatched in the "
+        "package-importing \"bridge\" sandbox worker; '' = no bridge ops "
+        "sandboxed"),
     "sandbox.max_replays": _Entry(
         "SRJT_SANDBOX_MAX_REPLAYS", 3, int,
         "crashes one input may cause before it is quarantined "

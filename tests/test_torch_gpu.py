@@ -1192,3 +1192,173 @@ def test_string_tiers_on_card_equal_cpu(cuda):
     for k, (a, b, c) in enumerate(zip(got["host"], got["device_cpu"],
                                       got["card"])):
         assert _same_bytes(a, b) and _same_bytes(b, c), k
+
+
+# ---------------------------------------------------------------------------
+# the task executor: one CUDA stream per task (parallel/task_executor.py)
+# ---------------------------------------------------------------------------
+
+SLEEP_CYCLES = 1_000_000_000  # torch.cuda._sleep: ~0.5 s of queued work
+
+
+def test_two_tasks_get_distinct_streams_current_in_their_threads(cuda):
+    from spark_rapids_jni_tpu_torch.parallel import TaskExecutor
+
+    def current():
+        return torch.cuda.current_stream().cuda_stream
+
+    with TaskExecutor(device=cuda) as ex:
+        got = {t: ex.submit(t, current).result(timeout=60) for t in (1, 2)}
+        want = {t: s.cuda_stream for t, s in ex.task_streams().items()}
+    assert got == want
+    assert len(set(got.values())) == 2
+    assert torch.cuda.current_stream().cuda_stream not in got.values()
+
+
+def test_a_result_resolves_after_its_stream_and_the_submitter_waits_not(
+        cuda):
+    """The submitter's own stream is free while the task's stream still
+    works; the future resolves only once the task's stream has finished,
+    and the result then reads right on the submitter's stream."""
+    from spark_rapids_jni_tpu_torch.parallel import TaskExecutor
+    x = torch.arange(1 << 20, device=cuda, dtype=torch.int64)
+
+    def body(t):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return t * 3
+
+    with TaskExecutor(device=cuda) as ex:
+        fut = ex.submit(1, body, x)
+        y = x + 1
+        torch.cuda.current_stream().synchronize()
+        assert not fut.done()  # the task's stream still sleeps
+        out = fut.result(timeout=60)
+        assert ex.task_streams()[1].query()
+        assert torch.equal(out, x * 3) and torch.equal(y, x + 1)
+
+
+def test_inputs_and_outputs_survive_reallocation_across_streams(cuda):
+    """A freed input re-allocated at once on the submitter's stream does
+    not corrupt the task that still reads it; a result the submitter frees
+    while its stream still reads it is not handed to the task's next
+    allocation."""
+    from spark_rapids_jni_tpu_torch.parallel import TaskExecutor
+    n = 1 << 24
+
+    def late_double(t):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return t * 2
+
+    def scribble():
+        return torch.full((n,), -7, dtype=torch.int64, device=cuda)
+
+    with TaskExecutor(device=cuda) as ex:
+        x = torch.ones(n, dtype=torch.int64, device=cuda)
+        fut = ex.submit(1, late_double, x)
+        del x
+        junk = torch.full((n,), 5, dtype=torch.int64, device=cuda)
+        out = fut.result(timeout=60)
+        assert int(out.sum()) == 2 * n
+        del junk
+        torch.cuda._sleep(SLEEP_CYCLES)  # the consumer's read, queued
+        total = out.sum()
+        del out
+        again = ex.submit(1, scribble).result(timeout=60)
+        assert int(total) == 2 * n
+        assert int(again.sum()) == -7 * n
+
+
+def test_launch_counts_are_exact_under_four_task_threads(cuda):
+    from spark_rapids_jni_tpu_torch.parallel import TaskExecutor
+    t = _mixed(1 << 12, cuda, nulls=False)
+    calls = 200
+
+    def hashes():
+        for _ in range(calls):
+            H.murmur_hash3_32(t)
+
+    K.reset_launches()
+    with TaskExecutor(device=cuda) as ex:
+        for f in [ex.submit(k, hashes) for k in range(4)]:
+            f.result(timeout=120)
+    assert K.murmur3_fixed_rows.launches == 4 * calls
+
+
+def test_hbm_bracket_end_waits_only_on_its_own_stream(cuda, task_thread):
+    """The audit's bracket drains the bracketed thread's stream alone: a
+    task stream that still sleeps stays busy."""
+    from spark_rapids_jni_tpu_torch.memory import hbm
+    from spark_rapids_jni_tpu_torch.ops.sort import sort_table
+    from spark_rapids_jni_tpu_torch.utils import config
+    other = torch.cuda.Stream(cuda)
+    t = _mixed(1 << 16, cuda)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(other):
+        torch.cuda._sleep(SLEEP_CYCLES)
+    hbm.reset()
+    with config.override("rmm.validate_hbm", True):
+        sort_table(t, [0, 1])
+    assert hbm.report()["validated"] == 1
+    assert not other.query()
+    other.synchronize()
+    hbm.reset()
+
+
+def test_a_task_read_runs_on_the_task_stream_alone(cuda, tmp_path):
+    """A Parquet read inside a task: every kernel and copy of it is on one
+    stream, the task's. The decode pool's threads (default stream) do
+    host work only; the ship to the device runs in the task's thread."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_jni_tpu_torch.parallel import TaskExecutor
+    from spark_rapids_jni_tpu_torch.parquet import read_parquet
+    from spark_rapids_jni_tpu_torch.utils import datagen_parquet as W
+    rng = np.random.default_rng(4)
+    path = str(tmp_path / "task.parquet")
+    W.write_parquet(path, [
+        W.ParquetColumn("k", values=rng.integers(0, 1 << 40, 200_000)),
+        W.ParquetColumn("d", values=rng.integers(0, 2400, 200_000)
+                        .astype(np.int32))], row_group_rows=50_000)
+    with TaskExecutor(device=cuda) as ex:
+        ex.submit(1, read_parquet, path, device=cuda).result(timeout=120)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            table = ex.submit(1, read_parquet, path,
+                              device=cuda).result(timeout=120)
+            torch.cuda.synchronize()
+    streams = {e.device_resource_id for e in prof.events()
+               if e.device_type == DeviceType.CUDA}
+    assert len(streams) == 1, streams
+    assert table.num_rows == 200_000
+
+
+def test_a_spill_from_another_task_waits_for_the_writing_stream(cuda):
+    """Task A registers a table its stream is still writing; task B's
+    rollback spills the store at once, on B's stream: the copy waits for
+    A's stream (the event recorded at register), so the host bytes are
+    the table's."""
+    import threading
+    from spark_rapids_jni_tpu_torch.memory.transport import SpillStore
+    from spark_rapids_jni_tpu_torch.parallel import TaskExecutor
+    n = 1 << 22
+    store, registered = SpillStore(), threading.Event()
+
+    def write():
+        torch.cuda._sleep(SLEEP_CYCLES)
+        col = Column(dt.INT64, n, data=torch.arange(n, device=cuda))
+        st = store.register(Table((col,)))
+        registered.set()
+        return st
+
+    def spill():
+        registered.wait(timeout=60)
+        store.spill_all()
+
+    with TaskExecutor(device=cuda) as ex:
+        fa = ex.submit(1, write)
+        ex.submit(2, spill).result(timeout=60)
+        st = fa.result(timeout=60)
+        assert st.is_spilled
+        host = st._table.columns[0].data
+        assert host.device.type == "cpu"
+        assert torch.equal(host, torch.arange(n))
