@@ -394,15 +394,21 @@ def _hang_storm(p, tmp_path):
                     task__degrade_after=2), p["X"]() as ex:
         out = ex.submit(1, _murmur, p).result(timeout=60)
         degraded = ex.degraded_task_ids()
-    return out, degraded, _metrics(p, LADDER)
+    m = _metrics(p, LADDER)
+    # a degraded attempt that outlives its budget on a loaded host is one
+    # more stall detected (timing, not the ladder): compared apart
+    stalls = (m.pop("stall_detected"), m.pop("stall_cancelled"))
+    return (out, degraded, m), stalls
 
 
 def test_hang_storm_unbounded_degrades_to_host_path(tmp_path):
     got = _both(_hang_storm, tmp_path)
-    assert got["port"] == got["jax"]
-    out, degraded, m = got["port"]
+    assert got["port"][0] == got["jax"][0]
+    (out, degraded, m), _ = got["port"]
     assert out == _murmur(PKGS["port"]) and degraded == [1]
-    assert (m["stall_detected"], m["degradations"]) == (2, 1)
+    assert (m["injected_delays"], m["degradations"]) == (2, 1)
+    for name, (_, (detected, cancelled)) in got.items():
+        assert detected >= 2 and cancelled >= 2, name
 
 
 def _wedge_requeued(p):
